@@ -6,12 +6,18 @@
 Phases, one JSON line each; any failure raises and exits nonzero:
 
 1. device: the card, its power limit (``nvidia-smi``), TF32 off;
-2. build: ``nvcc`` compiles ``fognetsimpp_tpu_torch/csrc/arrival_plan.cu``
-   for sm_90a (seconds, registers and shared memory from ``-Xptxas -v``);
+2. build: ``nvcc`` compiles ``fognetsimpp_tpu_torch/csrc/*.cu`` for sm_90a,
+   one process a source, all at once (seconds, registers and shared memory
+   from ``-Xptxas -v``);
 3. kernels: each CUDA kernel against its plain PyTorch version on the same
-   card inputs (exact equality); the device time per call of each (from
+   card inputs (exact equality), at the main paths' shapes among others
+   (``fused_arrival_plan`` at the bench's K = 4096 window and at the tp
+   world's gathered window of 4 x 34,142 rows, 64 fogs, with tick 0's
+   share of masked rows); the device time per call of each (from
    ``torch.profiler``), the wrapper's wall time per call, and the least
-   time the function could take on these inputs, with its counts;
+   time the function could take on these inputs, with its counts; for the
+   ring all-gather also one ``torch.cat(blocks, out=...)`` a shard, the
+   library call that computes the same function;
 4. smoke: ``smoke.build(horizon=0.5)`` on the card against the same world on
    the CPU, every leaf equal, and the run's summary;
 5. bench: the bench world at full width (10,000 users x 32 fogs, K = 4096,
@@ -23,6 +29,17 @@ Phases, one JSON line each; any failure raises and exits nonzero:
 7. profile: where a bench tick's time goes on the card (kernel launches,
    device time and idle share per tick, the heaviest kernels, the window's
    masked rows a tick);
+8. tp: ``bench.py::tp_measurement``'s world (2^20 users x 64 fogs, 50
+   ticks of 5 ms, 9,437,184 task rows) under ``run_tp_sharded`` at four
+   shards with the bench's exchange window: card against CPU every leaf
+   over the first ``TP_CHECK_TICKS`` ticks (also the warm-up), then the
+   whole horizon timed (decisions per second, ms per tick, the ring and
+   arrival kernels' launches), and profiles of two ticks from tick 0 and
+   from the horizon (``tp_profile``), where the arrival kernel is also
+   held against its plain version on every window that holds rows;
+9. tp_window: the bench world of phase 5 (dt 5 ms, K = 4096) under
+   ``run_tp_sharded`` at four shards, the windowed top-K exchange, against
+   the single-device ``engine.run`` on the card, every leaf;
 
 then the ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` prints them, and ``{"ok": true, "device": {...}}`` last.
@@ -48,11 +65,18 @@ CUDA_CORE_OPS_PER_S = 67e12
 OPS_PER_PAIR = 2
 #: Name fragments of the fused kernel's three launches in a device trace.
 OUR_KERNELS = ("init_kernel", "arrival_plan_kernel", "unpack_kernel")
+#: The ring all-gather's one launch in a device trace.
+RING_KERNEL = "ring_gather_kernel"
 
-KERNEL_SOURCE = "fognetsimpp_tpu_torch/csrc/arrival_plan.cu"
+SOURCES = {
+    "fused_arrival_plan": "fognetsimpp_tpu_torch/csrc/arrival_plan.cu",
+    "pairwise_rank": "fognetsimpp_tpu_torch/csrc/arrival_plan.cu",
+    "ring_all_gather": "fognetsimpp_tpu_torch/csrc/ring_gather.cu",
+}
 REPLACES = {
     "fused_arrival_plan": "fognetsimpp_tpu/ops/pallas_kernels.py:155",
     "pairwise_rank": "fognetsimpp_tpu/ops/pallas_kernels.py:320",
+    "ring_all_gather": "fognetsimpp_tpu/ops/pallas_kernels.py:234",
 }
 
 
@@ -81,6 +105,25 @@ WIDE_FOG = dict(
     arrival_window=1024, derive_acks=True,
 )
 
+#: ``bench.py::tp_measurement``'s world at its defaults: 2^20 users x 64
+#: fogs, send interval 50 ms, dt 5 ms, 0.25 s, one send a tick.
+TP_WORLD = dict(
+    n_users=1_048_576, n_fogs=64, fog_mips=(1000.0, 2000.0, 3000.0, 4000.0),
+    send_interval=0.05, horizon=0.25, dt=5e-3,
+    max_sends_per_user=int(0.25 / 0.05) + 4, max_sends_per_tick=1,
+    queue_capacity=128, start_time_max=min(0.05, 0.25 / 4), derive_acks=True,
+)
+TP_SHARDS = 4
+#: The bench's per-shard exchange window (bench.py:579-580): 34,142.
+TP_K_EX = max(256, int(1.3 * (TP_WORLD["n_users"] // TP_SHARDS) * 5e-3 / 0.05) + 64)
+#: Ticks of the tp world held card against CPU (the CPU run's length).
+TP_CHECK_TICKS = 10
+#: Masked rows of a shard's arrival-plan window at the tp world's tick 0
+#: (this script's ``tp_profile`` phase on an H100); the kernel phase
+#: holds the kernel against its plain version at that share of the
+#: window's rows.
+TP_TICK0_MASKED = 86_103
+
 
 def main() -> int:
     import numpy as np
@@ -94,6 +137,9 @@ def main() -> int:
     from fognetsimpp_tpu_torch.core import engine
     from fognetsimpp_tpu_torch.net.topology import associate
     from fognetsimpp_tpu_torch.ops import arrival_kernels as ak
+    from fognetsimpp_tpu_torch.ops import cuda_build
+    from fognetsimpp_tpu_torch.ops import ring_kernels as rk
+    from fognetsimpp_tpu_torch.parallel.taskshard import run_tp_sharded
     from fognetsimpp_tpu_torch.runtime.signals import summarize
     from fognetsimpp_tpu_torch.scenarios import smoke
     from fognetsimpp_tpu_torch.state import state_to_numpy, tree_leaves
@@ -113,17 +159,18 @@ def main() -> int:
     })
 
     # ---- 2. build --------------------------------------------------------
-    path, secs, log = ak.build()
+    path, secs, log = cuda_build.build()
     emit({
         "phase": "build", "seconds": round(secs, 3), "library": path,
         "ptxas": [ln.strip() for ln in log.splitlines()
-                  if "registers" in ln or "Compiling entry" in ln],
+                  if "registers" in ln or "Compiling entry" in ln
+                  or ln.startswith("== ")],
     })
 
     # ---- 3. kernels against their plain versions -------------------------
-    def window(K, F, seed):
+    def window(K, F, seed, p_mask=0.7):
         rng = np.random.default_rng(seed)
-        mask = rng.random(K) < 0.7
+        mask = rng.random(K) < p_mask
         fog = rng.integers(0, F, K).astype(np.int32)
         t = np.round(rng.random(K) * 0.01, 4).astype(np.float32)  # ties
         f_key = np.where(mask, fog, F).astype(np.int32)
@@ -192,71 +239,188 @@ def main() -> int:
             "same_fog_pairs": pairs, "ops": n_ops, "bytes": n_bytes,
         }
 
-    kernel_rows = {}
-    cases = [
-        ("fused_arrival_plan", 4096, 32, True),  # the bench window
-        ("fused_arrival_plan", 1000, 7, False),  # ragged edge
-        ("pairwise_rank", 4096, 32, False),
-        ("pairwise_rank", WIDE_FOG["arrival_window"], WIDE_FOG["n_fogs"], True),
-    ]
-    for name, K, F, main_shape in cases:
-        inp = window(K, F, seed=K + F)
+    def check_arrival_kernel(name, inp, F, reps):
+        """The kernel against its plain version on ``inp``: exact equality
+        (or SystemExit), device and wall times of both, and the bound.
+        ``reps`` = (kernel device, plain device, kernel wall, plain wall)
+        calls."""
         fused = name == "fused_arrival_plan"
         if fused:
-            got = ak.fused_arrival_plan(*inp, F)
-            torch.cuda.synchronize()
-            want = ak.fused_arrival_plan_plain(*inp, F)
             run_k = lambda: ak.fused_arrival_plan(*inp, F)  # noqa: E731
             run_p = lambda: ak.fused_arrival_plan_plain(*inp, F)  # noqa: E731
         else:
-            got = (ak.pairwise_rank(*inp),)
-            torch.cuda.synchronize()
-            want = (ak.pairwise_rank_plain(*inp),)
-            run_k = lambda: ak.pairwise_rank(*inp)  # noqa: E731
-            run_p = lambda: ak.pairwise_rank_plain(*inp)  # noqa: E731
+            run_k = lambda: (ak.pairwise_rank(*inp),)  # noqa: E731
+            run_p = lambda: (ak.pairwise_rank_plain(*inp),)  # noqa: E731
+        got = run_k()
+        torch.cuda.synchronize()
+        want = run_p()
         equal = all(torch.equal(g, w) for g, w in zip(got, want))
         err = max_abs_err(got, want)
+        K = inp[0].shape[0]
+        if not equal:
+            raise SystemExit(f"{name} at K={K}, F={F} differs from its plain version")
         # device time of the kernel's own launches, and of the plain
         # version's kernels, per call
-        dev_k = {k: v for k, v in device_us(run_k, 20).items()
+        dev_k = {k: v for k, v in device_us(run_k, reps[0]).items()
                  if any(s in k for s in OUR_KERNELS)}
         if not dev_k:
             raise SystemExit(f"{name}: the profiler saw no device time of its kernels")
-        ms = sum(dev_k.values()) / 1e3
-        plain_ms = sum(device_us(run_p, 10).values()) / 1e3
-        # wall time per call of the Python wrapper, launches included
-        wrapper_ms = per_call_ms(run_k, 50)
-        plain_wrapper_ms = per_call_ms(run_p, 10)
         b = bound(*inp[:2], F, fused)
-        emit({
-            "phase": "kernel", "name": name, "K": K, "F": F,
-            "masked_rows": int(inp[0].sum()), "equal": equal, "max_abs_err": err,
-            "device_us": ms * 1e3,
+        return {
+            "name": name, "K": K, "F": F, "masked_rows": int(inp[0].sum()),
+            "equal": equal, "max_abs_err": err,
+            "ms": sum(dev_k.values()) / 1e3,
             "device_us_by_launch": {
                 s: sum(v for k, v in dev_k.items() if s in k)
                 for s in OUR_KERNELS if any(s in k for k in dev_k)
             },
-            "plain_device_us": plain_ms * 1e3,
-            "wrapper_us": wrapper_ms * 1e3, "plain_wrapper_us": plain_wrapper_ms * 1e3,
-            "bound_us": b["bound_ms"] * 1e3, "bound_by": b["bound_by"],
-            "bound_same_fog_pairs": b["same_fog_pairs"], "bound_ops": b["ops"],
-            "bound_bytes": b["bytes"],
+            "plain_ms": sum(device_us(run_p, reps[1]).values()) / 1e3,
+            # wall time per call of the Python wrapper, launches included
+            "wrapper_ms": per_call_ms(run_k, reps[2]),
+            "plain_wrapper_ms": per_call_ms(run_p, reps[3]),
+            **b,
+        }
+
+    def emit_kernel(r, **extra):
+        emit({
+            "phase": "kernel", "name": r["name"], "K": r["K"], "F": r["F"],
+            "masked_rows": r["masked_rows"], "equal": r["equal"],
+            "max_abs_err": r["max_abs_err"], "device_us": r["ms"] * 1e3,
+            "device_us_by_launch": r["device_us_by_launch"],
+            "plain_device_us": r["plain_ms"] * 1e3,
+            "wrapper_us": r["wrapper_ms"] * 1e3,
+            "plain_wrapper_us": r["plain_wrapper_ms"] * 1e3,
+            "bound_us": r["bound_ms"] * 1e3, "bound_by": r["bound_by"],
+            "bound_same_fog_pairs": r["same_fog_pairs"], "bound_ops": r["ops"],
+            "bound_bytes": r["bytes"], **extra,
+        })
+
+    def kernel_row(r, path):
+        return {
+            "name": r["name"], "route": "cuda", "source": SOURCES[r["name"]],
+            "replaces": REPLACES[r["name"]], "launches": 0,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+            "shape": {"K": r["K"], "F": r["F"], "masked_rows": r["masked_rows"]},
+            "shape_of": path, "bound_same_fog_pairs": r["same_fog_pairs"],
+            "bound_ops": r["ops"], "bound_bytes": r["bytes"],
+            "wrapper_ms": r["wrapper_ms"],
+        }
+
+    # one row of the kernels line for each kernel at each main-path shape:
+    # fused_arrival_plan at the bench window (K = 4096, the bench and
+    # tp_window paths) and at the tp world's gathered exchange window
+    # (K = 4 x 34,142, F = 64, tick 0's share of masked rows), and
+    # pairwise_rank at the wide-fog window
+    kernel_rows = {}
+    cases = [
+        # (name, K, F, share of rows masked, row of the kernels line)
+        ("fused_arrival_plan", 4096, 32, 0.7, "bench"),
+        ("fused_arrival_plan", 1000, 7, 0.7, None),  # ragged edge
+        ("fused_arrival_plan", TP_SHARDS * TP_K_EX, TP_WORLD["n_fogs"],
+         TP_TICK0_MASKED / (TP_SHARDS * TP_K_EX), "tp"),
+        ("pairwise_rank", 4096, 32, 0.7, None),
+        ("pairwise_rank", WIDE_FOG["arrival_window"], WIDE_FOG["n_fogs"], 0.7,
+         "wide_fog"),
+    ]
+    for name, K, F, p_mask, path in cases:
+        inp = window(K, F, seed=K + F, p_mask=p_mask)
+        reps = (20, 10, 50, 10) if K <= 4096 else (5, 2, 3, 1)
+        r = check_arrival_kernel(name, inp, F, reps)
+        emit_kernel(r)
+        if path is not None:
+            kernel_rows[(name, path)] = kernel_row(r, path)
+    del inp
+
+    # ---- 3b. the ring all-gather against its plain version ----------------
+    def ring_blocks(n, K, C, seed):
+        rng = np.random.default_rng(seed)
+        return [
+            torch.from_numpy(
+                rng.integers(-2 ** 31, 2 ** 31, (K, C), dtype=np.int64).astype(np.int32)
+            ).to(dev)
+            for _ in range(n)
+        ]
+
+    ring_cases = [  # (n, K, C, main shape); C = 5 and odd K leave 16-B lines
+        (2, 1000, 4, False), (8, 777, 5, False), (2, 3, 5, False),
+        (8, 4096, 4, False), (TP_SHARDS, TP_K_EX, 5, False),
+        (TP_SHARDS, TP_K_EX, 4, True),
+    ]
+    for n, K, C, main_shape in ring_cases:
+        blocks = ring_blocks(n, K, C, seed=n * 1_000_003 + K * 7 + C)
+        got = rk.ring_all_gather(blocks)
+        torch.cuda.synchronize()
+        want = rk.ring_all_gather_plain(blocks)
+        equal = len(got) == n and all(torch.equal(g, w) for g, w in zip(got, want))
+        err = max_abs_err(got, want)
+        dsts = [torch.empty((n * K, C), dtype=torch.int32, device=dev) for _ in range(n)]
+
+        def run_lib(blocks=blocks, dsts=dsts):
+            for d in dsts:
+                torch.cat(blocks, out=d)
+
+        run_k = lambda blocks=blocks: rk.ring_all_gather(blocks)  # noqa: E731
+        run_p = lambda blocks=blocks: rk.ring_all_gather_plain(blocks)  # noqa: E731
+        events_k = device_us(run_k, 20)
+        dev_k = {k: v for k, v in events_k.items() if RING_KERNEL in k}
+        if not dev_k:
+            raise SystemExit("ring_all_gather: the profiler saw no device time of its kernel")
+        ms = sum(dev_k.values()) / 1e3
+        plain_ms = sum(device_us(run_p, 20).values()) / 1e3
+        lib_ms = sum(device_us(run_lib, 20).values()) / 1e3
+        wrapper_ms = per_call_ms(run_k, 50)
+        plain_wrapper_ms = per_call_ms(run_p, 20)
+        lib_wrapper_ms = per_call_ms(run_lib, 20)
+        # each input block read once, each of the n outputs written once
+        n_bytes = (n * n + n) * K * C * 4
+        bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        emit({
+            "phase": "kernel", "name": "ring_all_gather", "n": n, "K": K, "C": C,
+            "equal": equal, "max_abs_err": err, "device_us": ms * 1e3,
+            "device_us_by_event": events_k, "plain_device_us": plain_ms * 1e3,
+            "library_device_us": lib_ms * 1e3, "wrapper_us": wrapper_ms * 1e3,
+            "plain_wrapper_us": plain_wrapper_ms * 1e3,
+            "library_wrapper_us": lib_wrapper_ms * 1e3,
+            "bound_us": bound_ms * 1e3, "bound_by": "bytes", "bound_bytes": n_bytes,
         })
         if not equal:
-            raise SystemExit(f"{name} at K={K}, F={F} differs from its plain version")
+            raise SystemExit(
+                f"ring_all_gather at n={n}, K={K}, C={C} differs from its plain version"
+            )
         if main_shape:
-            kernel_rows[name] = {
-                "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-                "replaces": REPLACES[name], "launches": 0,
+            kernel_rows[("ring_all_gather", "tp")] = {
+                "name": "ring_all_gather", "route": "cuda",
+                "source": SOURCES["ring_all_gather"],
+                "replaces": REPLACES["ring_all_gather"], "launches": 0,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
-                "library_ms": None, "shape": {"K": K, "F": F},
-                "bound_same_fog_pairs": b["same_fog_pairs"],
-                "bound_ops": b["ops"], "bound_bytes": b["bytes"],
+                "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms,
+                "shape": {"n": n, "K": K, "C": C}, "shape_of": "tp",
+                "bound_bytes": n_bytes,
                 "wrapper_ms": wrapper_ms,
             }
+    del blocks, got, want, dsts
 
     # ---- helpers for the world phases ------------------------------------
+    def device_events(prof):
+        """(device µs, number of device events, µs by name) of a profile."""
+        dev_us, n_events, by_name = 0.0, 0, {}
+        for ev in prof.events():
+            if str(ev.device_type).endswith("CUDA"):
+                us = float(ev.time_range.elapsed_us())
+                dev_us += us
+                n_events += 1
+                by_name[ev.name] = by_name.get(ev.name, 0.0) + us
+        return dev_us, n_events, by_name
+
+    def reset_launches():
+        ak.reset_launches()
+        rk.reset_launches()
+
+    def all_launches():
+        return {**ak.LAUNCHES, **rk.LAUNCHES}
+
     def assert_same(card_state, cpu_state, what):
         paths = [p for p, _ in tree_leaves(cpu_state)]
         a_all, b_all = state_to_numpy(card_state), state_to_numpy(cpu_state)
@@ -271,12 +435,12 @@ def main() -> int:
         torch.cuda.synchronize()
         spec, st, net, b = smoke.build(device=dev, **kw)
         torch.cuda.synchronize()
-        ak.reset_launches()
+        reset_launches()
         t0 = time.perf_counter()
         final, _ = engine.run(spec, st, net, b)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(ak.LAUNCHES)
+        launches = all_launches()
         return spec, final, wall, launches
 
     def cpu_run(kw):
@@ -325,7 +489,6 @@ def main() -> int:
                 f"in {spec.n_ticks} ticks"
             )
         fused_main += n_fused
-    kernel_rows["fused_arrival_plan"]["launches"] = fused_main
 
     # ---- 6. wide-fog world -----------------------------------------------
     spec, card, wall, launches = timed_run(WIDE_FOG)
@@ -339,7 +502,7 @@ def main() -> int:
     })
     if launches["pairwise_rank"] <= 0:
         raise SystemExit("wide_fog: the path never launched pairwise_rank")
-    kernel_rows["pairwise_rank"]["launches"] = launches["pairwise_rank"]
+    wide_launches = launches["pairwise_rank"]
 
     # ---- 7. where a bench tick's time goes -------------------------------
     kw = bench_world(5e-3)
@@ -371,13 +534,7 @@ def main() -> int:
         wall = time.perf_counter() - t0
     ak.fused_arrival_plan = fused_plan
     masked = [int(m.sum()) for m in windows]
-    dev_us, n_kernels, by_name = 0.0, 0, {}
-    for ev in prof.events():
-        if str(ev.device_type).endswith("CUDA"):
-            us = float(ev.time_range.elapsed_us())
-            dev_us += us
-            n_kernels += 1
-            by_name[ev.name] = by_name.get(ev.name, 0.0) + us
+    dev_us, n_kernels, by_name = device_events(prof)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     arrival_us = sum(v for k, v in by_name.items() if any(s in k for s in OUR_KERNELS))
     emit({
@@ -395,6 +552,168 @@ def main() -> int:
         "arrival_kernels_device_us_per_tick": arrival_us / n_prof,
         "top_device_us_per_tick": [[k, v / n_prof] for k, v in top],
     })
+
+    # ---- 8. the task-sharded tick at full width ---------------------------
+    def tp_run(device, n_ticks):
+        spec, st, net, b = smoke.build(device=device, **TP_WORLD)
+        spec, final = run_tp_sharded(
+            spec, st, net, b, n_shards=TP_SHARDS, n_ticks=n_ticks,
+            exchange_window=TP_K_EX,
+        )
+        return spec, final, net
+
+    # card against CPU over the first ticks; the card run is the warm-up
+    t0 = time.perf_counter()
+    _, card, _ = tp_run(dev, TP_CHECK_TICKS)
+    torch.cuda.synchronize()
+    check_card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, cpu, _ = tp_run("cpu", TP_CHECK_TICKS)
+    check_cpu_s = time.perf_counter() - t0
+    n_leaves = assert_same(card, cpu, "tp")
+    del card, cpu
+    # the whole horizon, timed
+    spec, st, net, b = smoke.build(device=dev, **TP_WORLD)
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    spec, final = run_tp_sharded(
+        spec, st, net, b, n_shards=TP_SHARDS, exchange_window=TP_K_EX
+    )
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+    del st
+    summ = summarize(final)
+    n_sched = summ["n_scheduled"]
+    emit({
+        "phase": "tp", "n_users": spec.n_users, "n_fogs": spec.n_fogs,
+        "n_shards": TP_SHARDS, "k_exchange": TP_K_EX,
+        "exchange_window_rows": TP_SHARDS * TP_K_EX,
+        "task_rows": spec.task_capacity, "ticks": spec.n_ticks,
+        "check_ticks": TP_CHECK_TICKS, "leaves_equal": n_leaves,
+        "check_card_s": check_card_s, "check_cpu_s": check_cpu_s,
+        "n_scheduled": n_sched, "n_published": summ["n_published"],
+        "n_dropped": summ["n_dropped"], "n_completed": summ["n_completed"],
+        "n_deferred_max": summ["n_deferred_max"], "wall_s": wall,
+        "task_offload_decisions_per_sec": n_sched / wall,
+        "ms_per_tick": wall / spec.n_ticks * 1e3,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "launches": launches,
+    })
+    if launches["ring_all_gather"] != spec.n_ticks:
+        raise SystemExit(
+            f"tp: ring_all_gather launched {launches['ring_all_gather']} "
+            f"times in {spec.n_ticks} ticks"
+        )
+    if launches["fused_arrival_plan"] <= 0:
+        raise SystemExit("tp: the path never launched fused_arrival_plan")
+    tp_launches = launches
+
+    # two ticks from the start (full exchange windows) and two past the
+    # horizon (saturated fogs), each without and with the profiler; each
+    # call includes the runner's set-up and the join of the shards
+    def profile_tp(state, from_tick, n_prof=2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_tp_sharded(spec, state, net, n_shards=TP_SHARDS, n_ticks=n_prof,
+                       exchange_window=TP_K_EX)
+        torch.cuda.synchronize()
+        wall_plain = time.perf_counter() - t0
+        windows, fused_plan = [], ak.fused_arrival_plan
+
+        def kept_plan(*args):
+            windows.append(args)
+            return fused_plan(*args)
+
+        ak.fused_arrival_plan = kept_plan
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                run_tp_sharded(spec, state, net, n_shards=TP_SHARDS,
+                               n_ticks=n_prof, exchange_window=TP_K_EX)
+                torch.cuda.synchronize()
+                wall_prof = time.perf_counter() - t0
+        finally:
+            ak.fused_arrival_plan = fused_plan
+        dev_us, n_events, by_name = device_events(prof)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        masked = [int(w[0].sum()) for w in windows]
+        # the kernel against its plain version on every window of these
+        # ticks that holds rows (the main path's own inputs)
+        for args in windows:
+            if int(args[0].sum()):
+                got = fused_plan(*args)
+                want = ak.fused_arrival_plan_plain(*args)
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise SystemExit(
+                        f"tp_profile: fused_arrival_plan differs from its plain "
+                        f"version on a window of tick {from_tick}-{from_tick + n_prof - 1}"
+                    )
+        emit({
+            "phase": "tp_profile", "ticks": n_prof, "from_tick": from_tick,
+            "wall_ms_per_tick": wall_prof / n_prof * 1e3,
+            "wall_ms_per_tick_unprofiled": wall_plain / n_prof * 1e3,
+            "device_events_per_tick": n_events / n_prof,
+            "device_ms_per_tick": dev_us / n_prof / 1e3,
+            "device_busy_share": (dev_us / 1e6) / wall_plain,
+            "ring_kernel_device_us_per_tick": sum(
+                v for k, v in by_name.items() if RING_KERNEL in k) / n_prof,
+            "arrival_kernels_device_us_per_tick": sum(
+                v for k, v in by_name.items() if any(s in k for s in OUR_KERNELS)
+            ) / n_prof,
+            # each shard's call a tick: the window's rows and masked rows
+            "arrival_plan_window_rows": windows[0][0].shape[0],
+            "arrival_plan_masked_rows": masked,
+            # windows with rows, each equal to the plain version on them
+            "arrival_plan_checked_windows": sum(1 for m in masked if m),
+            "top_device_us_per_tick": [[k, v / n_prof] for k, v in top],
+        })
+
+    profile_tp(final, spec.n_ticks)
+    del final
+    profile_tp(smoke.build(device=dev, **TP_WORLD)[1], 0)
+
+    # ---- 9. the windowed exchange: bench world under four shards ---------
+    kw = bench_world(5e-3)
+    spec, st, net, b = smoke.build(device=dev, **kw)
+    ref, _ = engine.run(spec, st, net, b)
+    spec, st, net, b = smoke.build(device=dev, **kw)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    _, got = run_tp_sharded(spec, st, net, b, n_shards=TP_SHARDS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+    n_leaves = assert_same(got, ref, "tp_window (TP against engine.run)")
+    emit({
+        "phase": "tp_window", "n_users": spec.n_users, "n_fogs": spec.n_fogs,
+        "n_shards": TP_SHARDS, "window": spec.window, "ticks": spec.n_ticks,
+        "leaves_equal": n_leaves, "n_scheduled": int(got.metrics.n_scheduled),
+        "wall_s": wall,
+        "task_offload_decisions_per_sec": int(got.metrics.n_scheduled) / wall,
+        "ms_per_tick": wall / spec.n_ticks * 1e3,
+        "launches": launches,
+    })
+    if launches["fused_arrival_plan"] <= 0:
+        raise SystemExit("tp_window: the path never launched fused_arrival_plan")
+    window_launches = launches
+
+    # each row's launches: the main paths' calls at that row's shape
+    by_path = {
+        ("fused_arrival_plan", "bench"): {
+            "bench": fused_main,
+            "tp_window": window_launches["fused_arrival_plan"],
+        },
+        ("fused_arrival_plan", "tp"): {"tp": tp_launches["fused_arrival_plan"]},
+        ("pairwise_rank", "wide_fog"): {"wide_fog": wide_launches},
+        ("ring_all_gather", "tp"): {"tp": tp_launches["ring_all_gather"]},
+    }
+    for key, paths in by_path.items():
+        kernel_rows[key]["launches"] = sum(paths.values())
+        kernel_rows[key]["launches_by_path"] = paths
 
     emit({"kernels": list(kernel_rows.values()),
           "seconds": round(time.perf_counter() - t_start, 1)})

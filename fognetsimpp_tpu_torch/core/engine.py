@@ -24,12 +24,12 @@ A spec that enables anything outside this slice raises
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..dynspec import DynSpec, dyn_of
-from ..envelope import check_slice
+from ..envelope import broker_dense_ok, check_slice
 from ..f32math import const, fma
 from ..net.mobility import MobilityBounds, default_bounds, step_mobility
 from ..net.topology import LinkCache, NetParams, associate
@@ -57,6 +57,146 @@ _INF = float("inf")
 _M32 = 0xFFFFFFFF
 
 
+class TpCtx(NamedTuple):
+    """Shard context threaded through the TP-aware phases (``TpCtx``).
+
+    Built by :mod:`..parallel.taskshard` for each shard's body; ``None``
+    everywhere else.  The per-user and per-task phases run on the shard's
+    LOCAL world view (a spec with ``n_users = U / n_shards`` and its rows
+    of the user and task tables); this context carries what that view
+    cannot: the shard group that runs the collectives (in place of JAX's
+    mesh axis name), the global population (per-user draws keep the
+    reference's full width), the shard's row offsets and the full
+    broker-delay vector for gathers at global ids.
+    """
+
+    group: Any  # parallel.shards.ShardGroup
+    n_shards: int
+    shard: int  # this shard's index
+    n_users_global: int  # U of the unsharded world
+    u_off: int  # first global user this shard owns
+    t_off: int  # first global task row this shard owns
+    d2b_full: torch.Tensor  # (N_global,) f32 delay to the broker
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the shards (``lax.psum``)."""
+        return self.group.psum(self.shard, x)
+
+
+def _tp_user_draw(tp: Optional[TpCtx], draw, n_local: int, *trailing):
+    """A per-user draw at the reference width, cut to the shard's users.
+
+    A shard-local draw of shape ``(U_loc, ...)`` would use other counters
+    than the reference's ``(U, ...)`` draw, so every shard draws the full
+    width and keeps its own rows: the local lanes are the reference lanes.
+    """
+    if tp is None:
+        return draw((n_local,) + tuple(trailing))
+    full = draw((tp.n_users_global,) + tuple(trailing))
+    return full[tp.u_off: tp.u_off + n_local]
+
+
+def _task_id_end(spec: WorldSpec, tp: Optional[TpCtx]) -> int:
+    """One past the last task id the fog phases see, and their invalid id:
+    the table's capacity, or under ``tp`` the global world's."""
+    if tp is None:
+        return spec.task_capacity
+    return tp.n_users_global * spec.max_sends_per_user
+
+
+def _own_rows(idx: torch.Tensor, tp: Optional[TpCtx]) -> torch.Tensor:
+    """Task ids -> rows of this task table to scatter at.  The invalid id,
+    and under ``tp`` another shard's ids, fall outside the table, where
+    the drop-mode scatters discard them (never clamped)."""
+    return idx if tp is None else idx - tp.t_off
+
+
+def _user_rows(user: torch.Tensor, tp: Optional[TpCtx]) -> torch.Tensor:
+    """User ids -> rows of this user table; another shard's users fall
+    outside it, where the drop-mode adds discard them."""
+    return user if tp is None else user - tp.u_off
+
+
+def _task_gather(spec: WorldSpec, tp: Optional[TpCtx], cols: list, idx: torch.Tensor):
+    """The task columns ``cols`` at ids ``idx``, stacked ``(len(cols),
+    len(idx))``; an invalid id gives any value, which callers mask.  Under
+    ``tp`` the shard that owns an id gives its value and every other shard
+    0, and one ``psum`` is the gather (x + 0 is exact)."""
+    T = spec.task_capacity
+    if tp is None:
+        ic = idx.clamp(0, T - 1).long()
+        return torch.stack([c[ic] for c in cols])
+    loc = idx - tp.t_off
+    owned = (loc >= 0) & (loc < T)
+    locc = loc.clamp(0, T - 1).long()
+    return tp.psum(torch.stack([torch.where(owned, c[locc], 0.0) for c in cols]))
+
+
+def _user_delays(cache: LinkCache, tp: Optional[TpCtx]) -> torch.Tensor:
+    """Delay to the broker, indexed by (global) user id."""
+    return cache.d2b if tp is None else tp.d2b_full
+
+
+def tp_reject_reason(spec: WorldSpec) -> Optional[str]:
+    """Why ``spec`` cannot run on the task-sharded tick (None = it can),
+    with the JAX gate's ``[TP-*]`` IDs in its order of clauses."""
+    if spec.n_fogs <= 0:
+        return "[TP-NOFOGS] TP tick needs fog nodes (n_fogs >= 1)"
+    if spec.chaos:
+        return (
+            "[TP-CHAOS] TP tick does not carry the chaos fault-injection "
+            "subsystem yet (run chaos worlds on single-device run/run_jit/"
+            "run_chunked)"
+        )
+    if spec.hier_active:
+        return (
+            "[TP-HIER] the TP runner does not carry the multi-broker "
+            "hierarchy yet (per-domain decide masks and the migrate phase "
+            "need cross-shard load summaries); run "
+            f"n_brokers={spec.n_brokers} worlds on single-device "
+            "run/run_jit/run_chunked"
+        )
+    if spec.fog_model != int(FogModel.FIFO):
+        return (
+            "[TP-POOL] TP tick covers FIFO fogs only (POOL pools are "
+            "sequential)"
+        )
+    if not broker_dense_ok(spec):
+        return (
+            "[TP-POLICY] TP tick covers the dense-broker policy family "
+            "(MIN_BUSY/MIN_LATENCY/ENERGY_AWARE with bug_compat."
+            "mips0_divisor, or MAX_MIPS); sequential-pool and learned "
+            "policies keep the single-device / GSPMD paths"
+        )
+    if not spec.two_stage_arrivals:
+        return "[TP-ARRIVALS] TP tick needs the two-stage arrival front-end"
+    if not spec.assume_static:
+        return (
+            "[TP-DYNTOPO] TP tick hoists one association/delay cache for "
+            "the whole run: needs assume_static"
+        )
+    if spec.energy_enabled:
+        return (
+            "[TP-ENERGY] TP tick does not carry the energy/lifecycle "
+            "model yet"
+        )
+    if spec.wired_queue_enabled:
+        return "[TP-WIRED] TP tick does not carry DropTail backpressure yet"
+    if spec.learn_active:
+        return "[TP-LEARN] TP tick does not carry bandit learner state yet"
+    if spec.record_tick_series:
+        return (
+            "[TP-SERIES] TP tick records no per-tick series (record via "
+            "summary)"
+        )
+    return None
+
+
+def tp_ok(spec: WorldSpec) -> bool:
+    """Static gate for the task-sharded tick (see tp_reject_reason)."""
+    return tp_reject_reason(spec) is None
+
+
 class TickBuf(NamedTuple):
     """Per-tick message counts by node role ([users | fogs | broker])."""
 
@@ -82,6 +222,21 @@ def _isum(x: torch.Tensor, dim=None) -> torch.Tensor:
     if dim is None:
         return x.sum(dtype=_I32)
     return x.sum(dim=dim, dtype=_I32)
+
+
+def _mips_sum64(member: torch.Tensor, mips: torch.Tensor) -> torch.Tensor:
+    """(F,) float64 sums of ``mips`` over each row of ``member`` (F, K).
+
+    Taken in float64, so a sum of integer MIPS is exact below 2^53 and
+    the same on every device and in any order.  A float32 sum of one
+    tick's MIPS to one fog passes 2^24 at full width (the dense broker
+    sends a tick's tasks to one winner), and then its bits follow the
+    order of the adds.  Rounded once to float32 it is JAX's float32 sum
+    wherever that sum is exact; past 2^24 the two part, by design, and
+    ``fogs.busy_time`` with the broker's copies of it (``adv_val_busy``,
+    ``view_busy``) depart from JAX by float32 rounding.
+    """
+    return torch.where(member, mips.double()[None, :], 0.0).sum(dim=1)
 
 
 def _per_fog(mask: torch.Tensor, fog: torch.Tensor, n_fogs: int) -> torch.Tensor:
@@ -231,10 +386,11 @@ def _phase_adverts(state, t1):
     return state.replace(broker=broker, metrics=metrics)
 
 
-def _phase_spawn(spec, state, cache, buf, t0, t1, dv: DynSpec):
+def _phase_spawn(spec, state, cache, buf, t0, t1, dv: DynSpec, tp=None):
     """Users whose send timer fired publish one task into slot
     ``u * S + send_count[u]``, as elementwise selects over the (U, S)
-    view of the task table."""
+    view of the task table.  Under ``tp`` the draws are the global
+    width's, cut to the shard's users."""
     U, T, S = spec.n_users, spec.task_capacity, spec.max_sends_per_user
     users, tasks = state.users, state.tasks
     dev = t1.device
@@ -253,8 +409,12 @@ def _phase_spawn(spec, state, cache, buf, t0, t1, dv: DynSpec):
     if spec.fixed_mips_required is not None:
         mips_req = torch.full((U,), float(spec.fixed_mips_required), dtype=_F32, device=dev)
     else:
-        mips_req = randint(
-            k_mips, (U,), spec.mips_required_min, spec.mips_required_max + 1
+        mips_req = _tp_user_draw(
+            tp,
+            lambda s: randint(
+                k_mips, s, spec.mips_required_min, spec.mips_required_max + 1
+            ),
+            U,
         ).to(_F32)
     t_arrive = t_create + cache.d2b[:U]
     sel = due[:, None] & (
@@ -272,9 +432,13 @@ def _phase_spawn(spec, state, cache, buf, t0, t1, dv: DynSpec):
         t_at_broker=put(tasks.t_at_broker, t_arrive),
     )
     if spec.send_interval_jitter > 0:
-        jit = uniform(
-            k_jit, (U,), 1.0 - spec.send_interval_jitter,
-            1.0 + spec.send_interval_jitter,
+        jit = _tp_user_draw(
+            tp,
+            lambda s: uniform(
+                k_jit, s, 1.0 - spec.send_interval_jitter,
+                1.0 + spec.send_interval_jitter,
+            ),
+            U,
         )
         # XLA fuses interval * jitter + t_create into one multiply-add
         nxt = fma(users.send_interval, jit, t_create)
@@ -292,7 +456,7 @@ def _phase_spawn(spec, state, cache, buf, t0, t1, dv: DynSpec):
     return state.replace(users=users, tasks=tasks, metrics=metrics, key=key), buf
 
 
-def _phase_spawn_multi(spec, state, cache, buf, t0, t1, dv: DynSpec):
+def _phase_spawn_multi(spec, state, cache, buf, t0, t1, dv: DynSpec, tp=None):
     """Up to ``max_sends_per_tick`` publishes per user per tick, send ``j``
     at ``max(next_send, t0) + j * interval``; per-send MIPS draws come
     from ``(U, R)`` lanes mapped onto slots by the send offset."""
@@ -316,8 +480,12 @@ def _phase_spawn_multi(spec, state, cache, buf, t0, t1, dv: DynSpec):
     if spec.fixed_mips_required is not None:
         mips2 = torch.full((U, S), float(spec.fixed_mips_required), dtype=_F32, device=dev)
     else:
-        draws = randint(
-            k_mips, (U, R), spec.mips_required_min, spec.mips_required_max + 1
+        draws = _tp_user_draw(
+            tp,
+            lambda s: randint(
+                k_mips, s, spec.mips_required_min, spec.mips_required_max + 1
+            ),
+            U, R,
         ).to(_F32)
         mips2 = torch.zeros((U, S), dtype=_F32, device=dev)
         for r in range(R):
@@ -346,10 +514,11 @@ def _phase_spawn_multi(spec, state, cache, buf, t0, t1, dv: DynSpec):
     return state.replace(users=users, tasks=tasks, metrics=metrics, key=key), buf
 
 
-def _phase_broker_dense(spec, state, cache, buf, t1):
+def _phase_broker_dense(spec, state, cache, buf, t1, tp=None):
     """The dense broker: every matured publish is decided this tick
     against one scalar winner over the (stale) fog view; topic fan-out
-    to subscribers rides along."""
+    to subscribers rides along (under ``tp`` on the global per-topic
+    counts, one ``psum``)."""
     tasks, b = state.tasks, state.broker
     U, S, F = spec.n_users, spec.max_sends_per_user, spec.n_fogs
     T = spec.task_capacity
@@ -368,6 +537,9 @@ def _phase_broker_dense(spec, state, cache, buf, t1):
             users.pub_topic[None, :] == topics[:, None],
             cnt_u[None, :].to(_F32), 0.0,
         ).sum(dim=1)
+        if tp is not None:
+            # exact f32 integers: the sum does not depend on its order
+            per_topic = tp.psum(per_topic)
         # a masked row sum rather than a matmul, so no TF32 setting reaches it
         deliveries = (users.sub_mask.to(_F32) * per_topic[None, :]).sum(dim=1).to(_I32)
         n_del = _isum(deliveries)
@@ -433,53 +605,60 @@ def _phase_broker_dense(spec, state, cache, buf, t1):
     return state.replace(tasks=tasks, users=users, metrics=metrics, key=key), buf
 
 
-def _phase_completions(spec, state, cache, buf, t1):
+def _phase_completions(spec, state, cache, buf, t1, tp=None):
     """FIFO fogs whose in-service task finished release it: status-6 ack
     relayed, busyTime decremented, FIFO head promoted at ``busy_until +
-    svc``, a fresh advertisement put in flight."""
+    svc``, a fresh advertisement put in flight.  Under ``tp`` the fog
+    state is replicated and the task rows are the shard's: the finished
+    and promoted tasks' columns come through one ``psum`` gather, task
+    writes land on the owning shard, acks count for its users only."""
     tasks, fogs, b = state.tasks, state.fogs, state.broker
     F, U, S = spec.n_fogs, spec.n_users, spec.max_sends_per_user
-    T = spec.task_capacity
+    T_id = _task_id_end(spec, tp)
     dev = t1.device
     fog_alive = state.nodes.alive[U: U + F]
     comp = (fogs.current_task != NO_TASK) & (fogs.busy_until <= t1) & fog_alive
-    done_task = torch.where(comp, fogs.current_task, T)
+    done_task = torch.where(comp, fogs.current_task, T_id)
     t_done = fogs.busy_until
-    done_c = torch.clamp(done_task, 0, T - 1).long()
-    user_of = torch.div(done_c, S, rounding_mode="floor")
+    head, q_head, q_len = batched_pop(fogs.queue, fogs.q_head, fogs.q_len, comp)
+    promoted = comp & (head != NO_TASK)
+    prom_idx = torch.where(promoted, head, T_id)
+    cols = _task_gather(
+        spec, tp, [tasks.mips_req, tasks.t_q_enter], torch.cat([done_task, prom_idx])
+    )
+    mips_done, mips_head, tq_head = cols[0, :F], cols[0, F:], cols[1, F:]
+    user_of = torch.div(done_task.clamp(0, T_id - 1).long(), S, rounding_mode="floor")
     d_fb = cache.d2b[U: U + F]
-    svc_done = _svc_time(tasks.mips_req[done_c], fogs.mips)
+    svc_done = _svc_time(mips_done, fogs.mips)
     zero = torch.zeros((), dtype=_F32, device=dev)
+    done_rows = _own_rows(done_task, tp)
+    prom_rows = _own_rows(prom_idx, tp)
     tasks = tasks.replace(
-        t_complete=set_drop(tasks.t_complete, done_task, torch.where(comp, t_done, zero)),
+        t_complete=set_drop(tasks.t_complete, done_rows, torch.where(comp, t_done, zero)),
     )
     if not spec.derive_acks:
-        t_ack6 = t_done + d_fb + cache.d2b[user_of]
+        t_ack6 = t_done + d_fb + _user_delays(cache, tp)[user_of]
         tasks = tasks.replace(
-            t_ack6=set_drop(tasks.t_ack6, done_task, torch.where(comp, t_ack6, zero)),
+            t_ack6=set_drop(tasks.t_ack6, done_rows, torch.where(comp, t_ack6, zero)),
         )
     busy_time = torch.where(comp, fogs.busy_time - svc_done, fogs.busy_time)
 
-    head, q_head, q_len = batched_pop(fogs.queue, fogs.q_head, fogs.q_len, comp)
-    promoted = comp & (head != NO_TASK)
-    head_c = torch.clamp(head, 0, T - 1).long()
-    svc_new = _svc_time(tasks.mips_req[head_c], fogs.mips)
-    prom_idx = torch.where(promoted, head, T)
+    svc_new = _svc_time(mips_head, fogs.mips)
     stage_vals = torch.cat([
         torch.full((F,), _ST_DONE, dtype=torch.int8, device=dev),
         torch.full((F,), _ST_RUNNING, dtype=torch.int8, device=dev),
     ])
     tasks = tasks.replace(
-        stage=set_drop(tasks.stage, torch.cat([done_task, prom_idx]), stage_vals),
+        stage=set_drop(tasks.stage, torch.cat([done_rows, prom_rows]), stage_vals),
         t_service_start=set_drop(
-            tasks.t_service_start, prom_idx, torch.where(comp, t_done, zero)
+            tasks.t_service_start, prom_rows, torch.where(comp, t_done, zero)
         ),
     )
     if not spec.derive_acks:
-        qt = (t_done - tasks.t_q_enter[head_c]) * 1e3
+        qt = (t_done - tq_head) * 1e3
         tasks = tasks.replace(
             queue_time_ms=set_drop(
-                tasks.queue_time_ms, prom_idx, torch.where(promoted, qt, zero)
+                tasks.queue_time_ms, prom_rows, torch.where(promoted, qt, zero)
             ),
         )
     fogs = fogs.replace(
@@ -507,7 +686,7 @@ def _phase_completions(spec, state, cache, buf, t1):
         tx_f=buf.tx_f + comp.to(_I32) * (2 if spec.adv_on_completion else 1),
         tx_b=buf.tx_b + n_comp,
         rx_b=buf.rx_b + n_comp + n_adv,
-        rx_u=add_drop(buf.rx_u, user_of, comp.to(_I32)),
+        rx_u=add_drop(buf.rx_u, _user_rows(user_of, tp), comp.to(_I32)),
     )
     return state.replace(tasks=tasks, fogs=fogs, broker=b, metrics=metrics), buf
 
@@ -533,11 +712,18 @@ def _arrival_candidates(st2, taf2, fog2, mip2, t1, R: int):
     return cks, cts, cfs, cms, cvs, _isum(m)
 
 
-def _phase_fog_arrivals(spec, state, cache, buf, t1):
+def _phase_fog_arrivals(spec, state, cache, buf, t1, tp=None, exchange=None):
     """Tasks reaching their FIFO fog are assigned or queued
     (ComputeBrokerApp3.cc:269-320), through the two-stage front: R
     candidates per user, the saturated-fog fast drop on the candidate
-    list, then the K-window compaction and the shared tail."""
+    list, then the K-window compaction and the shared tail.
+
+    Under ``tp`` the candidates are the shard's users', the fast drop's
+    per-fog sums are summed over the shards, and ``exchange`` (from
+    :mod:`..parallel.taskshard`) turns every shard's surviving candidates
+    into the window each shard's tail plans: ``exchange(state, valid,
+    ids, fog, t, mips) -> ((ids, fog, t, mips) of the window, deferred)``.
+    """
     tasks, fogs = state.tasks, state.fogs
     T, F, K = spec.task_capacity, spec.n_fogs, spec.window
     U, S = spec.n_users, spec.max_sends_per_user
@@ -557,6 +743,8 @@ def _phase_fog_arrivals(spec, state, cache, buf, t1):
     cand_v = torch.stack(cvs, dim=1).reshape(UR)
     cand_u = torch.arange(U, dtype=_I32, device=dev).repeat_interleave(R)
     cand_slot = cand_u * S + torch.stack(cks, dim=1).reshape(UR)
+    if tp is not None:
+        cand_slot = cand_slot + tp.t_off  # global task ids
 
     # saturated-fog fast drop on the candidate list
     n_fast = torch.zeros((), dtype=_I32, device=dev)
@@ -568,15 +756,17 @@ def _phase_fog_arrivals(spec, state, cache, buf, t1):
             & fog_alive
         )
         # JAX's one-hot matmuls as masked reductions, so no TF32 setting
-        # reaches them; the MIPS sums are of integers below 2^24, exact in
-        # any order
+        # reaches them; the MIPS sums are exact (_mips_sum64)
         memb = _per_fog(cand_v, cand_f, F)  # (F, UR)
         fast_drop = cand_v & (memb & droppy[:, None]).any(dim=0)
         memb_fast = memb & fast_drop[None, :]
         n_fast_f = _isum(memb_fast, 1)
-        svc_fast_f = torch.where(memb_fast, cand_m[None, :], 0.0).sum(
-            dim=1
-        ) / torch.clamp_min(fogs.mips, const(1e-9, dev))
+        mips_fast = _mips_sum64(memb_fast, cand_m)
+        if tp is not None:
+            # the decision is local (replicated fog state), its sums global
+            sums = tp.psum(torch.stack([n_fast_f.double(), mips_fast], dim=1))
+            n_fast_f, mips_fast = sums[:, 0].to(_I32), sums[:, 1]
+        svc_fast_f = mips_fast.float() / torch.clamp_min(fogs.mips, const(1e-9, dev))
         fogs = fogs.replace(
             busy_time=fogs.busy_time + svc_fast_f,
             q_drops=fogs.q_drops + n_fast_f,
@@ -590,60 +780,75 @@ def _phase_fog_arrivals(spec, state, cache, buf, t1):
         tasks = tasks.replace(stage=st2.reshape(T))
         cand_v = cand_v & ~fast_drop
 
-    # K-window compaction over the candidate list
     state = state.replace(
         metrics=state.metrics.replace(n_deferred=state.metrics.n_deferred + n_left)
     )
-    rot, state = _rot_and_defer(spec, state, cand_v, K)
-    _, idxc_c, valid = _compact(cand_v, K, UR, rot)
-    g = idxc_c.long()
-    idx = torch.where(valid, cand_slot[g], T).to(_I32)
+    if exchange is None:
+        # K-window compaction over the candidate list
+        rot, state = _rot_and_defer(spec, state, cand_v, K)
+        _, idxc_c, valid = _compact(cand_v, K, UR, rot)
+        g = idxc_c.long()
+        win = (torch.where(valid, cand_slot[g], T).to(_I32), cand_f[g], cand_t[g], cand_m[g])
+    else:
+        win, deferred = exchange(state, cand_v, cand_slot, cand_f, cand_t, cand_m)
+        state = state.replace(
+            metrics=state.metrics.replace(
+                n_deferred=state.metrics.n_deferred + deferred
+            )
+        )
     return _fog_arrivals_tail(
-        spec, state, cache, buf, tasks, fogs, idx, valid,
-        cand_f[g], cand_t[g], cand_m[g], cand_u[g], n_fast, n_fast_f,
+        spec, state, cache, buf, tasks, fogs, *win, n_fast, n_fast_f, tp=tp
     )
 
 
 def _fog_arrivals_tail(
-    spec, state, cache, buf, tasks, fogs, idx, valid,
-    fog_g, t_af_g, mips_g, user_g, n_fast, n_fast_f,
+    spec, state, cache, buf, tasks, fogs, idx, fog_g, t_af_g, mips_g,
+    n_fast, n_fast_f, tp=None,
 ):
-    """Assignment and queueing over the compacted K-window: idle fogs take
-    their earliest arrival, the rest enter the FIFO in (time, position)
-    order, ranks and per-fog reductions from :func:`plan_arrivals`."""
-    T, F, U, S = spec.task_capacity, spec.n_fogs, spec.n_users, spec.max_sends_per_user
+    """Assignment and queueing over the window (task ids ``idx``, padded
+    with the invalid id, and their fog, arrival time and MIPS): idle fogs
+    take their earliest arrival, the rest enter the FIFO in (time,
+    position) order, ranks and per-fog reductions from
+    :func:`plan_arrivals`.  Under ``tp`` every shard runs it on the same
+    window, which keeps the replicated fog and queue state coherent, and
+    task writes land on the owning shard."""
+    F, U, S = spec.n_fogs, spec.n_users, spec.max_sends_per_user
+    T_id = _task_id_end(spec, tp)
     W = idx.shape[0]
     dev = idx.device
     inf_t = torch.full((), _INF, dtype=_F32, device=dev)
     zero = torch.zeros((), dtype=_F32, device=dev)
     fog_alive = state.nodes.alive[U: U + F]
+    valid = idx < T_id
     fog_gc = torch.clamp(fog_g, 0, F - 1).long()
+    user_g = torch.div(idx.clamp(0, T_id - 1).long(), S, rounding_mode="floor")
+    d2b_u = _user_delays(cache, tp)
 
     idle = fogs.current_task == NO_TASK
     dead_dst = valid & ~fog_alive[fog_gc]
     arr = valid & ~dead_dst
     per_fog_arr = _per_fog(arr, fog_g, F)
-    mips_sum = torch.where(per_fog_arr, mips_g[None, :], 0.0).sum(dim=1)
+    mips_sum = _mips_sum64(per_fog_arr, mips_g).float()
     plan = plan_arrivals(arr, fog_g, t_af_g, F, idle, per_fog=per_fog_arr)
 
-    # immediate assignment on idle fogs
+    # immediate assignment on idle fogs; the head's arrival time and MIPS
+    # are window columns
     a_pos = plan.assign_task
     assigned = a_pos != NO_TASK
     a_posc = torch.clamp(a_pos, 0, W - 1).long()
     a_task = torch.where(assigned, idx[a_posc], NO_TASK).to(_I32)
-    a_taskc = torch.clamp(a_task, 0, T - 1).long()
-    t_start = torch.maximum(tasks.t_at_fog[a_taskc], fogs.free_since)
-    svc_a = _svc_time(tasks.mips_req[a_taskc], fogs.mips)
+    a_taskc = torch.clamp(a_task, 0, T_id - 1).long()
+    t_start = torch.maximum(t_af_g[a_posc], fogs.free_since)
+    svc_a = _svc_time(mips_g[a_posc], fogs.mips)
     d_fb = cache.d2b[U: U + F]
-    scat_a = torch.where(assigned, a_task, T)
+    scat_a = _own_rows(torch.where(assigned, a_task, T_id), tp)
     tasks = tasks.replace(
         t_service_start=set_drop(
             tasks.t_service_start, scat_a, torch.where(assigned, t_start, zero)
         ),
     )
     if not spec.derive_acks:
-        d_bu_a = cache.d2b[torch.div(a_taskc, S, rounding_mode="floor")]
-        t_ack5 = t_start + d_fb + d_bu_a
+        t_ack5 = t_start + d_fb + d2b_u[torch.div(a_taskc, S, rounding_mode="floor")]
         tasks = tasks.replace(
             t_ack5=set_drop(tasks.t_ack5, scat_a, torch.where(assigned, t_ack5, zero)),
         )
@@ -671,15 +876,16 @@ def _fog_arrivals_tail(
             ),
         ),
     )
+    rows = _own_rows(idx, tp)
     tasks = tasks.replace(
-        stage=set_drop(tasks.stage, idx, stage_k),
-        t_q_enter=set_drop(tasks.t_q_enter, idx, torch.where(enq_ok, t_af_g, inf_t)),
+        stage=set_drop(tasks.stage, rows, stage_k),
+        t_q_enter=set_drop(tasks.t_q_enter, rows, torch.where(enq_ok, t_af_g, inf_t)),
     )
     if not spec.derive_acks:
-        a4 = t_af_g + d_fb[fog_gc] + cache.d2b[user_g.long()]
+        a4 = t_af_g + d_fb[fog_gc] + d2b_u[user_g]
         tasks = tasks.replace(
             t_ack4_queued=set_drop(
-                tasks.t_ack4_queued, idx, torch.where(enq_ok, a4, inf_t)
+                tasks.t_ack4_queued, rows, torch.where(enq_ok, a4, inf_t)
             ),
         )
     acked = (assigned_g & (idx == a_task_g)) | enq_ok
@@ -701,7 +907,7 @@ def _fog_arrivals_tail(
         rx_f=buf.rx_f + arr_per_fog,
         tx_b=buf.tx_b + sums[2],
         rx_b=buf.rx_b + sums[2],
-        rx_u=add_drop(buf.rx_u, user_g, acked.to(_I32)),
+        rx_u=add_drop(buf.rx_u, _user_rows(user_g, tp), acked.to(_I32)),
     )
     return state.replace(tasks=tasks, fogs=fogs, metrics=metrics), buf
 

@@ -57,7 +57,7 @@ def slice_reject_reason(spec: WorldSpec, net=None) -> Optional[str]:
     if spec.ingest:
         return "twin ingestion (ROADMAP.md §1 item 16)"
     if spec.tp_shards:
-        return "the task-sharded tick (ROADMAP.md §1 item 18)"
+        return "the task-sharded telemetry plane (ROADMAP.md §1 item 23)"
     return None
 
 
@@ -66,3 +66,18 @@ def check_slice(spec: WorldSpec, net=None) -> None:
     why = slice_reject_reason(spec, net)
     if why is not None:
         raise NotImplementedError(f"not ported yet: {why}")
+
+
+def check_tp_slice(spec: WorldSpec, net=None) -> None:
+    """The task-sharded runner's envelope: the single-device slice, less
+    the planes the TP tick does not carry yet.  The TP family itself is
+    the JAX gate's (``engine.tp_reject_reason``)."""
+    if (
+        spec.telemetry or spec.telemetry_hist or spec.journey_active
+        or spec.tp_shards
+    ):
+        raise NotImplementedError(
+            "not ported yet: telemetry, the latency histogram and journeys "
+            "under the task-sharded tick (ROADMAP.md §1 items 14 and 23)"
+        )
+    check_slice(spec, net)

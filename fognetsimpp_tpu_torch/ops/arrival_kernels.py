@@ -11,23 +11,20 @@ Counterparts of the two Pallas kernels in
 * :func:`pairwise_rank` — the rank output alone.
 
 On a CUDA tensor each wrapper launches its kernel from
-``csrc/arrival_plan.cu`` (built on first use with ``nvcc`` for sm_90a into
-``_build/`` and bound with ``ctypes``) and raises if the build or the
-launch fails.  On a CPU tensor it runs the plain version beside it, which
-the tests hold against the Pallas kernels in interpret mode.  Each kernel
-launch adds one to :data:`LAUNCHES`.
+``csrc/arrival_plan.cu`` (built on first use by :mod:`.cuda_build` and
+bound with ``ctypes``) and raises if the build or the launch fails.  On a
+CPU tensor it runs the plain version beside it, which the tests hold
+against the Pallas kernels in interpret mode.  Each kernel launch adds one
+to :data:`LAUNCHES`.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
+
+from . import cuda_build
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
 LAUNCHES: Dict[str, int] = {"fused_arrival_plan": 0, "pairwise_rank": 0}
@@ -35,10 +32,8 @@ LAUNCHES: Dict[str, int] = {"fused_arrival_plan": 0, "pairwise_rank": 0}
 #: Largest fog axis the fused kernel's per-block shared-memory tables hold.
 FUSED_MAX_FOGS = 1024
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "arrival_plan.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-_lib: Optional[ctypes.CDLL] = None
+#: Rows of the plain rank's pairwise compare taken at once.
+_PLAIN_ROWS = 2048
 
 
 def reset_launches() -> None:
@@ -54,15 +49,20 @@ def pairwise_rank_plain(
     mask: torch.Tensor, fog_key: torch.Tensor, t_key: torch.Tensor
 ) -> torch.Tensor:
     """(K,) i32 within-fog rank, -1 where masked out: the O(K^2) pairwise
-    compare and row sum of ``ops/queues.plan_arrivals``."""
+    compare and row sum of ``ops/queues.plan_arrivals``, taken
+    ``_PLAIN_ROWS`` rows at a time so that a wide window fits in memory."""
     K = mask.shape[0]
     ids = torch.arange(K, dtype=torch.int32, device=mask.device)
-    same = fog_key[None, :] == fog_key[:, None]
-    earlier = (t_key[None, :] < t_key[:, None]) | (
-        (t_key[None, :] == t_key[:, None]) & (ids[None, :] < ids[:, None])
-    )
-    before = same & earlier & mask[None, :]
-    cnt = before.sum(dim=1, dtype=torch.int32)
+    parts = []
+    for r0 in range(0, K, _PLAIN_ROWS):
+        r = slice(r0, r0 + _PLAIN_ROWS)
+        same = fog_key[None, :] == fog_key[r, None]
+        earlier = (t_key[None, :] < t_key[r, None]) | (
+            (t_key[None, :] == t_key[r, None]) & (ids[None, :] < ids[r, None])
+        )
+        before = same & earlier & mask[None, :]
+        parts.append(before.sum(dim=1, dtype=torch.int32))
+    cnt = torch.cat(parts) if parts else ids
     return torch.where(mask, cnt, torch.full_like(cnt, -1))
 
 
@@ -91,71 +91,10 @@ def fused_arrival_plan_plain(
 
 
 # ----------------------------------------------------------------------
-# the CUDA build and binding
+# the CUDA binding
 # ----------------------------------------------------------------------
 
-def _nvcc() -> str:
-    cand = shutil.which("nvcc")
-    if cand:
-        return cand
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-
-
-def library_path() -> str:
-    """Where the built library lives: keyed on the source's hash, so an
-    edited source is rebuilt and an unchanged one is not."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"libarrival_plan_{digest}.so")
-
-
-def build_command(out: str) -> list:
-    return [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", out, SOURCE,
-    ]
-
-
-def build() -> Tuple[str, float, str]:
-    """Compile ``csrc/arrival_plan.cu`` unless the library is built.
-
-    Returns ``(path, seconds, compiler output)``; raises with nvcc's
-    output if the build fails.
-    """
-    out = library_path()
-    if os.path.exists(out):
-        return out, 0.0, ""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        build_command(tmp), capture_output=True, text=True, check=False
-    )
-    secs = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, out)
-    return out, secs, log
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        path, _, _ = build()
-        lib = ctypes.CDLL(path)
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.fns_fused_arrival_plan.argtypes = [vp, vp, vp, ci, ci, vp, vp, vp, vp, vp, vp]
-        lib.fns_fused_arrival_plan.restype = ci
-        lib.fns_pairwise_rank.argtypes = [vp, vp, vp, ci, vp, vp]
-        lib.fns_pairwise_rank.restype = ci
-        _lib = lib
-    return _lib
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
 
 
 def _check_inputs(mask, fog_key, t_key) -> int:
@@ -180,15 +119,6 @@ def _check_inputs(mask, fog_key, t_key) -> int:
     return K
 
 
-def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-
-
 def fused_arrival_plan(
     mask: torch.Tensor, fog_key: torch.Tensor, t_key: torch.Tensor, n_fogs: int
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -205,20 +135,23 @@ def fused_arrival_plan(
         raise ValueError(
             f"fused_arrival_plan takes 1..{FUSED_MAX_FOGS} fogs, got {F}"
         )
-    lib = _load()
+    fn = cuda_build.function(
+        "fns_fused_arrival_plan",
+        [_VP, _VP, _VP, _CI, _CI, _VP, _VP, _VP, _VP, _VP, _VP],
+    )
     dev = mask.device
     rank = torch.empty((K,), dtype=torch.int32, device=dev)
     counts = torch.empty((F,), dtype=torch.int32, device=dev)
     t_min = torch.empty((F,), dtype=torch.float32, device=dev)
     first = torch.empty((F,), dtype=torch.int32, device=dev)
     key = torch.empty((F,), dtype=torch.int64, device=dev)  # scratch
-    err = lib.fns_fused_arrival_plan(
+    err = fn(
         mask.data_ptr(), fog_key.data_ptr(), t_key.data_ptr(), K, F,
         rank.data_ptr(), counts.data_ptr(), t_min.data_ptr(),
-        first.data_ptr(), key.data_ptr(), _stream(dev),
+        first.data_ptr(), key.data_ptr(), cuda_build.stream_of(dev),
     )
-    _raise_on(err, "fused_arrival_plan")
-    LAUNCHES["fused_arrival_plan"] += 1
+    cuda_build.raise_on(err, "fused_arrival_plan")
+    cuda_build.count_launch(LAUNCHES, "fused_arrival_plan")
     return rank, counts, t_min, first
 
 
@@ -229,14 +162,16 @@ def pairwise_rank(
     if not mask.is_cuda:
         return pairwise_rank_plain(mask, fog_key, t_key)
     K = _check_inputs(mask, fog_key, t_key)
-    lib = _load()
+    fn = cuda_build.function(
+        "fns_pairwise_rank", [_VP, _VP, _VP, _CI, _VP, _VP]
+    )
     dev = mask.device
     rank = torch.empty((K,), dtype=torch.int32, device=dev)
     if K:
-        err = lib.fns_pairwise_rank(
+        err = fn(
             mask.data_ptr(), fog_key.data_ptr(), t_key.data_ptr(), K,
-            rank.data_ptr(), _stream(dev),
+            rank.data_ptr(), cuda_build.stream_of(dev),
         )
-        _raise_on(err, "pairwise_rank")
-        LAUNCHES["pairwise_rank"] += 1
+        cuda_build.raise_on(err, "pairwise_rank")
+        cuda_build.count_launch(LAUNCHES, "pairwise_rank")
     return rank

@@ -42,6 +42,24 @@ def row_lexmin(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return keys.amin(dim=1), keys.argmin(dim=1).to(torch.int32)
 
 
+def topk_merge_sorted(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Merge two ``(K, W)`` i32 windows sorted ascending on their last
+    column and keep the best ``K`` rows (``queues.topk_merge_sorted``).
+
+    Each row's merged rank is its own index plus a binary-search count on
+    the other side (``a`` wins ties), and two drop-mode scatters place
+    the rows; for unique keys the result does not depend on which window
+    is ``a``.
+    """
+    K = a.shape[0]
+    av, bv = a[:, -1].contiguous(), b[:, -1].contiguous()
+    k = torch.arange(K, dtype=torch.int32, device=a.device)
+    rank_a = k + torch.searchsorted(bv, av, side="left").to(torch.int32)
+    rank_b = k + torch.searchsorted(av, bv, side="right").to(torch.int32)
+    out = set_drop(torch.zeros_like(a), rank_a, a)
+    return set_drop(out, rank_b, b)
+
+
 def _sort_rank(mask, f_key, t_arrive) -> torch.Tensor:
     """The K > 4096 branch: ``jnp.lexsort((ids, t_arrive, f_key))`` as
     three stable sorts, then each row's offset in its fog segment."""

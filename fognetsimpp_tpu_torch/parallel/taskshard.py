@@ -1,0 +1,561 @@
+"""The task-sharded (TP) tick and its runner: one world's user and task
+rows split over ``n`` shards.
+
+Counterpart of the explicit ``shard_map`` TP tick of
+``fognetsimpp_tpu/parallel/taskshard.py`` for the dense-broker FIFO
+static family (:func:`..core.engine.tp_reject_reason`).  It is the same
+algorithm: each shard runs the engine's phases, given the shard context
+``tp``, on its LOCAL world view (a
+spec with ``n_users = U / n``, its rows of the user, task and user-node
+tables; fog, broker, metrics and PRNG state replicated, one copy per
+shard), with the collectives at the places the JAX tick has them:
+
+- spawn and connect: none (per-user draws at the global width, cut);
+- dense broker: one ``psum`` of the per-topic fan-out counts;
+- completions: one ``psum`` a pass gathers the task columns the
+  replicated fog state points at (``engine._task_gather``);
+- fog arrivals: one ``psum`` of the saturated-fog drop sums, then the
+  exchange (:func:`_exchange`): the no-window ring (:meth:`ShardGroup.ring_all_gather`, the
+  CUDA kernel of ``csrc/ring_gather.cu``) or, for a windowed spec, the
+  distributed top-K merge (:meth:`ShardGroup.ring_topk_merge`); every
+  shard runs the reference assignment and FIFO tail on the assembled
+  window, and task writes land on the owning shard only;
+- counters: one end-of-tick ``psum``.
+
+The shards run as threads of one process on one device
+(:mod:`.shards`), the way ``shard_map`` runs one body per device.  Every
+leaf is bit-equal to the single-device engine where the JAX TP tick is
+(no exchange window, or a windowed spec), and to the JAX TP runner with
+a bounded exchange window.  Telemetry, the latency histogram and journeys
+are not carried (``envelope.check_tp_slice``); DynSpec promotion and
+donation have no counterpart: the runner takes the static path.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Callable, List, Optional, Tuple
+
+import torch
+
+from ..core.engine import (
+    _F32,
+    _I32,
+    _INF,
+    _M32,
+    TickBuf,
+    TpCtx,
+    _compact,
+    _compact_lane_width,
+    _finalize_derived_acks,
+    _isum,
+    _phase_adverts,
+    _phase_broker_dense,
+    _phase_completions,
+    _phase_connect,
+    _phase_fog_arrivals,
+    _phase_spawn,
+    _phase_spawn_multi,
+    tp_reject_reason,
+)
+from ..dynspec import DynSpec, dyn_of
+from ..envelope import check_tp_slice
+from ..f32math import const
+from ..net.mobility import MobilityBounds
+from ..net.topology import LinkCache, NetParams, associate
+from ..ops.queues import NO_TASK
+from ..spec import WorldSpec
+from ..state import Metrics, NodeState, TaskState, UserState, WorldState, tree_map
+from .shards import ShardGroup
+
+_METRIC_FIELDS = tuple(f.name for f in dataclasses.fields(Metrics))
+
+
+# ----------------------------------------------------------------------
+# population padding
+# ----------------------------------------------------------------------
+
+def pad_users_to_multiple(
+    spec: WorldSpec, state: WorldState, net: NetParams, n: int
+) -> Tuple[WorldSpec, WorldState, NetParams]:
+    """Pad the population up to a multiple of ``n`` with INERT users
+    (``taskshard.pad_users_to_multiple``): never started, not publishers,
+    unconnected, their task rows UNUSED, their node rows unattached, so no
+    phase ever touches them."""
+    U = spec.n_users
+    pad = (-U) % n
+    if pad == 0:
+        return spec, state, net
+    if spec.learn_active:
+        raise ValueError(
+            "pad_users_to_multiple does not extend per-task learner "
+            "state; pick a divisible population for learned policies"
+        )
+    S = spec.max_sends_per_user
+    U2 = U + pad
+    spec2 = dataclasses.replace(spec, n_users=U2).validate()
+
+    def block(x, rows, fill):
+        return torch.full(
+            (rows,) + tuple(x.shape[1:]), fill, dtype=x.dtype, device=x.device
+        )
+
+    def ins_nodes(x, fill):
+        return torch.cat([x[:U], block(x, pad, fill), x[U:]])
+
+    def app_users(x, fill):
+        return torch.cat([x, block(x, pad, fill)])
+
+    def app_tasks(x, fill):
+        return torch.cat([x, block(x, pad * S, fill)])
+
+    nd = state.nodes
+    e_cap = spec.energy_capacity_j
+    nodes = NodeState(
+        kind=ins_nodes(nd.kind, 0),  # NodeKind.USER
+        pos=ins_nodes(nd.pos, 0.0),
+        alive=ins_nodes(nd.alive, True),
+        mobility=ins_nodes(nd.mobility, 0),
+        vel=ins_nodes(nd.vel, 0.0),
+        circle_center=ins_nodes(nd.circle_center, 0.0),
+        circle_radius=ins_nodes(nd.circle_radius, 0.0),
+        circle_omega=ins_nodes(nd.circle_omega, 0.0),
+        circle_phase=ins_nodes(nd.circle_phase, 0.0),
+        energy=ins_nodes(nd.energy, e_cap),
+        energy_capacity=ins_nodes(nd.energy_capacity, e_cap),
+        has_energy=ins_nodes(nd.has_energy, False),
+        link_backlog=ins_nodes(nd.link_backlog, 0.0),
+        link_drop_p=ins_nodes(nd.link_drop_p, 0.0),
+        tx_count=ins_nodes(nd.tx_count, 0),
+        rx_count=ins_nodes(nd.rx_count, 0),
+        assoc_sum=ins_nodes(nd.assoc_sum, 0),
+    )
+    us = state.users
+    users = UserState(
+        next_send=app_users(us.next_send, _INF),
+        send_count=app_users(us.send_count, 0),
+        send_interval=app_users(us.send_interval, spec.send_interval),
+        connected=app_users(us.connected, False),
+        start_t=app_users(us.start_t, _INF),
+        connack_at=app_users(us.connack_at, _INF),
+        publisher=app_users(us.publisher, False),
+        pub_topic=app_users(us.pub_topic, 0),
+        sub_mask=app_users(us.sub_mask, False),
+        n_delivered=app_users(us.n_delivered, 0),
+    )
+    tk = state.tasks
+    inf_cols = (
+        "t_create", "t_at_broker", "t_at_fog", "t_service_start",
+        "t_complete", "t_q_enter", "t_ack3", "t_ack4_fwd", "t_ack4_queued",
+        "t_ack5", "t_ack6", "queue_time_ms",
+    )
+    tasks = TaskState(
+        stage=app_tasks(tk.stage, 0),  # Stage.UNUSED
+        user=torch.arange(U2, dtype=_I32, device=tk.user.device).repeat_interleave(S),
+        fog=app_tasks(tk.fog, NO_TASK),
+        mips_req=app_tasks(tk.mips_req, 0.0),
+        req_open=app_tasks(tk.req_open, 0),
+        **{c: app_tasks(getattr(tk, c), _INF) for c in inf_cols},
+    )
+    net2 = net.replace(
+        node_attach=ins_nodes(net.node_attach, -1),  # unattached ghosts
+        node_acc=ins_nodes(net.node_acc, 0.0),
+        is_wireless=ins_nodes(net.is_wireless, False),
+        ap_nodes=torch.where(net.ap_nodes >= U, net.ap_nodes + pad, net.ap_nodes),
+    )
+    return spec2, state.replace(nodes=nodes, users=users, tasks=tasks), net2
+
+
+# ----------------------------------------------------------------------
+# exchange helpers
+# ----------------------------------------------------------------------
+
+def ring_all_gather(x: torch.Tensor, tp: TpCtx) -> torch.Tensor:
+    """Every shard's ``(K, C)`` block as ``(n*K, C)``, in global shard
+    order (``taskshard.ring_all_gather``)."""
+    if tp.n_shards == 1:
+        return x
+    return tp.group.ring_all_gather(tp.shard, x)
+
+
+def ring_topk_merge(win: torch.Tensor, tp: TpCtx) -> torch.Tensor:
+    """The globally best ``K`` rows of every shard's ``(K, W)`` window
+    sorted on its last column (``taskshard.ring_topk_merge``)."""
+    if tp.n_shards == 1:
+        return win
+    return tp.group.ring_topk_merge(tp.shard, win)
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> i32 bit pattern (floats packed into the one exchange array)."""
+    return x.view(_I32)
+
+
+def _floats(x: torch.Tensor) -> torch.Tensor:
+    return x.view(_F32)
+
+
+# ----------------------------------------------------------------------
+# the arrival exchange
+# ----------------------------------------------------------------------
+
+def _exchange(
+    spec, tp, k_exchange: int, window_k: Optional[int],
+    state, cand_v, cand_slot, cand_f, cand_t, cand_m,
+):
+    """The window every shard's fog tail plans, from each shard's
+    surviving candidates (``taskshard._tp_fog_arrivals``' exchange), and
+    this shard's deferred count: ``((ids, fog, t, mips), deferred)``.
+
+    With no window, this shard's first ``k_exchange`` candidates in the
+    tick-keyed scan order ride the ring all-gather, packed into one int32
+    array, and arrive in global candidate order.  A windowed spec gives
+    every candidate its global scan-order position under the engine's
+    tick-keyed rotation (``pos``), keeps each shard's best ``K`` and
+    merges them into the globally best ``K``, so the window is the one
+    the single-device engine compacts.  Sentinel rows carry the invalid
+    id ``T_g``.
+    """
+    S = spec.max_sends_per_user
+    T_g = tp.n_users_global * S
+    UR = cand_v.shape[0]
+    dev = cand_v.device
+    n_set = _isum(cand_v)
+
+    if window_k is not None:
+        # each candidate's rank in _compact's rotated scan of the GLOBAL
+        # candidate list; the rotation's modulus is the GLOBAL capacity
+        K_w = window_k
+        R = UR // spec.n_users
+        UR_g = tp.n_users_global * R
+        C_g = _compact_lane_width(UR_g)
+        B_g = -(-UR_g // C_g)
+        maxpos = B_g * C_g
+        rot = ((state.tick.long() * 2654435761) & _M32) % T_g
+        rot_b = rot % B_g
+        c0 = ((rot * 7919) & _M32) % C_g
+        g = torch.arange(UR, dtype=torch.int64, device=dev) + tp.u_off * R
+        pos = (((g // C_g - rot_b) % B_g) * C_g + ((g % C_g - c0) % C_g)).to(_I32)
+        # the local best K in ascending pos: top-k of the flipped key
+        # (valid keys >= 1; invalid rows sink to -1 and become sentinels,
+        # so the order topk gives their ties never reaches the window)
+        k_loc = min(K_w, UR)
+        vals, sel = torch.topk(torch.where(cand_v, maxpos - pos, -1), k_loc)
+        valid_w = vals > 0
+        sel = sel.long()
+        win = torch.stack([
+            torch.where(valid_w, cand_slot[sel], T_g),
+            torch.where(valid_w, cand_f[sel], 0),
+            _bits(torch.where(valid_w, cand_t[sel], _INF)),
+            _bits(torch.where(valid_w, cand_m[sel], 0.0)),
+            torch.where(valid_w, pos[sel], maxpos),
+        ], dim=1)  # (k_loc, 5) i32
+        if k_loc < K_w:
+            sent = torch.tensor(
+                [T_g, 0, 0x7F800000, 0, maxpos], dtype=_I32, device=dev
+            )  # slot, fog, bits(+inf), bits(0.0), pos
+            win = torch.cat([win, sent.expand(K_w - k_loc, 5)])
+        full = ring_topk_merge(win, tp)
+        # window-overflow deferral: a local candidate seats iff its pos is
+        # within the merged window's largest valid key
+        w_max = torch.where(full[:, 0] < T_g, full[:, 4], -1).amax()
+        deferred = n_set - _isum(cand_v & (pos <= w_max))
+    else:
+        # exchange-window compaction (no-window regime)
+        deferred = torch.clamp_min(n_set - k_exchange, 0)
+        if k_exchange >= UR:
+            rot = None  # overflow impossible: plain ascending order
+        else:
+            # bounded window: the engine's tick-keyed scan origin, modulo
+            # the LOCAL candidate count; the tick is replicated, so every
+            # shard rotates alike
+            rot = (((state.tick.long() * 2654435761) & _M32) % UR).to(_I32)
+        _, idxc_l, valid_l = _compact(cand_v, k_exchange, UR, rot)
+        gl = idxc_l.long()
+        packed = torch.stack([
+            torch.where(valid_l, cand_slot[gl], T_g),
+            torch.where(valid_l, cand_f[gl], 0),
+            _bits(torch.where(valid_l, cand_t[gl], _INF)),
+            _bits(torch.where(valid_l, cand_m[gl], 0.0)),
+        ], dim=1)  # (K_ex, 4) i32: one array around the ring
+        full = ring_all_gather(packed, tp)
+    return (full[:, 0], full[:, 1], _floats(full[:, 2]), _floats(full[:, 3])), deferred
+
+
+# ----------------------------------------------------------------------
+# the sharded tick
+# ----------------------------------------------------------------------
+
+def _zero_metrics(m: Metrics) -> Metrics:
+    return tree_map(torch.zeros_like, m)
+
+
+def _zero_buf(U: int, F: int, dev) -> TickBuf:
+    def z(*shape):
+        return torch.zeros(shape, dtype=_I32, device=dev)
+
+    return TickBuf(tx_u=z(U), rx_u=z(U), tx_f=z(F), rx_f=z(F), tx_b=z(), rx_b=z())
+
+
+def _tp_tick(
+    spec: WorldSpec, tp: TpCtx, state: WorldState, cache: LinkCache,
+    k_exchange: int, window_k: Optional[int], dv: DynSpec,
+) -> WorldState:
+    """One sharded tick over the LOCAL world view (``taskshard._tp_tick``):
+    connect -> adverts -> spawn -> dense decide -> completions xN ->
+    arrivals (the engine's phases with ``tp``, the exchange from
+    :func:`_exchange`) -> counters.  Every shard-partial counter rides
+    ONE end-of-tick ``psum``."""
+    dev = state.t.device
+    dt = const(spec.dt, dev)
+    t0 = state.tick.to(_F32) * dt
+    t1 = (state.tick + 1).to(_F32) * dt
+    U, F = spec.n_users, spec.n_fogs
+
+    m_carry = state.metrics
+    m_rep = _zero_metrics(m_carry)
+    buf_p = _zero_buf(U, F, dev)
+    state = state.replace(metrics=_zero_metrics(m_carry))  # partial acc
+
+    # the static world's hoisted cache stands in for mobility + association
+    if spec.connect_gating:
+        state, buf_p = _phase_connect(spec, state, cache, buf_p, t0, t1)
+    # advert delivery counts an F-sum, identical on every shard: it goes
+    # to the REPLICATED accumulator
+    m_part = state.metrics
+    state = _phase_adverts(state.replace(metrics=m_rep), t1)
+    m_rep, state = state.metrics, state.replace(metrics=m_part)
+    if spec.max_sends_per_tick > 1:
+        state, buf_p = _phase_spawn_multi(spec, state, cache, buf_p, t0, t1, dv, tp=tp)
+    else:
+        state, buf_p = _phase_spawn(spec, state, cache, buf_p, t0, t1, dv, tp=tp)
+    state, buf_p = _phase_broker_dense(spec, state, cache, buf_p, t1, tp=tp)
+    m_part = state.metrics
+
+    # the fog phases run on the replicated fog state, so their counters
+    # are replicated, save the acks to this shard's users and the
+    # deferral of its candidates, which are shard-partial
+    state = state.replace(metrics=m_rep)
+    buf_r = _zero_buf(U, F, dev)
+    for _ in range(spec.completions_per_tick):
+        state, buf_r = _phase_completions(spec, state, cache, buf_r, t1, tp=tp)
+    state, buf_r = _phase_fog_arrivals(
+        spec, state, cache, buf_r, t1, tp=tp,
+        exchange=functools.partial(_exchange, spec, tp, k_exchange, window_k),
+    )
+    m_rep = state.metrics
+    m_part = m_part.replace(n_deferred=m_part.n_deferred + m_rep.n_deferred)
+    m_rep = m_rep.replace(n_deferred=torch.zeros_like(m_rep.n_deferred))
+    buf_p = buf_p._replace(rx_u=buf_p.rx_u + buf_r.rx_u)
+
+    # THE end-of-tick combine: every shard-partial scalar in one psum
+    nf = len(_METRIC_FIELDS)
+    tot = tp.psum(torch.stack(
+        [getattr(m_part, f) for f in _METRIC_FIELDS] + [buf_p.tx_b, buf_p.rx_b]
+    ))
+    delta = {f: tot[i] + getattr(m_rep, f) for i, f in enumerate(_METRIC_FIELDS)}
+    n_def = delta["n_deferred"]
+    vals = {
+        f: getattr(m_carry, f) + delta[f]
+        for f in _METRIC_FIELDS
+        if f not in ("n_deferred", "n_deferred_max")
+    }
+    vals["n_deferred"] = n_def  # per-tick gauge
+    vals["n_deferred_max"] = torch.maximum(m_carry.n_deferred_max, n_def)
+    tx_b = tot[nf] + buf_r.tx_b
+    rx_b = tot[nf + 1] + buf_r.rx_b
+
+    # per-node counters: the user segment shard-local, the rest replicated
+    rest = torch.zeros((spec.n_aps + spec.n_routers,), dtype=_I32, device=dev)
+    nodes = state.nodes.replace(
+        tx_count=state.nodes.tx_count + torch.cat([buf_p.tx_u, buf_r.tx_f, tx_b[None], rest]),
+        rx_count=state.nodes.rx_count + torch.cat([buf_p.rx_u, buf_r.rx_f, rx_b[None], rest]),
+    )
+    return state.replace(
+        nodes=nodes, metrics=Metrics(**vals), t=t1, tick=state.tick + 1
+    )
+
+
+# ----------------------------------------------------------------------
+# set-up and the runners
+# ----------------------------------------------------------------------
+
+def _tp_setup(spec, state, net, n_shards, exchange_window, pad):
+    """Gate, pad and size the exchange: ``(spec, state, net, k_exchange,
+    window_k)`` (``taskshard._tp_setup``, less placement)."""
+    spec.validate()
+    reason = tp_reject_reason(spec)
+    if reason is not None:
+        raise ValueError(f"run_tp_sharded: {reason}")
+    check_tp_slice(spec, net)
+    if bool((state.nodes.mobility != 0).any()):
+        raise NotImplementedError(
+            "not ported yet: mobile nodes (ROADMAP.md §1 item 9)"
+        )
+    n = int(n_shards)
+    if n < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n}")
+    if spec.n_users % n:
+        if not pad:
+            raise ValueError(
+                f"the {n} shards must divide n_users ({spec.n_users}) — "
+                "pad_users_to_multiple(spec, state, net, n) pads with inert "
+                "users (pad=True does it for you)"
+            )
+        spec, state, net = pad_users_to_multiple(spec, state, net, n)
+    cap = (spec.n_users // n) * min(spec.arrival_cands, spec.max_sends_per_user)
+    if spec.window < spec.task_capacity:
+        # a windowed spec: its own global K bounds the exchange
+        if exchange_window is not None:
+            raise ValueError(
+                "exchange_window tunes the no-window exchange ring; a "
+                f"windowed spec (arrival_window={spec.arrival_window}) "
+                "already bounds the hop-pruned exchange to its global "
+                "K-window — drop exchange_window or the arrival window"
+            )
+        return spec, state, net, cap, spec.window
+    k_ex = cap if exchange_window is None else max(1, min(exchange_window, cap))
+    return spec, state, net, k_ex, None
+
+
+def _shard_view(spec, state, cache, n: int, s: int):
+    """Shard ``s``'s local spec, state and link cache: its rows of the
+    user, task and user-node tables; a copy of everything else."""
+    U_g, S = spec.n_users, spec.max_sends_per_user
+    U_loc = U_g // n
+    u0, t0 = s * U_loc, s * U_loc * S
+
+    def cut(x):
+        return torch.cat([x[u0: u0 + U_loc], x[U_g:]])
+
+    def copy(x):
+        return x.clone()
+
+    st = state.replace(
+        t=copy(state.t), tick=copy(state.tick), key=copy(state.key),
+        nodes=tree_map(cut, state.nodes),
+        users=tree_map(lambda x: x[u0: u0 + U_loc], state.users),
+        tasks=tree_map(lambda x: x[t0: t0 + U_loc * S], state.tasks),
+        **{
+            k: tree_map(copy, getattr(state, k))
+            for k in ("fogs", "broker", "metrics", "learn", "chaos", "hier", "telem")
+        },
+    )
+    cache_l = cache.replace(
+        assoc=cut(cache.assoc), attach_now=cut(cache.attach_now),
+        acc_delay=cut(cache.acc_delay), reachable=cut(cache.reachable),
+        d2b=cut(cache.d2b), mac_loss_p=cut(cache.mac_loss_p),
+    )
+    return dataclasses.replace(spec, n_users=U_loc), st, cache_l
+
+
+def run_tp_shards(
+    spec: WorldSpec,
+    state: WorldState,
+    net: NetParams,
+    n_shards: int = 4,
+    n_ticks: Optional[int] = None,
+    exchange_window: Optional[int] = None,
+    pad: bool = True,
+) -> Tuple[WorldSpec, List[WorldState]]:
+    """Run the sharded horizon and return every shard's final LOCAL state
+    (its rows, and its own copy of the replicated leaves), with the
+    padded spec.  :func:`run_tp_sharded` joins them."""
+    spec, state, net, k_ex, window_k = _tp_setup(
+        spec, state, net, n_shards, exchange_window, pad
+    )
+    n = int(n_shards)
+    ticks = spec.n_ticks if n_ticks is None else n_ticks
+    cache = associate(net, state.nodes.pos, state.nodes.alive, spec.broker_index)
+    group = ShardGroup(n, state.t.device)
+    U_loc, S = spec.n_users // n, spec.max_sends_per_user
+
+    def body(s: int) -> WorldState:
+        spec_l, st, cache_l = _shard_view(spec, state, cache, n, s)
+        dv = dyn_of(spec_l)
+        tp = TpCtx(
+            group=group, n_shards=n, shard=s, n_users_global=spec.n_users,
+            u_off=s * U_loc, t_off=s * U_loc * S, d2b_full=cache.d2b,
+        )
+        for _ in range(ticks):
+            st = _tp_tick(spec_l, tp, st, cache_l, k_ex, window_k, dv)
+        if spec.derive_acks:
+            st = _finalize_derived_acks(spec_l, st, cache_l)
+        return st
+
+    return spec, group.run(body)
+
+
+def run_tp_sharded(
+    spec: WorldSpec,
+    state: WorldState,
+    net: NetParams,
+    bounds: Optional[MobilityBounds] = None,
+    n_shards: int = 4,
+    n_ticks: Optional[int] = None,
+    exchange_window: Optional[int] = None,
+    pad: bool = True,
+) -> Tuple[WorldSpec, WorldState]:
+    """Advance ONE world whose user and task rows span ``n_shards``
+    shards, on the state's device (``taskshard.run_tp_sharded``).
+
+    Requires a TP-admissible spec (a ``ValueError`` naming its ``[TP-*]``
+    clause otherwise).  Returns ``(spec, final)``: the spec describes the
+    returned state (``pad=True`` pads a non-divisible population with
+    inert users), and ``final`` is the joined global state, the
+    replicated leaves from shard 0.  ``exchange_window`` bounds the
+    per-shard candidates exchanged a tick (default: all of them, never
+    deferring); a windowed spec runs the distributed K-window instead and
+    takes no ``exchange_window``.  ``bounds`` is unused: the TP family is
+    static.
+    """
+    del bounds
+    spec, finals = run_tp_shards(
+        spec, state, net, n_shards, n_ticks, exchange_window, pad
+    )
+    U_loc = spec.n_users // int(n_shards)
+
+    def cat_rows(*xs):
+        return torch.cat(xs)
+
+    def cat_nodes(*xs):
+        return torch.cat([x[:U_loc] for x in xs] + [xs[0][U_loc:]])
+
+    f0 = finals[0]
+    final = f0.replace(
+        nodes=tree_map(cat_nodes, *[f.nodes for f in finals]),
+        users=tree_map(cat_rows, *[f.users for f in finals]),
+        tasks=tree_map(cat_rows, *[f.tasks for f in finals]),
+    )
+    return spec, final
+
+
+def run_tp_chunked(
+    spec: WorldSpec,
+    state: WorldState,
+    net: NetParams,
+    bounds: Optional[MobilityBounds] = None,
+    n_shards: int = 4,
+    chunk_ticks: int = 1000,
+    callback: Optional[Callable[[WorldState, int], None]] = None,
+    n_ticks: Optional[int] = None,
+    exchange_window: Optional[int] = None,
+) -> Tuple[WorldSpec, WorldState]:
+    """The sharded horizon in chunks of ``chunk_ticks``, with
+    ``callback(state, ticks_done)`` between them
+    (``taskshard.run_tp_chunked``); equal to one :func:`run_tp_sharded`
+    call.  The population is padded once, before the first chunk."""
+    spec, state, net = pad_users_to_multiple(spec, state, net, int(n_shards))
+    total = spec.n_ticks if n_ticks is None else n_ticks
+    chunk = max(1, min(chunk_ticks, total))
+    done = 0
+    while done < total:
+        ticks = min(chunk, total - done)
+        spec, state = run_tp_sharded(
+            spec, state, net, bounds, n_shards=n_shards, n_ticks=ticks,
+            exchange_window=exchange_window,
+        )
+        done += ticks
+        if callback is not None:
+            callback(state, done)
+    return spec, state

@@ -506,6 +506,20 @@ def tree_leaves(obj, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
     return out
 
 
+def tree_map(fn, tree, *rest):
+    """``fn`` leaf by leaf over dataclass trees of one structure (the
+    first tree's), like ``jax.tree.map``."""
+    vals = {}
+    for f in dataclasses.fields(tree):
+        v = getattr(tree, f.name)
+        others = [getattr(r, f.name) for r in rest]
+        vals[f.name] = (
+            tree_map(fn, v, *others) if dataclasses.is_dataclass(v)
+            else fn(v, *others)
+        )
+    return type(tree)(**vals)
+
+
 def _is_key(path: str) -> bool:
     return path == "key" or path.endswith(".key")
 

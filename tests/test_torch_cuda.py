@@ -12,6 +12,8 @@ import torch
 
 from fognetsimpp_tpu_torch.core import engine
 from fognetsimpp_tpu_torch.ops import arrival_kernels as ak
+from fognetsimpp_tpu_torch.ops import ring_kernels as rk
+from fognetsimpp_tpu_torch.parallel.taskshard import run_tp_sharded
 from fognetsimpp_tpu_torch.scenarios import smoke
 from fognetsimpp_tpu_torch.state import state_to_numpy
 
@@ -81,3 +83,64 @@ def test_card_run_equals_cpu_run(cuda, kw):
     for a, c in zip(state_to_numpy(card), state_to_numpy(cpu)):
         assert a.dtype == c.dtype and a.tobytes() == c.tobytes()
     assert 0 < launches <= spec.n_ticks
+
+
+@pytest.mark.parametrize(
+    "n, K, C", [(2, 1000, 4), (4, 34142, 4), (8, 777, 5), (3, 1, 5), (1, 64, 4)]
+)
+def test_ring_kernel_equals_plain(cuda, n, K, C):
+    rng = np.random.default_rng(n * 1000 + K + C)
+    cpu = [
+        torch.from_numpy(
+            rng.integers(-2 ** 31, 2 ** 31, (K, C), dtype=np.int64).astype(np.int32)
+        )
+        for _ in range(n)
+    ]
+    rk.reset_launches()
+    got = rk.ring_all_gather([b.to(cuda) for b in cpu])
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES["ring_all_gather"] == 1
+    want = rk.ring_all_gather_plain(cpu)
+    assert len(got) == n
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and g.is_cuda
+        assert torch.equal(g.cpu(), w)
+
+
+def test_ring_wrapper_refuses_bad_blocks(cuda):
+    a = torch.zeros((8, 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        rk.ring_all_gather([a, a.float()])
+    with pytest.raises(ValueError):
+        rk.ring_all_gather([a, a[:4]])
+    with pytest.raises(ValueError):
+        rk.ring_all_gather([a, a.cpu()])
+    with pytest.raises(ValueError):
+        rk.ring_all_gather([a] * (rk.MAX_SHARDS + 1))
+
+
+TP_SMALL = dict(
+    n_users=512, n_fogs=8, fog_mips=(1000.0, 2000.0, 3000.0, 4000.0),
+    send_interval=0.05, horizon=0.1, dt=5e-3, max_sends_per_user=6,
+    queue_capacity=128, start_time_max=0.025, derive_acks=True,
+)
+
+
+@pytest.mark.parametrize("kw, window", [
+    (TP_SMALL, 3),  # the bounded no-window exchange: the ring kernel
+    (dict(TP_SMALL, arrival_window=16), None),  # the windowed top-K merge
+])
+def test_tp_card_run_equals_cpu_run(cuda, kw, window):
+    ak.reset_launches()
+    rk.reset_launches()
+    spec, st, net, b = smoke.build(device=cuda, **kw)
+    _, card = run_tp_sharded(spec, st, net, b, n_shards=4, exchange_window=window)
+    torch.cuda.synchronize()
+    rings = rk.LAUNCHES["ring_all_gather"]
+    plans = ak.LAUNCHES["fused_arrival_plan"]
+    spec, st, net, b = smoke.build(device="cpu", **kw)
+    _, cpu = run_tp_sharded(spec, st, net, b, n_shards=4, exchange_window=window)
+    for a, c in zip(state_to_numpy(card), state_to_numpy(cpu)):
+        assert a.dtype == c.dtype and a.tobytes() == c.tobytes()
+    assert rings == (spec.n_ticks if window is not None else 0)
+    assert plans == 4 * spec.n_ticks

@@ -19,6 +19,7 @@ from fognetsimpp_tpu.runtime.signals import summarize as jsummarize
 from fognetsimpp_tpu.scenarios import smoke as jsmoke
 from fognetsimpp_tpu_torch.core import engine as tengine
 from fognetsimpp_tpu_torch.net.topology import associate as tassociate
+from fognetsimpp_tpu_torch.parallel.taskshard import run_tp_sharded
 from fognetsimpp_tpu_torch.runtime.signals import summarize as tsummarize
 from fognetsimpp_tpu_torch.scenarios import smoke as tsmoke
 from fognetsimpp_tpu_torch.state import state_to_numpy, tree_leaves
@@ -138,3 +139,48 @@ def test_summarize_matches_jax(port_runs):
     assert want.keys() == got.keys()
     for k in want:
         assert want[k] == got[k] or (np.isnan(want[k]) and np.isnan(got[k])), k
+
+
+#: ``bench.py::tp_measurement``'s world cut to CPU size, with tasks of
+#: 2^22..2^23 MIPS on fogs of 10^9 MIPS: a tick's tasks to one fog sum
+#: past 2^24, where a float32 sum rounds and its bits follow the order of
+#: its adds, and the tasks still complete within the horizon.
+BIG_MIPS = dict(
+    n_users=512, n_fogs=8, fog_mips=(1e9,), send_interval=0.05, horizon=0.1,
+    dt=5e-3, max_sends_per_user=6, max_sends_per_tick=1, queue_capacity=128,
+    start_time_max=0.025, derive_acks=True,
+    mips_required_min=2 ** 22, mips_required_max=2 ** 23,
+)
+#: The leaves that hold a fog's busy time: fogs.busy_time, and the copies
+#: the adverts carry to the broker.
+BUSY_LEAVES = ("fogs.busy_time", "broker.view_busy", "broker.adv_val_busy")
+
+
+def test_mips_sums_past_2_24_part_from_jax_in_busy_time_only():
+    """The port sums a tick's MIPS per fog in float64 and rounds once
+    (``engine._mips_sum64``), on one device and across shards; JAX sums in
+    float32.  Past 2^24 the two differ.  Here the difference reaches the
+    busy-time leaves only, by at most two units in the last place of each
+    value, and every other leaf (every decision, queue and task) is
+    bit-equal."""
+    spec_j, st_j, net_j, b_j = jsmoke.build(**BIG_MIPS)
+    final_j, _ = jengine.run(spec_j, st_j, net_j, b_j)
+    ref = [np.asarray(x) for x in jax.tree_util.tree_leaves(final_j)]
+    for runner in ("run", "run_tp_sharded"):
+        spec, st, net, b = tsmoke.build(device="cpu", **BIG_MIPS)
+        if runner == "run":
+            final, _ = tengine.run(spec, st, net, b)
+        else:
+            _, final = run_tp_sharded(spec, st, net, b, n_shards=4)
+        paths = [p for p, _ in tree_leaves(final)]
+        parted = []
+        for p, a, c in zip(paths, ref, state_to_numpy(final)):
+            assert a.dtype == c.dtype and a.shape == c.shape, (runner, p)
+            if a.tobytes() == c.tobytes():
+                continue
+            assert p in BUSY_LEAVES, f"{runner}: leaf {p} differs from JAX"
+            assert (np.abs(a - c) <= 2 * np.spacing(np.abs(a))).all(), (runner, p)
+            parted.append(p)
+        assert "fogs.busy_time" in parted, f"{runner}: the sums stayed exact"
+        s = tsummarize(final)
+        assert s["n_completed"] > 0 and s["n_dropped"] > 0

@@ -75,6 +75,20 @@ def test_plain_pairwise_rank_equals_pallas_interpret(K):
     np.testing.assert_array_equal(np.asarray(want), got.numpy())
 
 
+def test_plain_rank_in_row_blocks_equals_sort_rank():
+    """Past one block of rows (a ragged last block), the plain rank equals
+    the stable-sort rank, which ``test_plan_arrivals_matches_jax`` holds
+    against JAX at this size."""
+    K, F = 5000, 7
+    mask, fog, t = _window(K, F, seed=11)
+    f_key, t_key = _keys(mask, fog, t, F)
+    m, f, tk = (torch.from_numpy(a) for a in (mask, f_key, t_key))
+    assert K % ak._PLAIN_ROWS and K > 2 * ak._PLAIN_ROWS
+    got = ak.pairwise_rank_plain(m, f, tk)
+    want = tqueues._sort_rank(m, f, torch.from_numpy(t))
+    assert torch.equal(got, want)
+
+
 def test_plain_fused_plan_empty_fog_contract():
     """An empty fog: t_min = +inf, first = K (the Pallas contract)."""
     K, F = 64, 9
