@@ -10,14 +10,21 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    one process a source, all at once (seconds, registers and shared memory
    from ``-Xptxas -v``);
 3. kernels: each CUDA kernel against its plain PyTorch version on the same
-   card inputs (exact equality), at the main paths' shapes among others
-   (``fused_arrival_plan`` at the bench's K = 4096 window and at the tp
-   world's gathered window of 4 x 34,142 rows, 64 fogs, with tick 0's
-   share of masked rows); the device time per call of each (from
-   ``torch.profiler``), the wrapper's wall time per call, and the least
-   time the function could take on these inputs, with its counts; for the
-   ring all-gather also one ``torch.cat(blocks, out=...)`` a shard, the
-   library call that computes the same function;
+   card inputs (bit for bit), on the windows the main paths meet and
+   on windows that take the kernels' other paths: ``fused_arrival_plan``
+   at the bench's K = 4096 and at the tp world's gathered window of
+   4 x 34,142 rows, 64 fogs, each with every masked row in one fog (tick
+   0's count of them) and empty (the later ticks), and with fogs drawn
+   uniformly, all times equal, +0.0 and -0.0 among the times, and one
+   bucket at and one past a sorted run; the device time per call of each
+   (from ``torch.profiler``), its launches a call (at most 5), the
+   wrapper's wall time per call, no host synchronisation in the wrapper,
+   and the least time the function could take on these inputs, with its
+   counts; beside the arrival kernels the port's torch sort composition
+   ``ops/queues._sort_rank`` (a composition, not one library call: none
+   computes this function), and beside the ring all-gather one
+   ``torch.cat(blocks, out=...)`` a shard, the library call that computes
+   the same function;
 4. smoke: ``smoke.build(horizon=0.5)`` on the card against the same world on
    the CPU, every leaf equal, and the run's summary;
 5. bench: the bench world at full width (10,000 users x 32 fogs, K = 4096,
@@ -28,7 +35,8 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    fused kernel's envelope and ``pairwise_rank`` carries the plan;
 7. profile: where a bench tick's time goes on the card (kernel launches,
    device time and idle share per tick, the heaviest kernels, the window's
-   masked rows a tick);
+   masked rows a tick), and the arrival kernel timed on the first window
+   of the run that holds rows;
 8. tp: ``bench.py::tp_measurement``'s world (2^20 users x 64 fogs, 50
    ticks of 5 ms, 9,437,184 task rows) under ``run_tp_sharded`` at four
    shards with the bench's exchange window: card against CPU every leaf
@@ -36,7 +44,8 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    whole horizon timed (decisions per second, ms per tick, the ring and
    arrival kernels' launches), and profiles of two ticks from tick 0 and
    from the horizon (``tp_profile``), where the arrival kernel is also
-   held against its plain version on every window that holds rows;
+   held against its plain version on every window that holds rows, and
+   timed on the first of them;
 9. tp_window: the bench world of phase 5 (dt 5 ms, K = 4096) under
    ``run_tp_sharded`` at four shards, the windowed top-K exchange, against
    the single-device ``engine.run`` on the card, every leaf;
@@ -58,13 +67,15 @@ import time
 #: kernels' compares and adds run on the CUDA cores).
 HBM_BYTES_PER_S = 3.35e12
 CUDA_CORE_OPS_PER_S = 67e12
-#: Operations the rank needs per unordered pair of masked rows bound for
-#: the same fog: for positions i < j, row i comes first iff t_i <= t_j, so
-#: one compare and one add to the later row's rank.  Rows of different
-#: fogs, and rows masked out, need no compare at all.
-OPS_PER_PAIR = 2
-#: Name fragments of the fused kernel's three launches in a device trace.
-OUR_KERNELS = ("init_kernel", "arrival_plan_kernel", "unpack_kernel")
+#: Name fragments of the arrival kernels' five launches in a device trace.
+OUR_KERNELS = (
+    "arrival_init_kernel", "arrival_pass_kernel", "arrival_scatter_kernel",
+    "arrival_sort_kernel", "arrival_rank_kernel",
+)
+#: Most launches a call of an arrival-kernel wrapper may make.
+MAX_ARRIVAL_LAUNCHES = 5
+#: Keys of one sorted run of the arrival kernels (``kRun`` in the source).
+ARRIVAL_RUN = 4096
 #: The ring all-gather's one launch in a device trace.
 RING_KERNEL = "ring_gather_kernel"
 
@@ -118,11 +129,14 @@ TP_SHARDS = 4
 TP_K_EX = max(256, int(1.3 * (TP_WORLD["n_users"] // TP_SHARDS) * 5e-3 / 0.05) + 64)
 #: Ticks of the tp world held card against CPU (the CPU run's length).
 TP_CHECK_TICKS = 10
-#: Masked rows of a shard's arrival-plan window at the tp world's tick 0
-#: (this script's ``tp_profile`` phase on an H100); the kernel phase
-#: holds the kernel against its plain version at that share of the
-#: window's rows.
+#: Masked rows of a shard's arrival-plan window at the tp world's tick 0,
+#: all bound for one fog (this script's ``tp_profile`` phase on an H100);
+#: the kernel phase holds the kernel against its plain version on such a
+#: window.
 TP_TICK0_MASKED = 86_103
+#: Masked rows of the bench world's one non-empty window at dt 5 ms, all
+#: in one fog (the port's CPU run of that world).
+BENCH_MASKED = 2_281
 
 
 def main() -> int:
@@ -138,6 +152,7 @@ def main() -> int:
     from fognetsimpp_tpu_torch.net.topology import associate
     from fognetsimpp_tpu_torch.ops import arrival_kernels as ak
     from fognetsimpp_tpu_torch.ops import cuda_build
+    from fognetsimpp_tpu_torch.ops import queues as tq
     from fognetsimpp_tpu_torch.ops import ring_kernels as rk
     from fognetsimpp_tpu_torch.parallel.taskshard import run_tp_sharded
     from fognetsimpp_tpu_torch.runtime.signals import summarize
@@ -168,11 +183,27 @@ def main() -> int:
     })
 
     # ---- 3. kernels against their plain versions -------------------------
-    def window(K, F, seed, p_mask=0.7):
+    def window(K, F, seed, kind="uniform", n_masked=None):
+        """An arrival window: ``uniform`` (70 % masked, fogs uniform, times
+        on a 0.1 ms grid: ties), ``one_fog`` (``n_masked`` rows at random
+        positions, all bound for one fog, times in one tick's 5 ms band as
+        in the main path's windows), ``empty``, ``all_ties`` (one time for
+        every row) or ``signed_zero`` (times +0.0, -0.0, 0.1 ms)."""
         rng = np.random.default_rng(seed)
-        mask = rng.random(K) < p_mask
+        mask = rng.random(K) < 0.7
         fog = rng.integers(0, F, K).astype(np.int32)
-        t = np.round(rng.random(K) * 0.01, 4).astype(np.float32)  # ties
+        t = np.round(rng.random(K) * 0.01, 4).astype(np.float32)
+        if kind == "one_fog":
+            mask = np.zeros(K, bool)
+            mask[rng.permutation(K)[:n_masked]] = True
+            fog[:] = F // 2
+            t = (0.05 + rng.random(K) * 0.005).astype(np.float32)
+        elif kind == "empty":
+            mask[:] = False
+        elif kind == "all_ties":
+            t[:] = 0.0025
+        elif kind == "signed_zero":
+            t = rng.choice(np.array([0.0, -0.0, 1e-4], np.float32), K)
         f_key = np.where(mask, fog, F).astype(np.int32)
         t_key = np.where(mask, t, np.inf).astype(np.float32)
         return [torch.from_numpy(a).to(dev) for a in (mask, f_key, t_key)]
@@ -202,48 +233,72 @@ def main() -> int:
             err = max(err, float(d.max()) if d.numel() else 0.0)
         return err
 
-    def device_us(fn, reps):
+    def device_us(fn, reps, names=("",)):
         """Device µs per call by kernel name, from ``torch.profiler``: the
         sum of the device events of ``reps`` calls (warm-up call first),
-        over ``reps``.  Gaps between the launches are not counted."""
+        over ``reps``, and the events per call by name.  Gaps between the
+        launches are not counted.  A trace that holds no event named with
+        one of ``names`` is taken again, up to three times: the profiler
+        on the card now and then returns no device events at all."""
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        by_name = {}
-        for ev in prof.events():
-            if str(ev.device_type).endswith("CUDA"):
-                us = float(ev.time_range.elapsed_us())
-                by_name[ev.name] = by_name.get(ev.name, 0.0) + us / reps
-        return by_name
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            by_name, n_by_name = {}, {}
+            for ev in prof.events():
+                if str(ev.device_type).endswith("CUDA"):
+                    us = float(ev.time_range.elapsed_us())
+                    by_name[ev.name] = by_name.get(ev.name, 0.0) + us / reps
+                    n_by_name[ev.name] = n_by_name.get(ev.name, 0) + 1 / reps
+            if any(n in k for k in by_name for n in names):
+                break
+        return by_name, n_by_name
 
     def bound(mask, f_key, F, fused):
         """The least time the card could take for the function on these
-        inputs: each input byte read and each output byte written once,
-        against the compares and adds these inputs need (same-fog pairs of
-        masked rows, plus a count and a lex-min step per masked row for
-        the per-fog outputs).  Returns the counts beside the bound."""
+        inputs: the bytes it must move (the mask read once; the fog and
+        time keys only in the 32-byte sectors that hold a masked row, as
+        no other key is needed; each output written once), against the
+        compares a comparison sort of each fog's masked rows needs
+        (c * ceil(log2 c) for c rows), plus a count and a lex-min step per
+        masked row for the per-fog outputs.  Returns the counts beside the
+        bound."""
         K = mask.shape[0]
-        c = torch.bincount(f_key[mask].long(), minlength=F)
-        pairs = int((c * (c - 1) // 2).sum())
+        c = torch.unique(f_key[mask], return_counts=True)[1].tolist()
+        sort_cmp = sum(n * (n - 1).bit_length() for n in c)
         n_masked = int(mask.sum())
-        n_bytes = K * (1 + 4 + 4) + K * 4 + (F * 12 if fused else 0)
-        n_ops = OPS_PER_PAIR * pairs + (2 * n_masked if fused else 0)
+        # sectors of 8 four-byte keys (the tensors start sector-aligned)
+        n_sectors = int(torch.unique(torch.nonzero(mask).flatten() // 8).numel())
+        key_bytes = 2 * min(4 * K, 32 * n_sectors)
+        n_bytes = K * 1 + key_bytes + K * 4 + (F * 12 if fused else 0)
+        n_ops = sort_cmp + (2 * n_masked if fused else 0)
         t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
         t_ops = n_ops / CUDA_CORE_OPS_PER_S * 1e3
         return {
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "same_fog_pairs": pairs, "ops": n_ops, "bytes": n_bytes,
+            "fogs_touched": len(c), "sort_compares": sort_cmp, "ops": n_ops,
+            "bytes": n_bytes, "key_sectors": n_sectors,
         }
+
+    def same_bits(got, want):
+        """Equal dtypes and bytes: -0.0 and +0.0 differ here."""
+        return all(
+            g.dtype == w.dtype and torch.equal(
+                g.view(torch.int32) if g.is_floating_point() else g,
+                w.view(torch.int32) if w.is_floating_point() else w,
+            )
+            for g, w in zip(got, want)
+        )
 
     def check_arrival_kernel(name, inp, F, reps):
         """The kernel against its plain version on ``inp``: exact equality
-        (or SystemExit), device and wall times of both, and the bound.
-        ``reps`` = (kernel device, plain device, kernel wall, plain wall)
-        calls."""
+        (or SystemExit), device and wall times of both and of the torch
+        sort composition, launches a call, and the bound.  ``reps`` =
+        (kernel device, plain device, kernel wall, plain wall) calls."""
         fused = name == "fused_arrival_plan"
         if fused:
             run_k = lambda: ak.fused_arrival_plan(*inp, F)  # noqa: E731
@@ -251,86 +306,146 @@ def main() -> int:
         else:
             run_k = lambda: (ak.pairwise_rank(*inp),)  # noqa: E731
             run_p = lambda: (ak.pairwise_rank_plain(*inp),)  # noqa: E731
-        got = run_k()
+        # the port's torch sort composition of the rank (the CPU path above
+        # K = 4096), timed beside the kernel; the port never runs it on the
+        # card
+        run_lib = lambda: tq._sort_rank(*inp)  # noqa: E731
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")  # the wrapper may not sync
+        try:
+            got = run_k()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         want = run_p()
-        equal = all(torch.equal(g, w) for g, w in zip(got, want))
+        equal = same_bits(got, want)
         err = max_abs_err(got, want)
         K = inp[0].shape[0]
         if not equal:
             raise SystemExit(f"{name} at K={K}, F={F} differs from its plain version")
         # device time of the kernel's own launches, and of the plain
         # version's kernels, per call
-        dev_k = {k: v for k, v in device_us(run_k, reps[0]).items()
+        # each launch's mean time, summed over the call's launches: the
+        # profiler now and then misses one call's events in a trace
+        us_k, n_k = device_us(run_k, reps[0], OUR_KERNELS)
+        dev_k = {k: v / n_k[k] for k, v in us_k.items()
                  if any(s in k for s in OUR_KERNELS)}
+        launches = sum(v for k, v in n_k.items() if any(s in k for s in OUR_KERNELS))
         if not dev_k:
             raise SystemExit(f"{name}: the profiler saw no device time of its kernels")
+        if launches > MAX_ARRIVAL_LAUNCHES + 1e-9:
+            raise SystemExit(f"{name}: {launches} launches a call")
         b = bound(*inp[:2], F, fused)
         return {
             "name": name, "K": K, "F": F, "masked_rows": int(inp[0].sum()),
             "equal": equal, "max_abs_err": err,
-            "ms": sum(dev_k.values()) / 1e3,
+            "ms": sum(dev_k.values()) / 1e3, "launches_a_call": launches,
             "device_us_by_launch": {
                 s: sum(v for k, v in dev_k.items() if s in k)
                 for s in OUR_KERNELS if any(s in k for k in dev_k)
             },
-            "plain_ms": sum(device_us(run_p, reps[1]).values()) / 1e3,
+            "plain_ms": sum(device_us(run_p, reps[1])[0].values()) / 1e3,
+            "library_ms": sum(device_us(run_lib, reps[1])[0].values()) / 1e3,
+            "library_rank_equal": bool(torch.equal(run_lib(), got[0])),
             # wall time per call of the Python wrapper, launches included
             "wrapper_ms": per_call_ms(run_k, reps[2]),
             "plain_wrapper_ms": per_call_ms(run_p, reps[3]),
             **b,
         }
 
-    def emit_kernel(r, **extra):
+    def emit_kernel(r, kind):
         emit({
-            "phase": "kernel", "name": r["name"], "K": r["K"], "F": r["F"],
-            "masked_rows": r["masked_rows"], "equal": r["equal"],
+            "phase": "kernel", "name": r["name"], "window": kind, "K": r["K"],
+            "F": r["F"], "masked_rows": r["masked_rows"],
+            "fogs_touched": r["fogs_touched"], "equal": r["equal"],
             "max_abs_err": r["max_abs_err"], "device_us": r["ms"] * 1e3,
+            "launches_a_call": r["launches_a_call"],
             "device_us_by_launch": r["device_us_by_launch"],
             "plain_device_us": r["plain_ms"] * 1e3,
+            "sort_composition_device_us": r["library_ms"] * 1e3,
+            "sort_composition_rank_equal": r["library_rank_equal"],
             "wrapper_us": r["wrapper_ms"] * 1e3,
             "plain_wrapper_us": r["plain_wrapper_ms"] * 1e3,
             "bound_us": r["bound_ms"] * 1e3, "bound_by": r["bound_by"],
-            "bound_same_fog_pairs": r["same_fog_pairs"], "bound_ops": r["ops"],
-            "bound_bytes": r["bytes"], **extra,
+            "bound_sort_compares": r["sort_compares"], "bound_ops": r["ops"],
+            "bound_bytes": r["bytes"], "bound_key_sectors": r["key_sectors"],
         })
 
-    def kernel_row(r, path):
+    def real_window(r):
+        """A row's numbers on a window the main path planned."""
+        return {k: r[k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "masked_rows", "fogs_touched", "max_abs_err", "wrapper_ms",
+            "launches_a_call",
+        )}
+
+    def kernel_row(r, path, kind):
         return {
             "name": r["name"], "route": "cuda", "source": SOURCES[r["name"]],
             "replaces": REPLACES[r["name"]], "launches": 0,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None,
-            "shape": {"K": r["K"], "F": r["F"], "masked_rows": r["masked_rows"]},
-            "shape_of": path, "bound_same_fog_pairs": r["same_fog_pairs"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "library": SORT_COMPOSITION,
+            "shape": {"K": r["K"], "F": r["F"], "masked_rows": r["masked_rows"],
+                      "fogs_touched": r["fogs_touched"]},
+            "shape_of": path, "window": kind,
+            "bound_sort_compares": r["sort_compares"],
             "bound_ops": r["ops"], "bound_bytes": r["bytes"],
-            "wrapper_ms": r["wrapper_ms"],
+            "wrapper_ms": r["wrapper_ms"], "launches_a_call": r["launches_a_call"],
         }
 
-    # one row of the kernels line for each kernel at each main-path shape:
-    # fused_arrival_plan at the bench window (K = 4096, the bench and
-    # tp_window paths) and at the tp world's gathered exchange window
-    # (K = 4 x 34,142, F = 64, tick 0's share of masked rows), and
+    def empty_row(r):
+        """A row's numbers on the empty window of its path."""
+        return {k: r[k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "max_abs_err", "wrapper_ms",
+        )} | {"bound_bytes": r["bytes"]}
+
+    SORT_COMPOSITION = (
+        "composition, not one call: ops/queues._sort_rank (three stable "
+        "torch.sort, a cummax, a scatter), the rank only"
+    )
+
+    # rows of the kernels line: fused_arrival_plan at the bench window
+    # (K = 4096, the bench and tp_window paths) and at the tp world's
+    # gathered exchange window (K = 4 x 34,142, F = 64), each from the
+    # windows those paths run (every masked row in one fog; empty), and
     # pairwise_rank at the wide-fog window
+    TP_K = TP_SHARDS * TP_K_EX
     kernel_rows = {}
     cases = [
-        # (name, K, F, share of rows masked, row of the kernels line)
-        ("fused_arrival_plan", 4096, 32, 0.7, "bench"),
-        ("fused_arrival_plan", 1000, 7, 0.7, None),  # ragged edge
-        ("fused_arrival_plan", TP_SHARDS * TP_K_EX, TP_WORLD["n_fogs"],
-         TP_TICK0_MASKED / (TP_SHARDS * TP_K_EX), "tp"),
-        ("pairwise_rank", 4096, 32, 0.7, None),
-        ("pairwise_rank", WIDE_FOG["arrival_window"], WIDE_FOG["n_fogs"], 0.7,
-         "wide_fog"),
+        # (name, K, F, window, masked rows of a one-fog window, row)
+        ("fused_arrival_plan", 4096, 32, "one_fog", BENCH_MASKED, "bench"),
+        ("fused_arrival_plan", 4096, 32, "empty", 0, "bench"),
+        ("fused_arrival_plan", 4096, 32, "uniform", None, None),
+        ("fused_arrival_plan", 1000, 7, "uniform", None, None),  # ragged edge
+        ("fused_arrival_plan", 4096, 32, "all_ties", None, None),
+        ("fused_arrival_plan", 4096, 32, "signed_zero", None, None),
+        # one bucket at and one past a sorted run
+        ("fused_arrival_plan", ARRIVAL_RUN + 777, 8, "one_fog", ARRIVAL_RUN, None),
+        ("fused_arrival_plan", ARRIVAL_RUN + 777, 8, "one_fog", ARRIVAL_RUN + 1, None),
+        ("fused_arrival_plan", TP_K, TP_WORLD["n_fogs"], "one_fog", TP_TICK0_MASKED, "tp"),
+        ("fused_arrival_plan", TP_K, TP_WORLD["n_fogs"], "empty", 0, "tp"),
+        ("fused_arrival_plan", TP_K, TP_WORLD["n_fogs"], "uniform", None, None),
+        ("pairwise_rank", WIDE_FOG["arrival_window"], WIDE_FOG["n_fogs"], "uniform",
+         None, "wide_fog"),
+        ("pairwise_rank", WIDE_FOG["arrival_window"], WIDE_FOG["n_fogs"], "one_fog",
+         700, None),
+        ("pairwise_rank", 4096, 32, "uniform", None, None),
+        ("pairwise_rank", 4096, 32, "signed_zero", None, None),
     ]
-    for name, K, F, p_mask, path in cases:
-        inp = window(K, F, seed=K + F, p_mask=p_mask)
-        reps = (20, 10, 50, 10) if K <= 4096 else (5, 2, 3, 1)
+    for name, K, F, kind, n_masked, path in cases:
+        inp = window(K, F, seed=K + F, kind=kind, n_masked=n_masked)
+        reps = (20, 10, 50, 10) if K <= 4096 else (10, 2, 10, 1)
         r = check_arrival_kernel(name, inp, F, reps)
-        emit_kernel(r)
-        if path is not None:
-            kernel_rows[(name, path)] = kernel_row(r, path)
+        emit_kernel(r, kind)
+        if path is None:
+            continue
+        if (name, path) not in kernel_rows:
+            kernel_rows[(name, path)] = kernel_row(r, path, kind)
+        else:  # the empty window of a path, beside its one-fog window
+            kernel_rows[(name, path)]["empty_window"] = empty_row(r)
     del inp
 
     # ---- 3b. the ring all-gather against its plain version ----------------
@@ -363,13 +478,13 @@ def main() -> int:
 
         run_k = lambda blocks=blocks: rk.ring_all_gather(blocks)  # noqa: E731
         run_p = lambda blocks=blocks: rk.ring_all_gather_plain(blocks)  # noqa: E731
-        events_k = device_us(run_k, 20)
+        events_k = device_us(run_k, 20, (RING_KERNEL,))[0]
         dev_k = {k: v for k, v in events_k.items() if RING_KERNEL in k}
         if not dev_k:
             raise SystemExit("ring_all_gather: the profiler saw no device time of its kernel")
         ms = sum(dev_k.values()) / 1e3
-        plain_ms = sum(device_us(run_p, 20).values()) / 1e3
-        lib_ms = sum(device_us(run_lib, 20).values()) / 1e3
+        plain_ms = sum(device_us(run_p, 20)[0].values()) / 1e3
+        lib_ms = sum(device_us(run_lib, 20)[0].values()) / 1e3
         wrapper_ms = per_call_ms(run_k, 50)
         plain_wrapper_ms = per_call_ms(run_p, 20)
         lib_wrapper_ms = per_call_ms(run_lib, 20)
@@ -509,12 +624,13 @@ def main() -> int:
     spec, st, net, b = smoke.build(device=dev, **kw)
     step = engine.make_step(spec)
     cache = associate(net, st.nodes.pos, st.nodes.alive, spec.broker_index)
-    # keep each tick's window mask, to count its masked rows afterwards
+    # keep each tick's window, to count its masked rows afterwards and to
+    # time the kernel on the first that holds rows
     windows, fused_plan = [], ak.fused_arrival_plan
 
-    def kept_plan(mask, *args):
-        windows.append(mask)
-        return fused_plan(mask, *args)
+    def kept_plan(*args):
+        windows.append(args)
+        return fused_plan(*args)
 
     ak.fused_arrival_plan = kept_plan
     for _ in range(8):  # into the saturated steady state
@@ -533,7 +649,7 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     ak.fused_arrival_plan = fused_plan
-    masked = [int(m.sum()) for m in windows]
+    masked = [int(w[0].sum()) for w in windows]
     dev_us, n_kernels, by_name = device_events(prof)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     arrival_us = sum(v for k, v in by_name.items() if any(s in k for s in OUR_KERNELS))
@@ -552,6 +668,11 @@ def main() -> int:
         "arrival_kernels_device_us_per_tick": arrival_us / n_prof,
         "top_device_us_per_tick": [[k, v / n_prof] for k, v in top],
     })
+    args = next(w for w in windows if int(w[0].sum()))
+    r = check_arrival_kernel("fused_arrival_plan", args[:3], args[3], (20, 10, 50, 10))
+    emit_kernel(r, "bench world, tick 0")
+    kernel_rows[("fused_arrival_plan", "bench")]["real_window"] = real_window(r)
+    del windows, args
 
     # ---- 8. the task-sharded tick at full width ---------------------------
     def tp_run(device, n_ticks):
@@ -640,17 +761,27 @@ def main() -> int:
         dev_us, n_events, by_name = device_events(prof)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
         masked = [int(w[0].sum()) for w in windows]
+        # distinct fogs among each non-empty window's masked rows
+        fogs_touched = [int(torch.unique(w[1][w[0]]).numel()) for w in windows
+                        if int(w[0].sum())]
         # the kernel against its plain version on every window of these
         # ticks that holds rows (the main path's own inputs)
         for args in windows:
             if int(args[0].sum()):
                 got = fused_plan(*args)
                 want = ak.fused_arrival_plan_plain(*args)
-                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                if not same_bits(got, want):
                     raise SystemExit(
                         f"tp_profile: fused_arrival_plan differs from its plain "
                         f"version on a window of tick {from_tick}-{from_tick + n_prof - 1}"
                     )
+        full = [w for w in windows if int(w[0].sum())]
+        if full:  # time the kernel on the first of them
+            r = check_arrival_kernel(
+                "fused_arrival_plan", full[0][:3], full[0][3], (10, 2, 10, 1)
+            )
+            emit_kernel(r, f"tp world, tick {from_tick}")
+            kernel_rows[("fused_arrival_plan", "tp")]["real_window"] = real_window(r)
         emit({
             "phase": "tp_profile", "ticks": n_prof, "from_tick": from_tick,
             "wall_ms_per_tick": wall_prof / n_prof * 1e3,
@@ -666,6 +797,7 @@ def main() -> int:
             # each shard's call a tick: the window's rows and masked rows
             "arrival_plan_window_rows": windows[0][0].shape[0],
             "arrival_plan_masked_rows": masked,
+            "arrival_plan_fogs_touched": fogs_touched,
             # windows with rows, each equal to the plain version on them
             "arrival_plan_checked_windows": sum(1 for m in masked if m),
             "top_device_us_per_tick": [[k, v / n_prof] for k, v in top],

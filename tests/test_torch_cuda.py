@@ -57,6 +57,137 @@ def test_kernels_equal_plain(cuda, K, F):
     assert torch.equal(rank.cpu(), ak.pairwise_rank_plain(*cpu))
 
 
+def _kind_window(kind, K, F, seed):
+    """Windows that take the kernels' other paths: ``one_fog`` (every
+    masked row in one fog, as at the tp world's tick 0), ``empty``,
+    ``all_ties`` (one time for every row), ``signed_zero`` (+0.0 and -0.0
+    among the times) and ``any_key`` (masked rows keyed by any int32,
+    negative and past F included)."""
+    mask, f_key, t_key = _window(K, F, seed)
+    rng = np.random.default_rng(seed + 1)
+    if kind == "one_fog":
+        mask = torch.ones(K, dtype=torch.bool)
+        f_key = torch.full((K,), F - 1, dtype=torch.int32)
+        t_key = torch.from_numpy(np.round(rng.random(K) * 0.01, 4).astype(np.float32))
+    elif kind == "empty":
+        mask = torch.zeros(K, dtype=torch.bool)
+        f_key = torch.full((K,), F, dtype=torch.int32)
+        t_key = torch.full((K,), float("inf"))
+    elif kind == "all_ties":
+        t_key = torch.where(mask, torch.tensor(0.0025), torch.tensor(float("inf")))
+    elif kind == "signed_zero":
+        t = rng.choice(np.array([0.0, -0.0, 1e-4], np.float32), K)
+        t_key = torch.where(mask, torch.from_numpy(t), torch.tensor(float("inf")))
+    elif kind == "any_key":
+        keys = rng.choice(
+            np.array([0, 1, F - 1, F, 2048, 4096 + 1, -1, -2 ** 31, 2 ** 31 - 1]), K
+        ).astype(np.int32)
+        f_key = torch.where(mask, torch.from_numpy(keys), torch.tensor(F, dtype=torch.int32))
+    return [mask, f_key.to(torch.int32), t_key.to(torch.float32)]
+
+
+def _assert_kernels_equal_plain(cpu, F, device, pairwise=True):
+    ak.reset_launches()
+    dev = [a.to(device) for a in cpu]
+    got = ak.fused_arrival_plan(*dev, F) if F <= ak.FUSED_MAX_FOGS else None
+    rank = ak.pairwise_rank(*dev) if pairwise else None
+    torch.cuda.synchronize()
+    if got is not None:
+        want = ak.fused_arrival_plan_plain(*cpu, F)
+        for name, w, g in zip(("rank", "counts", "t_min", "first"), want, got):
+            assert g.dtype == w.dtype, name
+            # bit for bit: t_min's -0.0 and +0.0 differ here
+            assert torch.equal(g.cpu().view(torch.int32), w.view(torch.int32)), name
+        assert ak.LAUNCHES["fused_arrival_plan"] == 1
+    if rank is not None:
+        assert torch.equal(rank.cpu(), ak.pairwise_rank_plain(*cpu))
+        assert ak.LAUNCHES["pairwise_rank"] == 1
+
+
+@pytest.mark.parametrize("K", [1, 4096, 8193, 40000])
+def test_kernels_equal_plain_on_one_fog_windows(cuda, K):
+    _assert_kernels_equal_plain(_kind_window("one_fog", K, 64, seed=K), 64, cuda)
+
+
+@pytest.mark.parametrize(
+    "kind, K, F",
+    [
+        ("empty", 4096, 32), ("empty", 136568, 64), ("empty", 1, 1),
+        ("all_ties", 4096, 32), ("all_ties", 9000, 2),
+        ("signed_zero", 4096, 32), ("signed_zero", 6000, 1),
+        ("any_key", 4096, 32), ("any_key", 1000, 1040),
+    ],
+)
+def test_kernels_equal_plain_on_other_windows(cuda, kind, K, F):
+    _assert_kernels_equal_plain(_kind_window(kind, K, F, seed=K + F), F, cuda)
+
+
+@pytest.mark.parametrize("c", [256, 257, 512, 513, 4096, 4097, 8192, 12289])
+def test_kernels_equal_plain_at_run_edges(cuda, c):
+    """One fog holding exactly c masked rows of a wider window: the edge of
+    the kernels' direct count (256 keys) and of a sorted run (4,096)."""
+    K, F = c + 777, 5
+    mask, f_key, t_key = _window(K, F, seed=c)
+    mask[:] = False
+    mask[torch.randperm(K, generator=torch.Generator().manual_seed(c))[:c]] = True
+    f_key = torch.where(mask, torch.tensor(3, dtype=torch.int32), torch.tensor(F, dtype=torch.int32))
+    t_key = torch.where(mask, t_key.clamp(max=0.01), torch.tensor(float("inf")))
+    _assert_kernels_equal_plain([mask, f_key, t_key], F, cuda)
+
+
+def test_kernels_break_a_signed_zero_tie_by_position(cuda):
+    t = torch.tensor([0.0, -0.0, 0.0, -0.0, 1.0])
+    cpu = [torch.ones(5, dtype=torch.bool), torch.zeros(5, dtype=torch.int32), t]
+    _assert_kernels_equal_plain(cpu, 1, cuda)
+    rank, _, t_min, first = ak.fused_arrival_plan(*[a.to(cuda) for a in cpu], 1)
+    assert rank.tolist() == [0, 1, 2, 3, 4] and first.tolist() == [0]
+    assert t_min.view(torch.int32).tolist() == [-(2 ** 31)]  # -0.0, as XLA's min
+
+
+@pytest.mark.parametrize("flip", [False, True])
+def test_kernel_t_min_keeps_the_sign_of_zero(cuda, flip):
+    """Fogs whose zeros are all +0.0, mixed, all -0.0, or absent, spread
+    over many blocks of rows: t_min bit for bit as the plain version."""
+    K, F = 20_000, 6
+    rng = np.random.default_rng(11)
+    fog = rng.integers(0, 4, K).astype(np.int32)
+    t = rng.choice(np.array([1e-4, 2e-4], np.float32), K)
+    zeros = {0: [0.0], 1: [0.0, -0.0], 2: [-0.0]}  # fog 3 has none
+    for f, vals in zeros.items():
+        rows = rng.choice(np.flatnonzero(fog == f), 50, replace=False)
+        t[rows] = rng.choice(np.array(vals, np.float32), 50)
+    if flip:
+        fog, t = fog[::-1].copy(), t[::-1].copy()
+    mask = np.ones(K, bool)
+    cpu = [torch.from_numpy(a) for a in (mask, fog, t)]
+    _assert_kernels_equal_plain(cpu, F, cuda)
+    t_min = ak.fused_arrival_plan(*[a.to(cuda) for a in cpu], F)[2].cpu()
+    assert torch.signbit(t_min[:3]).tolist() == [False, True, True]
+
+
+@pytest.mark.parametrize(
+    "K, F", [(4096, 1024), (1024, 1040), (3001, 1040), (2048, 3000)]
+)
+def test_kernels_equal_plain_at_wide_fog_axes(cuda, K, F):
+    """F = 1,024 is the fused kernel's edge; past it ``pairwise_rank``
+    carries the plan (1,040 fogs: the wide-fog world).  Past 2,048 fogs
+    two fogs share a bucket of ``pairwise_rank``."""
+    _assert_kernels_equal_plain(_window(K, F, seed=K * 3 + F), F, cuda)
+
+
+def test_wrappers_do_not_synchronise(cuda):
+    """Grids follow K and F: no wrapper call waits for the card."""
+    dev = [a.to(cuda) for a in _window(9000, 64, seed=5)]
+    ak.fused_arrival_plan(*dev, 64)  # builds the library first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ak.fused_arrival_plan(*dev, 64)
+        ak.pairwise_rank(*dev)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
 def test_wrappers_refuse_bad_inputs(cuda):
     mask, f_key, t_key = [a.to(cuda) for a in _window(64, 4, 0)]
     with pytest.raises(TypeError):

@@ -3,6 +3,8 @@
 * the plain ``fused_arrival_plan`` / ``pairwise_rank`` (the CPU path and
   the card kernels' yardstick) against the Pallas kernels in interpret
   mode, as ``tests/test_pallas.py`` runs them;
+* the same on the windows the main path meets: all masked rows bound
+  for one fog, no masked row, and times of +0.0 and -0.0 (a tie);
 * the port's ``plan_arrivals`` against the JAX one on the K <= 4096,
   K > 4096 (stable sort), wide-fog and ``fused=True`` branches;
 * the compaction and the drop-mode scatters against their JAX forms.
@@ -34,10 +36,37 @@ def _window(K, F, seed, p_mask=0.7, t_max=0.01):
     return mask, fog, t
 
 
+def _main_path_window(kind, K, F, seed):
+    """The windows the engine's arrival tail meets: ``one_fog`` (the dense
+    broker sends a tick's tasks to one winner), ``empty`` (later ticks),
+    and ``signed_zero`` (times drawn from +0.0, -0.0 and a few values)."""
+    rng = np.random.default_rng(seed)
+    mask, fog, t = _window(K, F, seed)
+    if kind == "one_fog":
+        fog = np.full(K, F // 2, np.int32)
+    elif kind == "empty":
+        mask = np.zeros(K, bool)
+    elif kind == "signed_zero":
+        t = rng.choice(np.array([0.0, -0.0, 1e-4, 2e-4], np.float32), K)
+    return mask, fog, t
+
+
+#: One fog, times [+0, -0, +0, -0, 1]: the earliest is row 0, the ranks
+#: follow position among the zeros.
+SIGNED_ZERO_FOG = np.array([0.0, -0.0, 0.0, -0.0, 1.0], np.float32)
+
+
 def _keys(mask, fog, t, F):
     f_key = np.where(mask, fog, F).astype(np.int32)
     t_key = np.where(mask, t, np.inf).astype(np.float32)
     return f_key, t_key
+
+
+def _assert_same_bits(want, got, name):
+    """Equal dtype, shape and bytes: -0.0 and +0.0 differ here."""
+    want, got = np.asarray(want), got.numpy()
+    assert want.dtype == got.dtype and want.shape == got.shape, name
+    assert want.tobytes() == got.tobytes(), (name, want.view(np.uint32), got.view(np.uint32))
 
 
 @pytest.mark.parametrize("K", [512, 1024])
@@ -73,6 +102,72 @@ def test_plain_pairwise_rank_equals_pallas_interpret(K):
         torch.from_numpy(mask), torch.from_numpy(f_key), torch.from_numpy(t_key)
     )
     np.testing.assert_array_equal(np.asarray(want), got.numpy())
+
+
+@pytest.mark.parametrize("K", [512, 1024])
+@pytest.mark.parametrize("kind", ["one_fog", "empty", "signed_zero"])
+def test_plain_kernels_equal_pallas_interpret_on_main_path_windows(kind, K):
+    F = 7
+    mask, fog, t = _main_path_window(kind, K, F, seed=K + len(kind))
+    f_key, t_key = _keys(mask, fog, t, F)
+    args_j = (jnp.asarray(mask), jnp.asarray(f_key), jnp.asarray(t_key))
+    args_t = (torch.from_numpy(mask), torch.from_numpy(f_key), torch.from_numpy(t_key))
+    want = pallas_fused(*args_j, F, interpret=True)
+    got = ak.fused_arrival_plan(*args_t, F)
+    for name, w, g in zip(("rank", "counts", "t_min", "first"), want, got):
+        _assert_same_bits(w, g, name)
+    _assert_same_bits(
+        pallas_rank(*args_j, interpret=True), ak.pairwise_rank(*args_t), "rank"
+    )
+
+
+def test_plain_kernels_break_a_signed_zero_tie_by_position():
+    """One fog, times [+0, -0, +0, -0, 1]: -0.0 and +0.0 tie, so the first
+    arrival is row 0 and the zeros rank by position, as in Pallas; the
+    earliest time is -0.0, as XLA's min gives it."""
+    K, F = len(SIGNED_ZERO_FOG), 1
+    mask = np.ones(K, bool)
+    f_key, t_key = _keys(mask, np.zeros(K, np.int32), SIGNED_ZERO_FOG, F)
+    args_t = (torch.from_numpy(mask), torch.from_numpy(f_key), torch.from_numpy(t_key))
+    rank, counts, t_min, first = ak.fused_arrival_plan(*args_t, F)
+    assert rank.tolist() == [0, 1, 2, 3, 4]
+    assert counts.tolist() == [5] and first.tolist() == [0]
+    assert t_min.view(torch.int32).tolist() == [-(2 ** 31)]  # -0.0
+    assert torch.equal(ak.pairwise_rank(*args_t), rank)
+    want = pallas_fused(
+        jnp.asarray(mask), jnp.asarray(f_key), jnp.asarray(t_key), F,
+        interpret=True,
+    )
+    for name, w, g in zip(("rank", "counts", "t_min", "first"), want,
+                          (rank, counts, t_min, first)):
+        _assert_same_bits(w, g, name)
+
+
+@pytest.mark.parametrize("order", ["as_listed", "reversed"])
+def test_plain_t_min_keeps_the_sign_of_zero_as_pallas(order):
+    """Fogs whose zeros are all +0.0, mixed, all -0.0, or absent: t_min's
+    bits equal the Pallas kernel's in either order of the rows."""
+    times = {
+        0: [0.0, 0.0, 1e-4], 1: [0.0, -0.0, 0.0], 2: [-0.0, 1e-4, -0.0],
+        3: [2e-4, 1e-4, 3e-4], 4: [1e-4, -0.0, 0.0, 5e-5],
+    }
+    fog = np.array([f for f, ts in times.items() for _ in ts], np.int32)
+    t = np.array([x for ts in times.values() for x in ts], np.float32)
+    if order == "reversed":
+        fog, t = fog[::-1].copy(), t[::-1].copy()
+    K, F = len(t), len(times) + 1  # the last fog takes no row
+    mask = np.ones(K, bool)
+    f_key, t_key = _keys(mask, fog, t, F)
+    want = pallas_fused(
+        jnp.asarray(mask), jnp.asarray(f_key), jnp.asarray(t_key), F,
+        interpret=True,
+    )
+    got = ak.fused_arrival_plan(
+        torch.from_numpy(mask), torch.from_numpy(f_key), torch.from_numpy(t_key), F
+    )
+    for name, w, g in zip(("rank", "counts", "t_min", "first"), want, got):
+        _assert_same_bits(w, g, name)
+    assert np.signbit(got[2].numpy()[:3]).tolist() == [False, True, True]
 
 
 def test_plain_rank_in_row_blocks_equals_sort_rank():
@@ -132,6 +227,33 @@ def test_plan_arrivals_matches_jax(K, F, fused):
         assert want.counts is None and got.counts is None
     else:
         np.testing.assert_array_equal(np.asarray(want.counts), got.counts.numpy())
+
+
+@pytest.mark.parametrize(
+    "kind, K",
+    [
+        ("signed_zero", 1000),  # the K <= 4096 branch
+        ("signed_zero", 5000),  # the stable-sort branch
+        ("one_fog", 5000),
+    ],
+)
+def test_plan_arrivals_matches_jax_on_main_path_windows(kind, K):
+    F = 7
+    mask, fog, t = _main_path_window(kind, K, F, seed=K + 3)
+    idle = np.arange(F) % 2 == 0
+    if kind == "one_fog":
+        idle[F // 2] = True  # the one fog takes its first arrival
+    want = jqueues.plan_arrivals(
+        jnp.asarray(mask), jnp.asarray(fog), jnp.asarray(t), F, jnp.asarray(idle)
+    )
+    got = tqueues.plan_arrivals(
+        torch.from_numpy(mask), torch.from_numpy(fog), torch.from_numpy(t), F,
+        torch.from_numpy(idle),
+    )
+    for name in ("assign_task", "rank", "counts"):
+        np.testing.assert_array_equal(
+            np.asarray(getattr(want, name)), getattr(got, name).numpy(), err_msg=name
+        )
 
 
 @pytest.mark.parametrize("T, K, rot", [(300, 64, None), (300, 64, 77), (20000, 4096, 12345), (1000, 8, 999)])
