@@ -49,6 +49,22 @@ Phases, one JSON line each; any failure raises and exits nonzero:
 9. tp_window: the bench world of phase 5 (dt 5 ms, K = 4096) under
    ``run_tp_sharded`` at four shards, the windowed top-K exchange, against
    the single-device ``engine.run`` on the card, every leaf;
+10. wireless: ``benchmarks.py::config4``'s world at one replica, full
+   width (``wireless5``: 10,000 mobile, battery-powered users, 64 APs with
+   the Bianchi MAC keyed by offered load, ENERGY_AWARE, 100 ticks of
+   5 ms, T = 140,000 task rows): a stepped card run that keeps every
+   arrival window and tick 0's per-cell sum input, ``fused_arrival_plan``
+   against its plain version on every non-empty window, ``engine.run``
+   timed after it (decisions per second, ms per tick, launches), card
+   against CPU every leaf, ``n_lost``, the least alive count and the
+   handovers; ``cell_sum_ordered`` against its plain version (bit for
+   bit) on tick 0's real input, on every entry in one cell, on dropped
+   entries and on inexact rates, timed beside ``index_add_``; and the
+   profile of a wireless tick (``wireless_profile``);
+11. wireless_churn: ``tests/test_parity_wireless.py``'s fast-cycling
+   battery world at dt 10 ms under MIN_BUSY (8 users, 400 ticks), stepped
+   on the card watching ``nodes.alive`` (at least one user shut down and
+   one restarted), card against CPU every leaf;
 
 then the ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` prints them, and ``{"ok": true, "device": {...}}`` last.
@@ -78,16 +94,21 @@ MAX_ARRIVAL_LAUNCHES = 5
 ARRIVAL_RUN = 4096
 #: The ring all-gather's one launch in a device trace.
 RING_KERNEL = "ring_gather_kernel"
+#: The ordered per-cell sum's one launch in a device trace.
+CELL_KERNEL = "cell_sum_kernel"
 
 SOURCES = {
     "fused_arrival_plan": "fognetsimpp_tpu_torch/csrc/arrival_plan.cu",
     "pairwise_rank": "fognetsimpp_tpu_torch/csrc/arrival_plan.cu",
     "ring_all_gather": "fognetsimpp_tpu_torch/csrc/ring_gather.cu",
+    "cell_sum_ordered": "fognetsimpp_tpu_torch/csrc/cell_sum.cu",
 }
 REPLACES = {
     "fused_arrival_plan": "fognetsimpp_tpu/ops/pallas_kernels.py:155",
     "pairwise_rank": "fognetsimpp_tpu/ops/pallas_kernels.py:320",
     "ring_all_gather": "fognetsimpp_tpu/ops/pallas_kernels.py:234",
+    # no TPU kernel: the index order of XLA's float32 scatter-add there
+    "cell_sum_ordered": "fognetsimpp_tpu/net/topology.py:191",
 }
 
 
@@ -138,6 +159,21 @@ TP_TICK0_MASKED = 86_103
 #: in one fog (the port's CPU run of that world).
 BENCH_MASKED = 2_281
 
+#: ``benchmarks.py::config4`` at one replica: the 10k-node mobile-handover
+#: world with energy, ENERGY_AWARE, the Bianchi MAC over 64 APs.
+WIRELESS = dict(
+    numb_users=10_000, horizon=0.5, dt=5e-3, send_interval=0.05,
+    queue_capacity=64, extra_aps=59, mac_model="bianchi",
+)
+#: tests/test_parity_wireless.py's fast-cycling battery world (12 mJ
+#: batteries, 18 mW net drain while publishing) at dt 10 ms, MIN_BUSY.
+CHURN = dict(
+    numb_users=8, horizon=4.0, dt=0.01, send_interval=0.1, w_contention=0.0,
+    mac_model="linear", energy_capacity_j=0.012, tx_energy_j=2e-3,
+    rx_energy_j=1e-4, idle_power_w=2e-3, harvest_power_w=4e-3,
+    harvest_period_s=50.0, harvest_duty=0.5,
+)
+
 
 def main() -> int:
     import numpy as np
@@ -151,12 +187,14 @@ def main() -> int:
     from fognetsimpp_tpu_torch.core import engine
     from fognetsimpp_tpu_torch.net.topology import associate
     from fognetsimpp_tpu_torch.ops import arrival_kernels as ak
+    from fognetsimpp_tpu_torch.ops import cell_kernels as ck
     from fognetsimpp_tpu_torch.ops import cuda_build
     from fognetsimpp_tpu_torch.ops import queues as tq
     from fognetsimpp_tpu_torch.ops import ring_kernels as rk
     from fognetsimpp_tpu_torch.parallel.taskshard import run_tp_sharded
     from fognetsimpp_tpu_torch.runtime.signals import summarize
-    from fognetsimpp_tpu_torch.scenarios import smoke
+    from fognetsimpp_tpu_torch.scenarios import smoke, wireless
+    from fognetsimpp_tpu_torch.spec import Policy
     from fognetsimpp_tpu_torch.state import state_to_numpy, tree_leaves
 
     t_start = time.perf_counter()
@@ -532,9 +570,10 @@ def main() -> int:
     def reset_launches():
         ak.reset_launches()
         rk.reset_launches()
+        ck.reset_launches()
 
     def all_launches():
-        return {**ak.LAUNCHES, **rk.LAUNCHES}
+        return {**ak.LAUNCHES, **rk.LAUNCHES, **ck.LAUNCHES}
 
     def assert_same(card_state, cpu_state, what):
         paths = [p for p, _ in tree_leaves(cpu_state)]
@@ -833,6 +872,258 @@ def main() -> int:
         raise SystemExit("tp_window: the path never launched fused_arrival_plan")
     window_launches = launches
 
+    # ---- 10. the wireless world: config 4 at one replica, full width -----
+    w_kw = dict(WIRELESS, policy=int(Policy.ENERGY_AWARE))
+    w_kw["arrival_window"] = wireless.wireless5(device="cpu", **w_kw)[0].auto_arrival_window
+
+    def handovers(net, spec, pos0, alive0, pos1, alive1):
+        """Users associated at both states, with different APs."""
+        a0 = associate(net, pos0, alive0, spec.broker_index).assoc[: spec.n_users]
+        a1 = associate(net, pos1, alive1, spec.broker_index).assoc[: spec.n_users]
+        return int(((a0 != a1) & (a0 >= 0) & (a1 >= 0)).sum())
+
+    # a stepped run that keeps every arrival window and tick 0's input of
+    # the per-cell sum; also the warm-up of the timed run below
+    spec, st, net, b = wireless.wireless5(device=dev, **w_kw)
+    step = engine.make_step(spec)
+    U = spec.n_users
+    windows, fused_plan = [], ak.fused_arrival_plan
+    cell_inputs, cell_sum = [], ck.cell_sum_ordered
+
+    def kept_plan(*args):
+        windows.append(args)
+        return fused_plan(*args)
+
+    def kept_sum(*args):
+        cell_inputs.append(args)
+        return cell_sum(*args)
+
+    ak.fused_arrival_plan, ck.cell_sum_ordered = kept_plan, kept_sum
+    try:
+        alive_n = []
+        for tick in range(spec.n_ticks):
+            st = step(st, net, b)
+            alive_n.append(st.nodes.alive[:U].sum())
+            if tick == 0:
+                pos0, alive0 = st.nodes.pos.clone(), st.nodes.alive.clone()
+    finally:
+        ak.fused_arrival_plan, ck.cell_sum_ordered = fused_plan, cell_sum
+    torch.cuda.synchronize()
+    stepped = st
+    n_hand = handovers(net, spec, pos0, alive0, st.nodes.pos, st.nodes.alive)
+    alive_min = int(torch.stack(alive_n).min())
+    masked = [int(w[0].sum()) for w in windows]
+    for args in windows:
+        if int(args[0].sum()):
+            if not same_bits(fused_plan(*args), ak.fused_arrival_plan_plain(*args)):
+                raise SystemExit("wireless: fused_arrival_plan differs from its plain "
+                                 "version on a window of the run")
+    full = [w for w in windows if int(w[0].sum())]
+    if not full or len(cell_inputs) != spec.n_ticks:
+        raise SystemExit(f"wireless: {len(full)} non-empty windows, "
+                         f"{len(cell_inputs)} per-cell sums in {spec.n_ticks} ticks")
+    r = check_arrival_kernel("fused_arrival_plan", full[0][:3], full[0][3], (20, 10, 50, 10))
+    emit_kernel(r, "wireless world, first non-empty window")
+    kernel_rows[("fused_arrival_plan", "wireless")] = kernel_row(r, "wireless", "real")
+    del windows, full
+    # the timed run through engine.run
+    spec, st, net, b = wireless.wireless5(device=dev, **w_kw)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    card, _ = engine.run(spec, st, net, b)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+    n_same = assert_same(card, stepped, "wireless (engine.run against the stepped run)")
+    del stepped
+    t0 = time.perf_counter()
+    spec_c, st_c, net_c, b_c = wireless.wireless5(device="cpu", **w_kw)
+    cpu, _ = engine.run(spec_c, st_c, net_c, b_c)
+    cpu_s = time.perf_counter() - t0
+    n_leaves = assert_same(card, cpu, "wireless")
+    del cpu
+    summ = summarize(card)
+    n_sched = summ["n_scheduled"]
+    emit({
+        "phase": "wireless", "n_users": U, "n_nodes": spec.n_nodes,
+        "n_aps": spec.n_aps, "n_fogs": spec.n_fogs, "window": spec.window,
+        "task_rows": spec.task_capacity, "ticks": spec.n_ticks,
+        "leaves_equal": n_leaves, "leaves_equal_stepped": n_same,
+        "n_scheduled": n_sched, "n_published": summ["n_published"],
+        "n_lost": int(card.metrics.n_lost), "n_dropped": summ["n_dropped"],
+        "n_completed": summ["n_completed"],
+        "n_deferred_max": summ["n_deferred_max"],
+        "alive_min": alive_min, "alive_end": int(card.nodes.alive[:U].sum()),
+        "handovers": n_hand, "window_masked_rows": masked,
+        "arrival_plan_checked_windows": sum(1 for m in masked if m),
+        "wall_s": wall, "cpu_run_s": cpu_s,
+        "task_offload_decisions_per_sec": n_sched / wall,
+        "ms_per_tick": wall / spec.n_ticks * 1e3,
+        "launches": launches,
+    })
+    if launches["cell_sum_ordered"] != spec.n_ticks or launches["fused_arrival_plan"] <= 0:
+        raise SystemExit(f"wireless: launches {launches} in {spec.n_ticks} ticks")
+    wireless_launches = launches
+    del card
+
+    # the ordered per-cell sum against its plain version and index_add_
+    def check_cell_kernel(case, cell, vals, A, reps):
+        run_k = lambda: ck.cell_sum_ordered(cell, vals, A)  # noqa: E731
+        run_p = lambda: ck.cell_sum_ordered_plain(cell, vals, A)  # noqa: E731
+        idx = torch.where((cell >= 0) & (cell < A), cell, A).long()
+        acc = torch.zeros((A + 1,), dtype=torch.float32, device=dev)
+        run_lib = lambda: acc.index_add_(0, idx, vals)  # noqa: E731
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")  # the wrapper may not sync
+        try:
+            got = run_k()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        want = run_p()
+        equal = same_bits([got], [want])
+        err = max_abs_err([got], [want])
+        lib_out = torch.zeros((A + 1,), device=dev).index_add_(0, idx, vals)[:A]
+        if not equal:
+            raise SystemExit(f"cell_sum_ordered ({case}) differs from its plain version")
+        # one launch a call each, the kernel and index_add_: each timed by
+        # its launches' mean, as the profiler now and then drops a call
+        us_k, n_k = device_us(run_k, reps[0], (CELL_KERNEL,))
+        dev_k = {k: v / n_k[k] for k, v in us_k.items() if CELL_KERNEL in k}
+        us_l, n_l = device_us(run_lib, reps[0], ("index",))
+        dev_l = {k: v / n_l[k] for k, v in us_l.items() if "index" in k}
+        if not dev_k or not dev_l:
+            raise SystemExit("cell_sum_ordered: the profiler saw no device time "
+                             "of the kernel or of index_add_")
+        n_bytes = cell.shape[0] * 8 + A * 4
+        return {
+            "name": "cell_sum_ordered", "case": case, "N": cell.shape[0], "A": A,
+            "largest_cell": int(torch.bincount(idx, minlength=A + 1)[:A].max()),
+            "equal": equal, "max_abs_err": err,
+            "index_add_bit_equal": bool(torch.equal(lib_out.view(torch.int32), want.view(torch.int32))),
+            "ms": sum(dev_k.values()) / 1e3,
+            "traced_share": sum(n_k[k] for k in dev_k),
+            "library_ms": sum(dev_l.values()) / 1e3,
+            # CUDA events around a call: the plain version waits once for
+            # the card (its round count), so its wall time is its time
+            "plain_ms": per_call_ms(run_p, reps[1]),
+            "wrapper_ms": per_call_ms(run_k, reps[0]),
+            "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bound_bytes": n_bytes,
+        }
+
+    cell0, vals0, A0 = cell_inputs[0]
+    del cell_inputs
+    rng = np.random.default_rng(7)
+    N0 = cell0.shape[0]
+
+    def on_card(*arrays):
+        return [torch.from_numpy(a).to(dev) for a in arrays]
+
+    rates = np.array([1 / 1.5, 1 / 0.05, 0.1, 1 / 3, 1 / 7], np.float32)
+    cell_cases = [
+        ("wireless tick 0", cell0, vals0, A0),
+        ("one cell", *on_card(np.full(N0, A0 // 2, np.int32),
+                              rng.choice(rates, N0)), A0),
+        ("dropped", *on_card(rng.integers(-2, A0 + 3, N0).astype(np.int32),
+                             rng.choice(rates, N0)), A0),
+        ("inexact rates", *on_card(rng.integers(0, A0, N0).astype(np.int32),
+                                   (rng.random(N0) * 40 + 0.3).astype(np.float32)), A0),
+    ]
+    for case, cell, vals, A in cell_cases:
+        r = check_cell_kernel(case, cell, vals, A, (20, 2))
+        emit({"phase": "kernel", **{k: v for k, v in r.items() if not k.endswith("_ms")},
+              "device_us": r["ms"] * 1e3, "plain_wall_us": r["plain_ms"] * 1e3,
+              "index_add_device_us": r["library_ms"] * 1e3,
+              "wrapper_us": r["wrapper_ms"] * 1e3, "bound_us": r["bound_ms"] * 1e3})
+        if case == "wireless tick 0":
+            kernel_rows[("cell_sum_ordered", "wireless")] = {
+                "name": "cell_sum_ordered", "route": "cuda",
+                "source": SOURCES["cell_sum_ordered"],
+                "replaces": REPLACES["cell_sum_ordered"],
+                "replaces_note": "no TPU kernel: the index order of XLA's "
+                                 "float32 scatter-add, which the card's "
+                                 "atomic adds do not keep",
+                "launches": 0, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": "bytes", "library_ms": r["library_ms"],
+                "library": "Tensor.index_add_ (atomic adds, another order)",
+                "shape": {"N": r["N"], "A": A, "largest_cell": r["largest_cell"]},
+                "shape_of": "wireless", "bound_bytes": r["bound_bytes"],
+                "wrapper_ms": r["wrapper_ms"],
+            }
+    del cell_cases
+
+    # where a wireless tick's time goes
+    spec, st, net, b = wireless.wireless5(device=dev, **w_kw)
+    step = engine.make_step(spec)
+    for _ in range(8):
+        st = step(st, net, b)
+    torch.cuda.synchronize()
+    n_prof = 4
+    t0 = time.perf_counter()
+    for _ in range(n_prof):
+        st = step(st, net, b)
+    torch.cuda.synchronize()
+    wall_plain = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_prof):
+            st = step(st, net, b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us, n_kernels, by_name = device_events(prof)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    emit({
+        "phase": "wireless_profile", "ticks": n_prof, "from_tick": 12,
+        "wall_ms_per_tick": wall / n_prof * 1e3,
+        "wall_ms_per_tick_unprofiled": wall_plain / n_prof * 1e3,
+        "device_events_per_tick": n_kernels / n_prof,
+        "device_ms_per_tick": dev_us / n_prof / 1e3 if n_kernels else None,
+        "device_busy_share": (dev_us / 1e6) / wall_plain if n_kernels else None,
+        "cell_kernel_device_us_per_tick": sum(
+            v for k, v in by_name.items() if CELL_KERNEL in k) / n_prof,
+        "arrival_kernels_device_us_per_tick": sum(
+            v for k, v in by_name.items() if any(s in k for s in OUR_KERNELS)) / n_prof,
+        "top_device_us_per_tick": [[k, v / n_prof] for k, v in top],
+    })
+    del st
+
+    # ---- 11. battery churn: users shut down and restart ------------------
+    c_kw = dict(CHURN, policy=int(Policy.MIN_BUSY))
+    spec, st, net, b = wireless.wireless5(device=dev, **c_kw)
+    step = engine.make_step(spec)
+    U = spec.n_users
+    prev = st.nodes.alive[:U]
+    downs = torch.zeros((U,), dtype=torch.int32, device=dev)
+    ups = torch.zeros((U,), dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(spec.n_ticks):
+        st = step(st, net, b)
+        a = st.nodes.alive[:U]
+        downs += (prev & ~a).int()
+        ups += (~prev & a).int()
+        prev = a
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+    spec_c, st_c, net_c, b_c = wireless.wireless5(device="cpu", **c_kw)
+    cpu, _ = engine.run(spec_c, st_c, net_c, b_c)
+    n_leaves = assert_same(st, cpu, "wireless_churn")
+    emit({
+        "phase": "wireless_churn", "n_users": U, "ticks": spec.n_ticks,
+        "leaves_equal": n_leaves, "shutdowns": downs.tolist(),
+        "restarts": ups.tolist(), "n_published": int(st.metrics.n_published),
+        "n_scheduled": int(st.metrics.n_scheduled), "wall_s": wall,
+        "ms_per_tick": wall / spec.n_ticks * 1e3, "launches": launches,
+    })
+    if not (int(downs.max()) > 0 and int(ups.max()) > 0):
+        raise SystemExit("wireless_churn: no user shut down and restarted")
+    if launches["fused_arrival_plan"] <= 0:
+        raise SystemExit("wireless_churn: the path never launched fused_arrival_plan")
+
     # each row's launches: the main paths' calls at that row's shape
     by_path = {
         ("fused_arrival_plan", "bench"): {
@@ -842,6 +1133,12 @@ def main() -> int:
         ("fused_arrival_plan", "tp"): {"tp": tp_launches["fused_arrival_plan"]},
         ("pairwise_rank", "wide_fog"): {"wide_fog": wide_launches},
         ("ring_all_gather", "tp"): {"tp": tp_launches["ring_all_gather"]},
+        ("fused_arrival_plan", "wireless"): {
+            "wireless": wireless_launches["fused_arrival_plan"],
+        },
+        ("cell_sum_ordered", "wireless"): {
+            "wireless": wireless_launches["cell_sum_ordered"],
+        },
     }
     for key, paths in by_path.items():
         kernel_rows[key]["launches"] = sum(paths.values())

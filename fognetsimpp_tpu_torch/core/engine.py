@@ -1,14 +1,16 @@
 """The tick engine: one call of ``step`` advances the whole world one tick.
 
 Counterpart of ``fognetsimpp_tpu/core/engine.py`` for the per-phase
-(unfused) tick of the wired bench world: connect -> adverts -> spawn
-(``_phase_spawn`` at one send per tick, ``_phase_spawn_multi`` above) ->
+(unfused) tick: mobility and association (every tick unless the world is
+static) -> connect -> adverts -> spawn (``_phase_spawn`` at one send per
+tick, ``_phase_spawn_multi`` above, both with the 802.11 uplink loss) ->
 dense broker -> ``completions_per_tick`` completion passes -> fog
 arrivals (two-stage candidate front, K-window compaction, shared tail)
--> per-node message counters.  The JAX package's fused slot-window
-front-end is bit-identical to this tick (``tests/test_fused.py``) and is
-not ported.  :func:`run` replaces the ``lax.scan`` with a Python loop and
-hoists the static link cache out of it, as the JAX ``run`` does.
+-> per-node message counters -> energy and lifecycle.  The JAX package's
+fused slot-window front-end is bit-identical to this tick
+(``tests/test_fused.py``) and is not ported.  :func:`run` replaces the
+``lax.scan`` with a Python loop and hoists the static link cache out of
+it, as the JAX ``run`` does.
 
 Every leaf is held bit-exact against the JAX engine.  Three habits keep
 it so: Python float constants are rounded to float32 before they meet
@@ -31,13 +33,14 @@ import torch
 from ..dynspec import DynSpec, dyn_of
 from ..envelope import broker_dense_ok, check_slice
 from ..f32math import const, fma
+from ..net.energy import step_energy
 from ..net.mobility import MobilityBounds, default_bounds, step_mobility
 from ..net.topology import LinkCache, NetParams, associate
 from ..ops.queues import NO_TASK, batched_enqueue, batched_pop, plan_arrivals
 from ..ops.scatter import add_drop, set_drop
 from ..ops.sched import scalar_winner
 from ..random import randint, split, uniform
-from ..spec import FogModel, Policy, Stage, WorldSpec
+from ..spec import STATIC_MAC_ERR, FogModel, Policy, Stage, WorldSpec
 from ..state import WorldState
 
 _ST_UNUSED = int(Stage.UNUSED)
@@ -326,6 +329,43 @@ def _rot_and_defer(
     return rot, state
 
 
+def offered_rate_vector(
+    spec: WorldSpec, alive_u: torch.Tensor, users, t0: torch.Tensor, dv: DynSpec,
+) -> torch.Tensor:
+    """(N,) f32 offered frame rate a node for the Bianchi keying: a user's
+    publish rate while it is publishing, 0 otherwise."""
+    publishing = (
+        alive_u
+        & users.connected
+        & users.publisher
+        & (users.send_count < spec.max_sends_per_user)
+        & torch.isfinite(users.next_send)
+    )
+    if spec.send_stop_time != _INF:
+        publishing = publishing & (t0 < const(float(dv.send_stop_time), t0.device))
+    # an IEEE division (torch's ``1.0 / x`` is a reciprocal times 1.0)
+    rate = torch.where(
+        publishing, torch.ones_like(users.send_interval) / users.send_interval, 0.0
+    )
+    rest = torch.zeros((spec.n_nodes - spec.n_users,), dtype=_F32, device=t0.device)
+    return torch.cat([rate, rest])
+
+
+def _uplink_loss_p(spec, net: NetParams, cache: LinkCache, dv: DynSpec, U: int, dev):
+    """(U,) f32 loss probability of a publish, or None when nothing can be
+    lost: the fitted residual ``uplink_loss_prob`` combined with the
+    sender's 802.11 retry-exhaustion loss, ``1 - (1 - p)(1 - mac)`` (one
+    fused multiply-add, as XLA compiles it)."""
+    has_mac = net.mac_loss_tab.shape[0] > 0
+    if not (spec.uplink_loss_prob > 0 or has_mac):
+        return None
+    p_eff = torch.full((U,), float(dv.uplink_loss_prob), dtype=_F32, device=dev)
+    if has_mac:
+        one = const(1.0, dev).expand(U)
+        p_eff = fma(-(1.0 - p_eff), 1.0 - cache.mac_loss_p[:U], one)
+    return p_eff
+
+
 # ----------------------------------------------------------------------
 # phases
 # ----------------------------------------------------------------------
@@ -386,10 +426,12 @@ def _phase_adverts(state, t1):
     return state.replace(broker=broker, metrics=metrics)
 
 
-def _phase_spawn(spec, state, cache, buf, t0, t1, dv: DynSpec, tp=None):
+def _phase_spawn(spec, state, net, cache, buf, t0, t1, dv: DynSpec, tp=None):
     """Users whose send timer fired publish one task into slot
     ``u * S + send_count[u]``, as elementwise selects over the (U, S)
-    view of the task table.  Under ``tp`` the draws are the global
+    view of the task table.  A wireless sender's publish is lost on the
+    uplink with the probability of :func:`_uplink_loss_p` (``LOST``,
+    never reaching the broker).  Under ``tp`` the draws are the global
     width's, cut to the shard's users."""
     U, T, S = spec.n_users, spec.task_capacity, spec.max_sends_per_user
     users, tasks = state.users, state.tasks
@@ -405,7 +447,7 @@ def _phase_spawn(spec, state, cache, buf, t0, t1, dv: DynSpec, tp=None):
     if spec.send_stop_time != _INF:
         due = due & (t_create < const(float(dv.send_stop_time), dev))
     keys = split(state.key, 4)
-    key, k_mips, k_jit = keys[0], keys[1], keys[2]
+    key, k_mips, k_jit, k_loss = keys[0], keys[1], keys[2], keys[3]
     if spec.fixed_mips_required is not None:
         mips_req = torch.full((U,), float(spec.fixed_mips_required), dtype=_F32, device=dev)
     else:
@@ -417,6 +459,13 @@ def _phase_spawn(spec, state, cache, buf, t0, t1, dv: DynSpec, tp=None):
             U,
         ).to(_F32)
     t_arrive = t_create + cache.d2b[:U]
+    p_loss = _uplink_loss_p(spec, net, cache, dv, U, dev)
+    if p_loss is None:
+        lost = torch.zeros((U,), dtype=torch.bool, device=dev)
+    else:
+        lost = (
+            _tp_user_draw(tp, lambda s: uniform(k_loss, s), U) < p_loss
+        ) & net.is_wireless[:U]
     sel = due[:, None] & (
         torch.arange(S, dtype=_I32, device=dev)[None, :]
         == users.send_count[:, None]
@@ -426,10 +475,10 @@ def _phase_spawn(spec, state, cache, buf, t0, t1, dv: DynSpec, tp=None):
         return torch.where(sel, val_u[:, None], col.reshape(U, S)).reshape(T)
 
     tasks = tasks.replace(
-        stage=put(tasks.stage, torch.full((U,), _ST_PUB_INFLIGHT, dtype=torch.int8, device=dev)),
+        stage=put(tasks.stage, torch.where(lost, _i8(_ST_LOST, dev), _i8(_ST_PUB_INFLIGHT, dev))),
         mips_req=put(tasks.mips_req, mips_req),
         t_create=put(tasks.t_create, t_create),
-        t_at_broker=put(tasks.t_at_broker, t_arrive),
+        t_at_broker=put(tasks.t_at_broker, torch.where(lost, _INF, t_arrive)),
     )
     if spec.send_interval_jitter > 0:
         jit = _tp_user_draw(
@@ -448,18 +497,20 @@ def _phase_spawn(spec, state, cache, buf, t0, t1, dv: DynSpec, tp=None):
         next_send=torch.where(due, nxt, users.next_send),
         send_count=torch.where(due, users.send_count + 1, users.send_count),
     )
-    n_pub = _isum(due)
+    sums = _isum(torch.stack([due, due & lost]), 1)
     metrics = state.metrics.replace(
-        n_published=state.metrics.n_published + n_pub,
+        n_published=state.metrics.n_published + sums[0],
+        n_lost=state.metrics.n_lost + sums[1],
     )
     buf = buf._replace(tx_u=buf.tx_u + due.to(_I32))
     return state.replace(users=users, tasks=tasks, metrics=metrics, key=key), buf
 
 
-def _phase_spawn_multi(spec, state, cache, buf, t0, t1, dv: DynSpec, tp=None):
+def _phase_spawn_multi(spec, state, net, cache, buf, t0, t1, dv: DynSpec, tp=None):
     """Up to ``max_sends_per_tick`` publishes per user per tick, send ``j``
-    at ``max(next_send, t0) + j * interval``; per-send MIPS draws come
-    from ``(U, R)`` lanes mapped onto slots by the send offset."""
+    at ``max(next_send, t0) + j * interval``; per-send MIPS and uplink
+    loss draws come from ``(U, R)`` lanes mapped onto slots by the send
+    offset."""
     U, T, S = spec.n_users, spec.task_capacity, spec.max_sends_per_user
     R = spec.max_sends_per_tick
     users, tasks = state.users, state.tasks
@@ -476,7 +527,15 @@ def _phase_spawn_multi(spec, state, cache, buf, t0, t1, dv: DynSpec, tp=None):
     if spec.send_stop_time != _INF:
         due2 = due2 & (fire < const(float(dv.send_stop_time), dev))
     keys = split(state.key, 3)
-    key, k_mips = keys[0], keys[1]
+    key, k_mips, k_loss = keys[0], keys[1], keys[2]
+
+    def lane_select(draws, fill):
+        """(U, R) lanes -> (U, S) slots by the send offset."""
+        out = torch.full((U, S), fill, dtype=draws.dtype, device=dev)
+        for r in range(R):
+            out = torch.where(jc == r, draws[:, r: r + 1], out)
+        return out
+
     if spec.fixed_mips_required is not None:
         mips2 = torch.full((U, S), float(spec.fixed_mips_required), dtype=_F32, device=dev)
     else:
@@ -487,28 +546,36 @@ def _phase_spawn_multi(spec, state, cache, buf, t0, t1, dv: DynSpec, tp=None):
             ),
             U, R,
         ).to(_F32)
-        mips2 = torch.zeros((U, S), dtype=_F32, device=dev)
-        for r in range(R):
-            mips2 = torch.where(jc == r, draws[:, r: r + 1], mips2)
+        mips2 = lane_select(draws, 0.0)
     t_arrive = fire + cache.d2b[:U][:, None]
+    p_loss = _uplink_loss_p(spec, net, cache, dv, U, dev)
+    if p_loss is None:
+        lost2 = torch.zeros((U, S), dtype=torch.bool, device=dev)
+    else:
+        draws_l = _tp_user_draw(tp, lambda s: uniform(k_loss, s), U, R) < p_loss[:, None]
+        lost2 = lane_select(draws_l, False) & net.is_wireless[:U, None]
     st2 = tasks.stage.reshape(U, S)
+    stage_new = torch.where(lost2, _i8(_ST_LOST, dev), _i8(_ST_PUB_INFLIGHT, dev))
     tasks = tasks.replace(
-        stage=torch.where(due2, _i8(_ST_PUB_INFLIGHT, dev), st2).reshape(T),
+        stage=torch.where(due2, stage_new, st2).reshape(T),
         mips_req=torch.where(due2, mips2, tasks.mips_req.reshape(U, S)).reshape(T),
         t_create=torch.where(due2, fire, tasks.t_create.reshape(U, S)).reshape(T),
         t_at_broker=torch.where(
-            due2, t_arrive, tasks.t_at_broker.reshape(U, S)
+            due2, torch.where(lost2, _INF, t_arrive), tasks.t_at_broker.reshape(U, S)
         ).reshape(T),
     )
     n_fired = _isum(due2, 1)
+    lost_u = _isum(due2 & lost2, 1)
     users = users.replace(
         next_send=torch.where(
             n_fired > 0, fma(n_fired.to(_F32), interval, base), users.next_send
         ),
         send_count=users.send_count + n_fired,
     )
+    sums = _isum(torch.stack([n_fired, lost_u]), 1)
     metrics = state.metrics.replace(
-        n_published=state.metrics.n_published + _isum(n_fired),
+        n_published=state.metrics.n_published + sums[0],
+        n_lost=state.metrics.n_lost + sums[1],
     )
     buf = buf._replace(tx_u=buf.tx_u + n_fired)
     return state.replace(users=users, tasks=tasks, metrics=metrics, key=key), buf
@@ -976,20 +1043,31 @@ def make_step(spec: WorldSpec):
                 n_deferred=torch.zeros((), dtype=_I32, device=dev)
             )
         )
+        # mobility, then this tick's association on the new positions
         if spec.assume_static and static_cache is not None:
             cache = static_cache
         else:
+            if spec.assume_static and net.mac_loss_tab.shape[0] > 0:
+                raise ValueError(STATIC_MAC_ERR)
             pos, vel = step_mobility(state.nodes, bounds, t1, spec.dt)
             state = state.replace(nodes=state.nodes.replace(pos=pos, vel=vel))
-            cache = associate(net, state.nodes.pos, state.nodes.alive, spec.broker_index)
+            offered = None
+            if net.mac_loss_tab.shape[0] > 0:
+                # Bianchi worlds key each cell's MAC on its offered load
+                offered = offered_rate_vector(
+                    spec, state.nodes.alive[:U], state.users, t0, dv
+                )
+            cache = associate(
+                net, pos, state.nodes.alive, spec.broker_index, offered
+            )
 
         if spec.connect_gating:
             state, buf = _phase_connect(spec, state, cache, buf, t0, t1)
         state = _phase_adverts(state, t1)
         if spec.max_sends_per_tick > 1:
-            state, buf = _phase_spawn_multi(spec, state, cache, buf, t0, t1, dv)
+            state, buf = _phase_spawn_multi(spec, state, net, cache, buf, t0, t1, dv)
         else:
-            state, buf = _phase_spawn(spec, state, cache, buf, t0, t1, dv)
+            state, buf = _phase_spawn(spec, state, net, cache, buf, t0, t1, dv)
         state, buf = _phase_broker_dense(spec, state, cache, buf, t1)
         if F > 0:
             for _ in range(spec.completions_per_tick):
@@ -999,12 +1077,31 @@ def make_step(spec: WorldSpec):
         rest = torch.zeros((spec.n_aps + spec.n_routers,), dtype=_I32, device=dev)
         tx_all = torch.cat([buf.tx_u, buf.tx_f, buf.tx_b[None], rest])
         rx_all = torch.cat([buf.rx_u, buf.rx_f, buf.rx_b[None], rest])
-        state = state.replace(
-            nodes=state.nodes.replace(
-                tx_count=state.nodes.tx_count + tx_all,
-                rx_count=state.nodes.rx_count + rx_all,
-            )
+        nodes = state.nodes.replace(
+            tx_count=state.nodes.tx_count + tx_all,
+            rx_count=state.nodes.rx_count + rx_all,
         )
+        if spec.n_aps > 0:
+            a0, a1 = spec.ap_slice
+            nodes = nodes.replace(
+                assoc_sum=torch.cat([
+                    nodes.assoc_sum[:a0], nodes.assoc_sum[a0:a1] + cache.n_assoc,
+                    nodes.assoc_sum[a1:],
+                ])
+            )
+        if spec.energy_enabled:
+            # battery drain and harvest; a fog in service draws compute power
+            computing = torch.cat([
+                torch.zeros((U,), dtype=torch.bool, device=dev),
+                state.fogs.current_task != NO_TASK,
+                torch.zeros((spec.n_nodes - U - F,), dtype=torch.bool, device=dev),
+            ])
+            energy, alive = step_energy(
+                dv, nodes.energy, nodes.energy_capacity, nodes.has_energy,
+                nodes.alive, t1, tx_all, rx_all, computing,
+            )
+            nodes = nodes.replace(energy=energy, alive=alive)
+        state = state.replace(nodes=nodes)
         return state.replace(
             t=t1,
             tick=state.tick + 1,
@@ -1068,10 +1165,6 @@ def run(
     ported.  The state stays on its device; the loop never waits for it.
     """
     check_slice(spec, net)
-    if bool((state.nodes.mobility != 0).any()):
-        raise NotImplementedError(
-            "not ported yet: mobile nodes (ROADMAP.md §1 item 9)"
-        )
     if spec.derive_acks and not spec.assume_static:
         raise ValueError("derive_acks needs assume_static (one static link cache)")
     dev = state.t.device
@@ -1081,6 +1174,10 @@ def run(
     step = make_step(spec)
     static_cache = None
     if spec.assume_static:
+        if net.mac_loss_tab.shape[0] > 0:
+            raise ValueError(STATIC_MAC_ERR)
+        # one association for the whole run: positions and liveness are
+        # constant, so no mobility or association runs a tick
         static_cache = associate(net, state.nodes.pos, state.nodes.alive, spec.broker_index)
     for _ in range(n):
         state = step(state, net, bounds, static_cache)

@@ -36,16 +36,10 @@ def slice_reject_reason(spec: WorldSpec, net=None) -> Optional[str]:
         return "the v1/v2 apps, POOL fogs and LOCAL_FIRST (ROADMAP.md §1 item 10)"
     if spec.learn_active or not broker_dense_ok(spec):
         return "the compacted broker and its policies (ROADMAP.md §1 item 8)"
-    if (
-        spec.n_aps > 0 or spec.mac_keyed or spec.uplink_loss_prob > 0
-        or spec.link_up_s > 0 or spec.wired_queue_enabled
-        or spec.energy_enabled
-        or (net is not None and net.ap_nodes.shape[0] > 0)
-    ):
-        return (
-            "wireless, mobility, DropTail, link warm-up and energy worlds "
-            "(ROADMAP.md §1 item 9)"
-        )
+    if spec.link_up_s > 0:
+        return "the link warm-up of the v1/v2 example world (ROADMAP.md §1 item 10)"
+    if spec.wired_queue_enabled:
+        return "DropTail link queues (ROADMAP.md §1 item 25)"
     if spec.chaos:
         return "chaos worlds (ROADMAP.md §1 item 12)"
     if spec.hier_active:
@@ -79,5 +73,10 @@ def check_tp_slice(spec: WorldSpec, net=None) -> None:
         raise NotImplementedError(
             "not ported yet: telemetry, the latency histogram and journeys "
             "under the task-sharded tick (ROADMAP.md §1 items 14 and 23)"
+        )
+    if spec.n_aps > 0 or (net is not None and net.ap_nodes.shape[0] > 0):
+        raise NotImplementedError(
+            "not ported yet: access points under the task-sharded tick "
+            "(ROADMAP.md §1 item 26)"
         )
     check_slice(spec, net)

@@ -2,7 +2,7 @@
 
 Only :func:`scalar_winner` is ported: the task-independent winner of the
 dense-broker policy family.  The per-task ``schedule_batch`` and the
-learned policies are ``ROADMAP.md`` §1 item 7.
+learned policies are ``ROADMAP.md`` §1 item 8.
 """
 from __future__ import annotations
 

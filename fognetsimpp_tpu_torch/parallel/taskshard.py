@@ -298,8 +298,8 @@ def _zero_buf(U: int, F: int, dev) -> TickBuf:
 
 
 def _tp_tick(
-    spec: WorldSpec, tp: TpCtx, state: WorldState, cache: LinkCache,
-    k_exchange: int, window_k: Optional[int], dv: DynSpec,
+    spec: WorldSpec, tp: TpCtx, state: WorldState, net: NetParams,
+    cache: LinkCache, k_exchange: int, window_k: Optional[int], dv: DynSpec,
 ) -> WorldState:
     """One sharded tick over the LOCAL world view (``taskshard._tp_tick``):
     connect -> adverts -> spawn -> dense decide -> completions xN ->
@@ -326,9 +326,9 @@ def _tp_tick(
     state = _phase_adverts(state.replace(metrics=m_rep), t1)
     m_rep, state = state.metrics, state.replace(metrics=m_part)
     if spec.max_sends_per_tick > 1:
-        state, buf_p = _phase_spawn_multi(spec, state, cache, buf_p, t0, t1, dv, tp=tp)
+        state, buf_p = _phase_spawn_multi(spec, state, net, cache, buf_p, t0, t1, dv, tp=tp)
     else:
-        state, buf_p = _phase_spawn(spec, state, cache, buf_p, t0, t1, dv, tp=tp)
+        state, buf_p = _phase_spawn(spec, state, net, cache, buf_p, t0, t1, dv, tp=tp)
     state, buf_p = _phase_broker_dense(spec, state, cache, buf_p, t1, tp=tp)
     m_part = state.metrics
 
@@ -388,10 +388,6 @@ def _tp_setup(spec, state, net, n_shards, exchange_window, pad):
     if reason is not None:
         raise ValueError(f"run_tp_sharded: {reason}")
     check_tp_slice(spec, net)
-    if bool((state.nodes.mobility != 0).any()):
-        raise NotImplementedError(
-            "not ported yet: mobile nodes (ROADMAP.md §1 item 9)"
-        )
     n = int(n_shards)
     if n < 1:
         raise ValueError(f"n_shards must be >= 1, got {n}")
@@ -418,9 +414,9 @@ def _tp_setup(spec, state, net, n_shards, exchange_window, pad):
     return spec, state, net, k_ex, None
 
 
-def _shard_view(spec, state, cache, n: int, s: int):
-    """Shard ``s``'s local spec, state and link cache: its rows of the
-    user, task and user-node tables; a copy of everything else."""
+def _shard_view(spec, state, net, cache, n: int, s: int):
+    """Shard ``s``'s local spec, state, net and link cache: its rows of
+    the user, task and user-node tables; a copy of everything else."""
     U_g, S = spec.n_users, spec.max_sends_per_user
     U_loc = U_g // n
     u0, t0 = s * U_loc, s * U_loc * S
@@ -446,7 +442,11 @@ def _shard_view(spec, state, cache, n: int, s: int):
         acc_delay=cut(cache.acc_delay), reachable=cut(cache.reachable),
         d2b=cut(cache.d2b), mac_loss_p=cut(cache.mac_loss_p),
     )
-    return dataclasses.replace(spec, n_users=U_loc), st, cache_l
+    net_l = net.replace(
+        node_attach=cut(net.node_attach), node_acc=cut(net.node_acc),
+        is_wireless=cut(net.is_wireless),
+    )
+    return dataclasses.replace(spec, n_users=U_loc), st, net_l, cache_l
 
 
 def run_tp_shards(
@@ -471,14 +471,14 @@ def run_tp_shards(
     U_loc, S = spec.n_users // n, spec.max_sends_per_user
 
     def body(s: int) -> WorldState:
-        spec_l, st, cache_l = _shard_view(spec, state, cache, n, s)
+        spec_l, st, net_l, cache_l = _shard_view(spec, state, net, cache, n, s)
         dv = dyn_of(spec_l)
         tp = TpCtx(
             group=group, n_shards=n, shard=s, n_users_global=spec.n_users,
             u_off=s * U_loc, t_off=s * U_loc * S, d2b_full=cache.d2b,
         )
         for _ in range(ticks):
-            st = _tp_tick(spec_l, tp, st, cache_l, k_ex, window_k, dv)
+            st = _tp_tick(spec_l, tp, st, net_l, cache_l, k_ex, window_k, dv)
         if spec.derive_acks:
             st = _finalize_derived_acks(spec_l, st, cache_l)
         return st

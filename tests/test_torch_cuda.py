@@ -12,9 +12,11 @@ import torch
 
 from fognetsimpp_tpu_torch.core import engine
 from fognetsimpp_tpu_torch.ops import arrival_kernels as ak
+from fognetsimpp_tpu_torch.ops import cell_kernels as ck
 from fognetsimpp_tpu_torch.ops import ring_kernels as rk
 from fognetsimpp_tpu_torch.parallel.taskshard import run_tp_sharded
-from fognetsimpp_tpu_torch.scenarios import smoke
+from fognetsimpp_tpu_torch.scenarios import smoke, wireless
+from fognetsimpp_tpu_torch.spec import Policy
 from fognetsimpp_tpu_torch.state import state_to_numpy
 
 pytestmark = pytest.mark.cuda
@@ -275,3 +277,88 @@ def test_tp_card_run_equals_cpu_run(cuda, kw, window):
         assert a.dtype == c.dtype and a.tobytes() == c.tobytes()
     assert rings == (spec.n_ticks if window is not None else 0)
     assert plans == 4 * spec.n_ticks
+
+
+def _cell_case(kind, seed=0):
+    """Inputs of the ordered per-cell sum: config 4's shape (10,069
+    nodes, 64 cells, inexact rates, the drop cell 64 among them), every
+    entry in one cell, cells at and past ``n_cells`` (dropped), values
+    whose sum depends on the order of the adds, and no entries."""
+    rng = np.random.default_rng(seed)
+    if kind == "config4":
+        n, A = 10_069, 64
+        cell = rng.integers(0, A + 1, n)
+        vals = rng.choice(np.array([1 / 1.5, 1 / 0.05, 0.1, 1 / 3]), n)
+    elif kind == "one_cell":
+        n, A = 10_000, 64
+        cell = np.full(n, 17)
+        vals = rng.random(n) * 30
+    elif kind == "dropped":
+        n, A = 3000, 10
+        cell = rng.integers(-3, A + 5, n)
+        vals = rng.random(n) * 7
+    elif kind == "order":
+        n, A = 9000, 3
+        cell = rng.integers(0, A, n)
+        vals = rng.choice(np.array([1e8, 1.0, -1e8, 3.3, 0.1, -0.0]), n)
+    elif kind == "empty":
+        n, A = 0, 5
+        cell, vals = np.zeros(0), np.zeros(0)
+    else:
+        raise KeyError(kind)
+    return torch.from_numpy(cell.astype(np.int32)), torch.from_numpy(vals.astype(np.float32)), A
+
+
+@pytest.mark.parametrize("kind", ["config4", "one_cell", "dropped", "order", "empty"])
+def test_cell_sum_kernel_equals_plain(cuda, kind):
+    cell, vals, A = _cell_case(kind)
+    ck.reset_launches()
+    got = ck.cell_sum_ordered(cell.to(cuda), vals.to(cuda), A)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["cell_sum_ordered"] == 1
+    want = ck.cell_sum_ordered_plain(cell, vals, A)
+    assert got.dtype == torch.float32 and got.is_cuda
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+def test_cell_sum_wrapper_does_not_synchronise(cuda):
+    cell, vals, A = _cell_case("config4")
+    cell, vals = cell.to(cuda), vals.to(cuda)
+    ck.cell_sum_ordered(cell, vals, A)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ck.cell_sum_ordered(cell, vals, A)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_cell_sum_wrapper_refuses_bad_inputs(cuda):
+    cell = torch.zeros(8, dtype=torch.int32, device=cuda)
+    vals = torch.zeros(8, device=cuda)
+    with pytest.raises(TypeError):
+        ck.cell_sum_ordered(cell.long(), vals, 4)
+    with pytest.raises(ValueError):
+        ck.cell_sum_ordered(cell[::2], vals[::2], 4)
+    with pytest.raises(ValueError):
+        ck.cell_sum_ordered(cell, vals.cpu(), 4)
+
+
+@pytest.mark.parametrize("builder, kw", [
+    ("wireless2", dict(horizon=1.0, dt=5e-3)),
+    ("wireless5", dict(numb_users=300, horizon=1.0, dt=0.01, extra_aps=8,
+                       policy=int(Policy.ENERGY_AWARE), uplink_loss_prob=0.1)),
+])
+def test_wireless_card_run_equals_cpu_run(cuda, builder, kw):
+    ak.reset_launches()
+    ck.reset_launches()
+    spec, st, net, b = getattr(wireless, builder)(device=cuda, **kw)
+    card, _ = engine.run(spec, st, net, b)
+    torch.cuda.synchronize()
+    sums, plans = ck.LAUNCHES["cell_sum_ordered"], ak.LAUNCHES["fused_arrival_plan"]
+    spec, st, net, b = getattr(wireless, builder)(device="cpu", **kw)
+    cpu, _ = engine.run(spec, st, net, b)
+    for a, c in zip(state_to_numpy(card), state_to_numpy(cpu)):
+        assert a.dtype == c.dtype and a.tobytes() == c.tobytes()
+    assert sums == spec.n_ticks  # one Bianchi keying a tick
+    assert 0 < plans <= spec.n_ticks

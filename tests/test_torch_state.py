@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from fognetsimpp_tpu import Policy
+from fognetsimpp_tpu.core import engine as jengine
 from fognetsimpp_tpu.net import topology as jtopology
 from fognetsimpp_tpu.scenarios import smoke as jsmoke
 from fognetsimpp_tpu_torch.core import engine as tengine
@@ -132,9 +133,9 @@ def test_entry_points_need_a_device_when_cuda_is_absent():
         (dict(policy=int(Policy.ROUND_ROBIN)), "item 8"),
         (dict(policy=int(Policy.UCB)), "item 8"),
         (dict(two_stage_arrivals=False), "item 7"),
-        (dict(uplink_loss_prob=0.1), "item 9"),
-        (dict(energy_enabled=True), "item 9"),
-        (dict(wired_queue_enabled=True), "item 9"),
+        (dict(link_up_s=1.0), "item 10"),
+        (dict(wired_queue_enabled=True), "item 25"),
+        (dict(policy=int(Policy.RANDOM)), "item 8"),
         (dict(policy=int(Policy.LOCAL_FIRST), broker_mips=2048.0), "item 10"),
         (dict(chaos=True, chaos_mtbf_s=1.0, chaos_mttr_s=0.1), "item 12"),
         (dict(telemetry=True), "item 14"),
@@ -164,9 +165,24 @@ def test_link_cache_and_pair_delay_match_jax():
 
 
 def test_mobile_nodes_raise():
-    spec, state, net, bounds = tsmoke.build(device="cpu", horizon=0.05)
-    state = state.replace(
-        nodes=state.nodes.replace(mobility=torch.ones_like(state.nodes.mobility))
+    """Mobile nodes no longer raise: a smoke world whose nodes move (LINEAR
+    and CIRCLE, association every tick) runs to JAX's leaves."""
+    kw = dict(horizon=0.2, n_users=12, n_fogs=3, assume_static=False)
+    spec_j, st_j, net_j, b_j = jsmoke.build(**kw)
+    spec_t, st_t, net_t, b_t = tsmoke.build(device="cpu", **kw)
+    rng = np.random.default_rng(5)
+    N = spec_j.n_nodes
+    move = dict(
+        mobility=rng.integers(0, 3, N).astype(np.int8),
+        vel=rng.uniform(-30, 30, (N, 2)).astype(np.float32),
+        circle_center=rng.uniform(0, 100, (N, 2)).astype(np.float32),
+        circle_radius=rng.uniform(5, 50, N).astype(np.float32),
+        circle_omega=rng.uniform(-2, 2, N).astype(np.float32),
+        circle_phase=rng.uniform(-3, 3, N).astype(np.float32),
     )
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tengine.run(spec, state, net, bounds)
+    st_j = st_j.replace(nodes=st_j.nodes.replace(**{k: jnp.asarray(v) for k, v in move.items()}))
+    st_t = st_t.replace(nodes=st_t.nodes.replace(**{k: torch.from_numpy(v) for k, v in move.items()}))
+    final_j, _ = jengine.run(spec_j, st_j, net_j, b_j)
+    final_t, _ = tengine.run(spec_t, st_t, net_t, b_t)
+    assert_leaves_equal(final_j, final_t, "mobile smoke")
+    assert (final_t.nodes.pos != st_t.nodes.pos).any()
