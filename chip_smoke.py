@@ -59,8 +59,12 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    against CPU every leaf, ``n_lost``, the least alive count and the
    handovers; ``cell_sum_ordered`` against its plain version (bit for
    bit) on tick 0's real input, on every entry in one cell, on dropped
-   entries and on inexact rates, timed beside ``index_add_``; and the
-   profile of a wireless tick (``wireless_profile``);
+   entries, on inexact rates, on config 4's 128 replicas flattened
+   (1,288,832 entries, 8,192 cells) and on cells past the warp tier
+   (``scenarios/cell_sum_inputs.kernel_cases``), timed beside
+   ``index_add_``, its launches a call (at most 4) and the largest cell's
+   chain of adds at the SM clock; and the profile of a wireless tick
+   (``wireless_profile``);
 11. wireless_churn: ``tests/test_parity_wireless.py``'s fast-cycling
    battery world at dt 10 ms under MIN_BUSY (8 users, 400 ticks), stepped
    on the card watching ``nodes.alive`` (at least one user shut down and
@@ -94,8 +98,15 @@ MAX_ARRIVAL_LAUNCHES = 5
 ARRIVAL_RUN = 4096
 #: The ring all-gather's one launch in a device trace.
 RING_KERNEL = "ring_gather_kernel"
-#: The ordered per-cell sum's one launch in a device trace.
-CELL_KERNEL = "cell_sum_kernel"
+#: Name fragments of the ordered per-cell sum's launches in a device trace:
+#: one (one block a cell) or four (cell segments).
+CELL_KERNELS = (
+    "cell_sum_kernel", "cell_sum_init_kernel", "cell_sum_count_kernel",
+    "cell_sum_scatter_kernel", "cell_sum_order_kernel",
+)
+MAX_CELL_LAUNCHES = 4
+#: Cycles of one dependent float32 add, the unit of a cell's chain.
+CYCLES_PER_ADD = 4
 
 SOURCES = {
     "fused_arrival_plan": "fognetsimpp_tpu_torch/csrc/arrival_plan.cu",
@@ -159,12 +170,6 @@ TP_TICK0_MASKED = 86_103
 #: in one fog (the port's CPU run of that world).
 BENCH_MASKED = 2_281
 
-#: ``benchmarks.py::config4`` at one replica: the 10k-node mobile-handover
-#: world with energy, ENERGY_AWARE, the Bianchi MAC over 64 APs.
-WIRELESS = dict(
-    numb_users=10_000, horizon=0.5, dt=5e-3, send_interval=0.05,
-    queue_capacity=64, extra_aps=59, mac_model="bianchi",
-)
 #: tests/test_parity_wireless.py's fast-cycling battery world (12 mJ
 #: batteries, 18 mW net drain while publishing) at dt 10 ms, MIN_BUSY.
 CHURN = dict(
@@ -193,7 +198,7 @@ def main() -> int:
     from fognetsimpp_tpu_torch.ops import ring_kernels as rk
     from fognetsimpp_tpu_torch.parallel.taskshard import run_tp_sharded
     from fognetsimpp_tpu_torch.runtime.signals import summarize
-    from fognetsimpp_tpu_torch.scenarios import smoke, wireless
+    from fognetsimpp_tpu_torch.scenarios import cell_sum_inputs, smoke, wireless
     from fognetsimpp_tpu_torch.spec import Policy
     from fognetsimpp_tpu_torch.state import state_to_numpy, tree_leaves
 
@@ -276,11 +281,14 @@ def main() -> int:
         sum of the device events of ``reps`` calls (warm-up call first),
         over ``reps``, and the events per call by name.  Gaps between the
         launches are not counted.  A trace that holds no event named with
-        one of ``names`` is taken again, up to three times: the profiler
-        on the card now and then returns no device events at all."""
+        one of ``names`` is taken again, up to six times, a second apart:
+        the profiler on the card now and then returns no device events at
+        all, three traces running."""
         fn()
         torch.cuda.synchronize()
-        for _ in range(3):
+        for attempt in range(6):
+            if attempt:
+                time.sleep(1.0)
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 for _ in range(reps):
                     fn()
@@ -873,8 +881,9 @@ def main() -> int:
     window_launches = launches
 
     # ---- 10. the wireless world: config 4 at one replica, full width -----
-    w_kw = dict(WIRELESS, policy=int(Policy.ENERGY_AWARE))
-    w_kw["arrival_window"] = wireless.wireless5(device="cpu", **w_kw)[0].auto_arrival_window
+    # benchmarks.py::config4 at one replica: the 10k-node mobile-handover
+    # world with energy, ENERGY_AWARE, the Bianchi MAC over 64 APs
+    w_kw = cell_sum_inputs.wireless_kw()
 
     def handovers(net, spec, pos0, alive0, pos1, alive1):
         """Users associated at both states, with different APs."""
@@ -968,6 +977,12 @@ def main() -> int:
     del card
 
     # the ordered per-cell sum against its plain version and index_add_
+    def sm_clock_mhz():
+        return float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, check=True,
+        ).stdout.split()[0])
+
     def check_cell_kernel(case, cell, vals, A, reps):
         run_k = lambda: ck.cell_sum_ordered(cell, vals, A)  # noqa: E731
         run_p = lambda: ck.cell_sum_ordered_plain(cell, vals, A)  # noqa: E731
@@ -986,23 +1001,30 @@ def main() -> int:
         lib_out = torch.zeros((A + 1,), device=dev).index_add_(0, idx, vals)[:A]
         if not equal:
             raise SystemExit(f"cell_sum_ordered ({case}) differs from its plain version")
-        # one launch a call each, the kernel and index_add_: each timed by
-        # its launches' mean, as the profiler now and then drops a call
-        us_k, n_k = device_us(run_k, reps[0], (CELL_KERNEL,))
-        dev_k = {k: v / n_k[k] for k, v in us_k.items() if CELL_KERNEL in k}
+        # each kernel and index_add_ timed by its launches' mean, as the
+        # profiler now and then drops a call, summed over a call's kernels
+        us_k, n_k = device_us(run_k, reps[0], CELL_KERNELS)
+        ours = [k for k in us_k if any(s in k for s in CELL_KERNELS)]
+        dev_k = {k: us_k[k] / n_k[k] for k in ours}
+        clock = sm_clock_mhz()  # read beside the window
         us_l, n_l = device_us(run_lib, reps[0], ("index",))
         dev_l = {k: v / n_l[k] for k, v in us_l.items() if "index" in k}
         if not dev_k or not dev_l:
             raise SystemExit("cell_sum_ordered: the profiler saw no device time "
                              "of the kernel or of index_add_")
+        if len(dev_k) > MAX_CELL_LAUNCHES:
+            raise SystemExit(f"cell_sum_ordered ({case}): {len(dev_k)} kernels a call")
+        largest = int(torch.bincount(idx, minlength=A + 1)[:A].max())
         n_bytes = cell.shape[0] * 8 + A * 4
         return {
             "name": "cell_sum_ordered", "case": case, "N": cell.shape[0], "A": A,
-            "largest_cell": int(torch.bincount(idx, minlength=A + 1)[:A].max()),
-            "equal": equal, "max_abs_err": err,
+            "largest_cell": largest, "equal": equal, "max_abs_err": err,
             "index_add_bit_equal": bool(torch.equal(lib_out.view(torch.int32), want.view(torch.int32))),
             "ms": sum(dev_k.values()) / 1e3,
-            "traced_share": sum(n_k[k] for k in dev_k),
+            "launches_a_call": len(dev_k),
+            "device_us_by_launch": {s: sum(v for k, v in dev_k.items() if s in k)
+                                    for s in CELL_KERNELS if any(s in k for k in dev_k)},
+            "traced_share": {k: n_k[k] for k in ours},
             "library_ms": sum(dev_l.values()) / 1e3,
             # CUDA events around a call: the plain version waits once for
             # the card (its round count), so its wall time is its time
@@ -1010,49 +1032,49 @@ def main() -> int:
             "wrapper_ms": per_call_ms(run_k, reps[0]),
             "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "bound_bytes": n_bytes,
+            # the largest cell's chain of dependent adds at the SM clock
+            "sm_clock_mhz": clock,
+            "chain_ms": largest * CYCLES_PER_ADD / (clock * 1e6) * 1e3,
         }
 
-    cell0, vals0, A0 = cell_inputs[0]
+    cell0, vals0, A0 = (x.cpu().numpy() if torch.is_tensor(x) else x
+                        for x in cell_inputs[0])
     del cell_inputs
-    rng = np.random.default_rng(7)
-    N0 = cell0.shape[0]
-
-    def on_card(*arrays):
-        return [torch.from_numpy(a).to(dev) for a in arrays]
-
-    rates = np.array([1 / 1.5, 1 / 0.05, 0.1, 1 / 3, 1 / 7], np.float32)
-    cell_cases = [
-        ("wireless tick 0", cell0, vals0, A0),
-        ("one cell", *on_card(np.full(N0, A0 // 2, np.int32),
-                              rng.choice(rates, N0)), A0),
-        ("dropped", *on_card(rng.integers(-2, A0 + 3, N0).astype(np.int32),
-                             rng.choice(rates, N0)), A0),
-        ("inexact rates", *on_card(rng.integers(0, A0, N0).astype(np.int32),
-                                   (rng.random(N0) * 40 + 0.3).astype(np.float32)), A0),
-    ]
-    for case, cell, vals, A in cell_cases:
-        r = check_cell_kernel(case, cell, vals, A, (20, 2))
+    cell_rows = {}
+    for case, cell, vals, A in cell_sum_inputs.kernel_cases(cell0, vals0, A0):
+        cell, vals = torch.from_numpy(cell).to(dev), torch.from_numpy(vals).to(dev)
+        big = case in ("128 replicas", "large cells")
+        r = check_cell_kernel(case, cell, vals, A, (20, 1 if big else 2))
         emit({"phase": "kernel", **{k: v for k, v in r.items() if not k.endswith("_ms")},
               "device_us": r["ms"] * 1e3, "plain_wall_us": r["plain_ms"] * 1e3,
               "index_add_device_us": r["library_ms"] * 1e3,
-              "wrapper_us": r["wrapper_ms"] * 1e3, "bound_us": r["bound_ms"] * 1e3})
-        if case == "wireless tick 0":
-            kernel_rows[("cell_sum_ordered", "wireless")] = {
-                "name": "cell_sum_ordered", "route": "cuda",
-                "source": SOURCES["cell_sum_ordered"],
-                "replaces": REPLACES["cell_sum_ordered"],
-                "replaces_note": "no TPU kernel: the index order of XLA's "
-                                 "float32 scatter-add, which the card's "
-                                 "atomic adds do not keep",
-                "launches": 0, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": "bytes", "library_ms": r["library_ms"],
-                "library": "Tensor.index_add_ (atomic adds, another order)",
-                "shape": {"N": r["N"], "A": A, "largest_cell": r["largest_cell"]},
-                "shape_of": "wireless", "bound_bytes": r["bound_bytes"],
-                "wrapper_ms": r["wrapper_ms"],
-            }
-    del cell_cases
+              "wrapper_us": r["wrapper_ms"] * 1e3, "bound_us": r["bound_ms"] * 1e3,
+              "chain_us": r["chain_ms"] * 1e3})
+        cell_rows[case] = r
+    del cell, vals
+    r, rr = cell_rows["wireless tick 0"], cell_rows["128 replicas"]
+    kernel_rows[("cell_sum_ordered", "wireless")] = {
+        "name": "cell_sum_ordered", "route": "cuda",
+        "source": SOURCES["cell_sum_ordered"],
+        "replaces": REPLACES["cell_sum_ordered"],
+        "replaces_note": "no TPU kernel: the index order of XLA's "
+                         "float32 scatter-add, which the card's "
+                         "atomic adds do not keep",
+        "launches": 0, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": "bytes", "library_ms": r["library_ms"],
+        "library": "Tensor.index_add_ (atomic adds, another order)",
+        "shape": {"N": r["N"], "A": r["A"], "largest_cell": r["largest_cell"]},
+        "shape_of": "wireless", "bound_bytes": r["bound_bytes"],
+        "wrapper_ms": r["wrapper_ms"], "chain_ms": r["chain_ms"],
+        "launches_a_call": r["launches_a_call"],
+        # config 4's 128 replicas flattened, the replica axis's shape
+        "replicas_128": {k: rr[k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_bytes",
+            "chain_ms", "max_abs_err", "launches_a_call", "largest_cell",
+            "N", "A")},
+    }
+    del cell_rows
 
     # where a wireless tick's time goes
     spec, st, net, b = wireless.wireless5(device=dev, **w_kw)
@@ -1082,7 +1104,7 @@ def main() -> int:
         "device_ms_per_tick": dev_us / n_prof / 1e3 if n_kernels else None,
         "device_busy_share": (dev_us / 1e6) / wall_plain if n_kernels else None,
         "cell_kernel_device_us_per_tick": sum(
-            v for k, v in by_name.items() if CELL_KERNEL in k) / n_prof,
+            v for k, v in by_name.items() if any(s in k for s in CELL_KERNELS)) / n_prof,
         "arrival_kernels_device_us_per_tick": sum(
             v for k, v in by_name.items() if any(s in k for s in OUR_KERNELS)) / n_prof,
         "top_device_us_per_tick": [[k, v / n_prof] for k, v in top],

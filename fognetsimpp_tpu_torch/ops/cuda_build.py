@@ -127,9 +127,10 @@ def build() -> Tuple[str, float, str]:
         return _build_locked()
 
 
-def function(name: str, argtypes: list):
-    """The library's C function ``name`` returning a ``cudaError_t`` as
-    int, with its ``ctypes`` argument types; builds on first use."""
+def function(name: str, argtypes: list, restype=ctypes.c_int):
+    """The library's C function ``name`` with its ``ctypes`` argument
+    types, returning ``restype`` (a ``cudaError_t`` as int unless given);
+    builds on first use."""
     global _lib
     with _lock:
         fn = _fns.get(name)
@@ -139,6 +140,6 @@ def function(name: str, argtypes: list):
                 _lib = ctypes.CDLL(path)
             fn = getattr(_lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = restype
             _fns[name] = fn
         return fn

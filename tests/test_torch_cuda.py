@@ -18,6 +18,7 @@ from fognetsimpp_tpu_torch.parallel.taskshard import run_tp_sharded
 from fognetsimpp_tpu_torch.scenarios import smoke, wireless
 from fognetsimpp_tpu_torch.spec import Policy
 from fognetsimpp_tpu_torch.state import state_to_numpy
+from fognetsimpp_tpu_torch.scenarios.cell_sum_inputs import large_cells, replicas
 
 pytestmark = pytest.mark.cuda
 
@@ -283,9 +284,23 @@ def _cell_case(kind, seed=0):
     """Inputs of the ordered per-cell sum: config 4's shape (10,069
     nodes, 64 cells, inexact rates, the drop cell 64 among them), every
     entry in one cell, cells at and past ``n_cells`` (dropped), values
-    whose sum depends on the order of the adds, and no entries."""
+    whose sum depends on the order of the adds, and no entries; 16
+    replicas of config 4 flattened, cells past a warp's sort and past a
+    sorted run, many cells with and without entries."""
     rng = np.random.default_rng(seed)
-    if kind == "config4":
+    if kind == "replicas":
+        cell, vals, A = _cell_case("config4", seed)
+        cell, vals, A = replicas(cell.numpy(), vals.numpy(), A, 16)
+    elif kind == "large_cells":
+        cell, vals, A = large_cells(seed)
+    elif kind == "many_cells":
+        n, A = 3000, 5000
+        cell = rng.integers(-3, A + 5, n)
+        vals = rng.random(n) * 7
+    elif kind == "many_cells_empty":
+        n, A = 0, 300
+        cell, vals = np.zeros(0), np.zeros(0)
+    elif kind == "config4":
         n, A = 10_069, 64
         cell = rng.integers(0, A + 1, n)
         vals = rng.choice(np.array([1 / 1.5, 1 / 0.05, 0.1, 1 / 3]), n)
@@ -309,8 +324,18 @@ def _cell_case(kind, seed=0):
     return torch.from_numpy(cell.astype(np.int32)), torch.from_numpy(vals.astype(np.float32)), A
 
 
-@pytest.mark.parametrize("kind", ["config4", "one_cell", "dropped", "order", "empty"])
-def test_cell_sum_kernel_equals_plain(cuda, kind):
+#: ``cell_kernels.ONE_BLOCK_MAX_TILES`` by tier: the wrapper's own choice,
+#: or one tier forced on every input.
+_CELL_TIERS = {"auto": ck.ONE_BLOCK_MAX_TILES, "one_block": 2 ** 62, "segments": -1}
+
+
+@pytest.mark.parametrize("tier", sorted(_CELL_TIERS))
+@pytest.mark.parametrize("kind", [
+    "config4", "one_cell", "dropped", "order", "empty",
+    "replicas", "large_cells", "many_cells", "many_cells_empty",
+])
+def test_cell_sum_kernel_equals_plain(cuda, monkeypatch, kind, tier):
+    monkeypatch.setattr(ck, "ONE_BLOCK_MAX_TILES", _CELL_TIERS[tier])
     cell, vals, A = _cell_case(kind)
     ck.reset_launches()
     got = ck.cell_sum_ordered(cell.to(cuda), vals.to(cuda), A)
@@ -321,8 +346,29 @@ def test_cell_sum_kernel_equals_plain(cuda, kind):
     assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
 
 
-def test_cell_sum_wrapper_does_not_synchronise(cuda):
-    cell, vals, A = _cell_case("config4")
+@pytest.mark.parametrize("tier", sorted(_CELL_TIERS))
+def test_cell_sum_kernel_adds_a_large_cell_in_index_order(cuda, monkeypatch, tier):
+    """100,003 entries in one cell, past every sorted run: the sum against
+    numpy's sequential float32 accumulate from +0.0 in index order (the
+    plain version's rounds would take minutes here)."""
+    monkeypatch.setattr(ck, "ONE_BLOCK_MAX_TILES", _CELL_TIERS[tier])
+    rng = np.random.default_rng(5)
+    n, A = 100_003, 64
+    vals = (rng.random(n) * 30).astype(np.float32)
+    want = np.zeros(A, np.float32)
+    want[17] = np.add.accumulate(np.concatenate([[0.0], vals]).astype(np.float32),
+                                 dtype=np.float32)[-1]
+    cell = torch.full((n,), 17, dtype=torch.int32, device=cuda)
+    got = ck.cell_sum_ordered(cell, torch.from_numpy(vals).to(cuda), A)
+    assert got.cpu().numpy().tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("tier", sorted(_CELL_TIERS))
+@pytest.mark.parametrize("kind", ["config4", "replicas", "large_cells"])
+def test_cell_sum_wrapper_does_not_synchronise(cuda, monkeypatch, kind, tier):
+    """Every tier: the tier and the grids follow N and A only."""
+    monkeypatch.setattr(ck, "ONE_BLOCK_MAX_TILES", _CELL_TIERS[tier])
+    cell, vals, A = _cell_case(kind)
     cell, vals = cell.to(cuda), vals.to(cuda)
     ck.cell_sum_ordered(cell, vals, A)
     torch.cuda.synchronize()

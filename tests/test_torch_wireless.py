@@ -30,9 +30,11 @@ from fognetsimpp_tpu_torch.dynspec import dyn_of
 from fognetsimpp_tpu_torch.net import energy as tenergy
 from fognetsimpp_tpu_torch.net import mobility as tmobility
 from fognetsimpp_tpu_torch.net import topology as ttopology
+from fognetsimpp_tpu_torch.ops import cell_kernels as ck
 from fognetsimpp_tpu_torch.ops.cell_kernels import cell_sum_ordered, cell_sum_ordered_plain
 from fognetsimpp_tpu_torch.parallel.taskshard import run_tp_sharded
 from fognetsimpp_tpu_torch.runtime.signals import summarize
+from fognetsimpp_tpu_torch.scenarios.cell_sum_inputs import replicas
 from fognetsimpp_tpu_torch.scenarios import smoke as tsmoke
 from fognetsimpp_tpu_torch.scenarios import wireless as tw
 from fognetsimpp_tpu_torch.spec import Stage
@@ -369,6 +371,53 @@ def test_cell_sum_keeps_xla_signed_zero_and_empty_cells():
     want = _jax_cell_sum(cell.numpy(), vals.numpy(), 3)
     assert got.numpy().tobytes() == want.tobytes()
     assert got.tolist() == [0.0, 0.0, 1.5] and not torch.signbit(got[0])
+
+
+def test_cell_sum_plain_matches_xla_on_flattened_replicas():
+    """Config 4's replicas as one sum, the layout of the replica axis:
+    replica r's kept cells offset by r * A, its dropped entries at R * A.
+    Bit-equal to XLA's scatter-add mapped over the (R, n) input."""
+    R = 4
+    cell, vals, A = _cell_case("config4")
+    perms = [np.random.default_rng(r).permutation(cell.shape[0]) for r in range(R)]
+    by_replica = jax.vmap(
+        lambda c, v: jnp.zeros((A + 1,), jnp.float32).at[c].add(v, mode="drop")[:A]
+    )(jnp.asarray(np.stack([cell[p] for p in perms])),
+      jnp.asarray(np.stack([vals[p] for p in perms])))
+    flat_cell, flat_vals, n_cells = replicas(cell, vals, A, R)
+    assert n_cells == R * A and flat_cell.max() == R * A
+    got = cell_sum_ordered_plain(torch.from_numpy(flat_cell), torch.from_numpy(flat_vals),
+                                 n_cells)
+    assert got.numpy().tobytes() == np.asarray(by_replica).reshape(-1).tobytes()
+
+
+def test_cell_sum_drops_negative_cells_where_xla_wraps_them():
+    """The domain is cell >= 0.  XLA's ``.at[]`` wraps cells -2 .. -(A + 1)
+    into cells A - 1 .. 0 (and -1 into the spare slot the slice cuts); the
+    port drops every negative cell.  ``associate`` passes only [0, A]."""
+    A = 3
+    cell = np.array([-1, -2, -4, -5, 0, 2], np.int32)
+    vals = np.array([1, 2, 4, 8, 16, 32], np.float32)
+    assert _jax_cell_sum(cell, vals, A).tolist() == [20.0, 0.0, 34.0]
+    for fn in (cell_sum_ordered_plain, cell_sum_ordered):
+        got = fn(torch.from_numpy(cell), torch.from_numpy(vals), A)
+        assert got.tolist() == [16.0, 0.0, 32.0]
+    kept = cell >= 0
+    assert got.numpy().tobytes() == _jax_cell_sum(cell[kept], vals[kept], A).tobytes()
+
+
+@pytest.mark.parametrize("slots", [132, 264])
+def test_cell_sum_tier_rule(slots):
+    """The wrapper's tier on an H100 (132 SMs, one block of the one-block
+    kernel an SM, and twice as many slots): one block a cell at the wireless tick
+    (N = 10,069, A = 64) and with no entries; cell segments at config 4's
+    128 replicas flattened (N = 1,288,832, A = 8,192)."""
+    def one_block(n, n_cells):
+        return ck.one_block_tiles(n, n_cells, slots) <= ck.ONE_BLOCK_MAX_TILES
+
+    assert one_block(10_069, 64) and one_block(0, 8_192)
+    assert not one_block(1_288_832, 8_192)
+    assert ck.one_block_tiles(10_069, 64, slots) == 3
 
 
 @pytest.mark.parametrize("seed", [0, 1])
