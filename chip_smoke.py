@@ -70,6 +70,21 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    on the card watching ``nodes.alive`` (at least one user shut down and
    one restarted), card against CPU every leaf;
 
+12. rr_grid: ``benchmarks.py::config2`` at its own size (96 users x 4
+   fogs, ROUND_ROBIN on the compacted broker, K = 1,024, 1,000 ticks of
+   1 ms): a stepped card run that keeps every arrival window, with
+   ``fused_arrival_plan`` held against its plain version on every
+   non-empty one (and timed on the first), then ``engine.run`` timed
+   (decisions per second, ms per tick, launches), card against CPU every
+   leaf, and a short profile (device events a tick);
+13. policies: the bench world of phase 5 (dt 5 ms) under MIN_BUSY
+   without the ``mips0_divisor`` quirk, RANDOM, UCB, DUCB, EXP3 and
+   DYNAMIC (``learn_in_dynamic``, its id set to EXP3), ``derive_acks``
+   off for the learned ones as ``bench.py`` sets it, the learned ones at
+   ``LEARN_HORIZON``: each timed after a warm-up run, card against CPU
+   every leaf, its short profile, and for the learned ones the credited
+   count ``learn.lat_cnt``, which must be above 0;
+
 then the ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` prints them, and ``{"ok": true, "device": {...}}`` last.
 Without a CUDA device it prints no result and exits 2.
@@ -170,6 +185,30 @@ TP_TICK0_MASKED = 86_103
 #: in one fog (the port's CPU run of that world).
 BENCH_MASKED = 2_281
 
+#: ``benchmarks.py::config2`` at its own size: 96 users x 4 fogs,
+#: ROUND_ROBIN, send interval 10 ms, dt 1 ms, 1.0 s (1,000 ticks).
+RR_GRID = dict(
+    n_users=96, n_fogs=4, send_interval=0.01, horizon=1.0, dt=1e-3,
+    max_sends_per_user=104, arrival_window=1024,
+)
+#: The compacted broker's policies on the bench world (``policies``): row
+#: -> (``Policy`` name, spec overrides).  DYNAMIC runs with
+#: ``learn_in_dynamic`` and its traced id set to EXP3.
+POLICIES = {
+    "min_busy": ("MIN_BUSY", {"mips0_divisor": False}),
+    "random": ("RANDOM", {}),
+    "ucb": ("UCB", {}),
+    "ducb": ("DUCB", {}),
+    "exp3": ("EXP3", {}),
+    "dynamic": ("DYNAMIC", {"learn_in_dynamic": True}),
+}
+#: Horizon of the learned policies' runs: at the bench world's 0.1 s no
+#: status-6 ack has landed under UCB or DUCB (tasks take 0.05-0.9 s on
+#: fogs of 1,000-4,000 MIPS), so their credit path would not run.
+LEARN_HORIZON = 0.3
+#: Ticks stepped before a world's short profile, and the ticks profiled.
+PROFILE_FROM, PROFILE_TICKS = 8, 4
+
 #: tests/test_parity_wireless.py's fast-cycling battery world (12 mJ
 #: batteries, 18 mW net drain while publishing) at dt 10 ms, MIN_BUSY.
 CHURN = dict(
@@ -199,7 +238,7 @@ def main() -> int:
     from fognetsimpp_tpu_torch.parallel.taskshard import run_tp_sharded
     from fognetsimpp_tpu_torch.runtime.signals import summarize
     from fognetsimpp_tpu_torch.scenarios import cell_sum_inputs, smoke, wireless
-    from fognetsimpp_tpu_torch.spec import Policy
+    from fognetsimpp_tpu_torch.spec import BugCompat, Policy
     from fognetsimpp_tpu_torch.state import state_to_numpy, tree_leaves
 
     t_start = time.perf_counter()
@@ -609,6 +648,51 @@ def main() -> int:
         spec, st, net, b = smoke.build(device="cpu", **kw)
         return engine.run(spec, st, net, b)[0]
 
+    def static_cache(spec, st, net):
+        return associate(net, st.nodes.pos, st.nodes.alive, spec.broker_index)
+
+    def tick_profile(spec, st, net, b, cache):
+        """Where a world's tick time goes: PROFILE_FROM ticks stepped into
+        the steady state, PROFILE_TICKS timed without the profiler, the
+        next PROFILE_TICKS profiled (an empty trace is taken again, up to
+        six times).  Returns the row (wall ms a tick both ways, device
+        events, device ms and busy share a tick, the heaviest kernels) and
+        the device µs by kernel name."""
+        step = engine.make_step(spec)
+        for _ in range(PROFILE_FROM):
+            st = step(st, net, b, cache)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_TICKS):
+            st = step(st, net, b, cache)
+        torch.cuda.synchronize()
+        wall_plain = time.perf_counter() - t0
+        for attempt in range(6):
+            if attempt:
+                time.sleep(1.0)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(PROFILE_TICKS):
+                    st = step(st, net, b, cache)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            dev_us, n_events, by_name = device_events(prof)
+            if n_events:
+                break
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        n = PROFILE_TICKS
+        return {
+            "profiled_ticks": n, "profiled_from_tick": PROFILE_FROM + n,
+            "wall_ms_per_tick": wall / n * 1e3,
+            "wall_ms_per_tick_unprofiled": wall_plain / n * 1e3,
+            "device_events_per_tick": n_events / n,
+            "device_ms_per_tick": dev_us / n / 1e3 if n_events else None,
+            # device time over the wall time of the same ticks run without
+            # the profiler, which slows the host's launches
+            "device_busy_share": (dev_us / 1e6) / wall_plain if n_events else None,
+            "top_device_us_per_tick": [[k, v / n] for k, v in top],
+        }, {k: v / n for k, v in by_name.items()}
+
     # ---- 4. smoke world --------------------------------------------------
     kw = dict(horizon=0.5)
     spec, card, wall, launches = timed_run(kw)
@@ -669,8 +753,6 @@ def main() -> int:
     # ---- 7. where a bench tick's time goes -------------------------------
     kw = bench_world(5e-3)
     spec, st, net, b = smoke.build(device=dev, **kw)
-    step = engine.make_step(spec)
-    cache = associate(net, st.nodes.pos, st.nodes.alive, spec.broker_index)
     # keep each tick's window, to count its masked rows afterwards and to
     # time the kernel on the first that holds rows
     windows, fused_plan = [], ak.fused_arrival_plan
@@ -680,40 +762,18 @@ def main() -> int:
         return fused_plan(*args)
 
     ak.fused_arrival_plan = kept_plan
-    for _ in range(8):  # into the saturated steady state
-        st = step(st, net, b, cache)
-    torch.cuda.synchronize()
-    n_prof = 4
-    t0 = time.perf_counter()  # the same ticks' kind without the profiler
-    for _ in range(n_prof):
-        st = step(st, net, b, cache)
-    torch.cuda.synchronize()
-    wall_plain = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n_prof):
-            st = step(st, net, b, cache)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    ak.fused_arrival_plan = fused_plan
-    masked = [int(w[0].sum()) for w in windows]
-    dev_us, n_kernels, by_name = device_events(prof)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    arrival_us = sum(v for k, v in by_name.items() if any(s in k for s in OUR_KERNELS))
+    try:
+        prof_row, by_name = tick_profile(spec, st, net, b, static_cache(spec, st, net))
+    finally:
+        ak.fused_arrival_plan = fused_plan
     emit({
-        "phase": "profile", "world": "bench dt=5ms", "ticks": n_prof,
-        # masked rows of the K-window, a tick each: 8 warm-up ticks, then
-        # the unprofiled and the profiled ticks
-        "window_masked_rows": masked,
-        "wall_ms_per_tick": wall / n_prof * 1e3,
-        "wall_ms_per_tick_unprofiled": wall_plain / n_prof * 1e3,
-        "device_events_per_tick": n_kernels / n_prof,
-        "device_ms_per_tick": dev_us / n_prof / 1e3 if n_kernels else None,
-        # device time over the wall time of the same ticks run without
-        # the profiler, which slows the host's launches
-        "device_busy_share": (dev_us / 1e6) / wall_plain if n_kernels else None,
-        "arrival_kernels_device_us_per_tick": arrival_us / n_prof,
-        "top_device_us_per_tick": [[k, v / n_prof] for k, v in top],
+        "phase": "profile", "world": "bench dt=5ms",
+        # masked rows of the K-window, a tick each: the steady-state
+        # ticks, then the unprofiled and the profiled ticks
+        "window_masked_rows": [int(w[0].sum()) for w in windows],
+        **prof_row,
+        "arrival_kernels_device_us_per_tick": sum(
+            v for k, v in by_name.items() if any(s in k for s in OUR_KERNELS)),
     })
     args = next(w for w in windows if int(w[0].sum()))
     r = check_arrival_kernel("fused_arrival_plan", args[:3], args[3], (20, 10, 50, 10))
@@ -1078,36 +1138,13 @@ def main() -> int:
 
     # where a wireless tick's time goes
     spec, st, net, b = wireless.wireless5(device=dev, **w_kw)
-    step = engine.make_step(spec)
-    for _ in range(8):
-        st = step(st, net, b)
-    torch.cuda.synchronize()
-    n_prof = 4
-    t0 = time.perf_counter()
-    for _ in range(n_prof):
-        st = step(st, net, b)
-    torch.cuda.synchronize()
-    wall_plain = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n_prof):
-            st = step(st, net, b)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    dev_us, n_kernels, by_name = device_events(prof)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    prof_row, by_name = tick_profile(spec, st, net, b, None)  # moving users
     emit({
-        "phase": "wireless_profile", "ticks": n_prof, "from_tick": 12,
-        "wall_ms_per_tick": wall / n_prof * 1e3,
-        "wall_ms_per_tick_unprofiled": wall_plain / n_prof * 1e3,
-        "device_events_per_tick": n_kernels / n_prof,
-        "device_ms_per_tick": dev_us / n_prof / 1e3 if n_kernels else None,
-        "device_busy_share": (dev_us / 1e6) / wall_plain if n_kernels else None,
+        "phase": "wireless_profile", **prof_row,
         "cell_kernel_device_us_per_tick": sum(
-            v for k, v in by_name.items() if any(s in k for s in CELL_KERNELS)) / n_prof,
+            v for k, v in by_name.items() if any(s in k for s in CELL_KERNELS)),
         "arrival_kernels_device_us_per_tick": sum(
-            v for k, v in by_name.items() if any(s in k for s in OUR_KERNELS)) / n_prof,
-        "top_device_us_per_tick": [[k, v / n_prof] for k, v in top],
+            v for k, v in by_name.items() if any(s in k for s in OUR_KERNELS)),
     })
     del st
 
@@ -1146,11 +1183,149 @@ def main() -> int:
     if launches["fused_arrival_plan"] <= 0:
         raise SystemExit("wireless_churn: the path never launched fused_arrival_plan")
 
+    # ---- 12. rr_grid: benchmarks.py::config2 at its own size -------------
+    rr_kw = dict(RR_GRID, policy=int(Policy.ROUND_ROBIN))
+    spec, st, net, b = smoke.build(device=dev, **rr_kw)
+    step, cache = engine.make_step(spec), static_cache(spec, st, net)
+    windows, fused_plan = [], ak.fused_arrival_plan
+
+    def kept_plan(*args):
+        windows.append(args)
+        return fused_plan(*args)
+
+    ak.fused_arrival_plan = kept_plan
+    try:
+        for _ in range(spec.n_ticks):
+            st = step(st, net, b, cache)
+    finally:
+        ak.fused_arrival_plan = fused_plan
+    torch.cuda.synchronize()
+    stepped = st
+    masked = [int(w[0].sum()) for w in windows]
+    full = [w for w, m in zip(windows, masked) if m]
+    for args in full:
+        if not same_bits(fused_plan(*args), ak.fused_arrival_plan_plain(*args)):
+            raise SystemExit("rr_grid: fused_arrival_plan differs from its plain "
+                             "version on a window of the run")
+    if not full:
+        raise SystemExit("rr_grid: no arrival window held a row")
+    r = check_arrival_kernel("fused_arrival_plan", full[0][:3], full[0][3], (50, 20, 100, 20))
+    emit_kernel(r, "rr_grid, first non-empty window")
+    kernel_rows[("fused_arrival_plan", "rr_grid")] = kernel_row(r, "rr_grid", "real")
+    n_checked = len(full)
+    del windows, full
+    spec, st, net, b = smoke.build(device=dev, **rr_kw)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    card, _ = engine.run(spec, st, net, b)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+    n_same = assert_same(card, stepped, "rr_grid (engine.run against the stepped run)")
+    del stepped
+    t0 = time.perf_counter()
+    n_leaves = assert_same(card, cpu_run(rr_kw), "rr_grid")
+    cpu_s = time.perf_counter() - t0
+    summ = summarize(card)
+    spec_p, st_p, net_p, b_p = smoke.build(device=dev, **rr_kw)
+    prof_row, _ = tick_profile(spec_p, st_p, net_p, b_p, static_cache(spec_p, st_p, net_p))
+    emit({
+        "phase": "rr_grid", "n_users": spec.n_users, "n_fogs": spec.n_fogs,
+        "policy": "ROUND_ROBIN", "window": spec.window,
+        "task_rows": spec.task_capacity, "ticks": spec.n_ticks,
+        "leaves_equal": n_leaves, "leaves_equal_stepped": n_same,
+        "n_scheduled": summ["n_scheduled"], "n_published": summ["n_published"],
+        "n_completed": summ["n_completed"], "n_dropped": summ["n_dropped"],
+        "n_deferred_max": summ["n_deferred_max"],
+        "fogs_used": len(set(card.tasks.fog[card.tasks.fog >= 0].tolist())),
+        "arrival_plan_checked_windows": n_checked,
+        "wall_s": wall, "cpu_run_s": cpu_s,
+        "task_offload_decisions_per_sec": summ["n_scheduled"] / wall,
+        "ms_per_tick": wall / spec.n_ticks * 1e3,
+        "launches": launches, **prof_row,
+    })
+    if launches["fused_arrival_plan"] != spec.n_ticks:
+        raise SystemExit(f"rr_grid: launches {launches} in {spec.n_ticks} ticks")
+    rr_launches = launches
+    del card
+
+    # ---- 13. the compacted broker's policies on the bench world ----------
+    def policy_world(device, name):
+        pol, over = POLICIES[name]
+        pid = int(Policy[pol])
+        kw = bench_world(5e-3)
+        if "mips0_divisor" in over:
+            kw["bug_compat"] = BugCompat(mips0_divisor=over["mips0_divisor"])
+        learned = pol in ("UCB", "DUCB", "EXP3") or over.get("learn_in_dynamic", False)
+        if learned:
+            kw.update(horizon=LEARN_HORIZON,
+                      max_sends_per_user=int(LEARN_HORIZON / kw["send_interval"]) + 4)
+        kw.update(policy=pid, derive_acks=not learned,
+                  learn_in_dynamic=over.get("learn_in_dynamic", False))
+        spec, st, net, b = smoke.build(device=device, **kw)
+        if pid == int(Policy.DYNAMIC):
+            st = st.replace(broker=st.broker.replace(policy_id=torch.full(
+                (), int(Policy.EXP3), dtype=torch.int32, device=device)))
+        return spec, st, net, b
+
+    policy_launches = {}
+    for name in POLICIES:
+        spec, st, net, b = policy_world(dev, name)
+        engine.run(spec, st, net, b)  # warm-up: same work, same shapes
+        torch.cuda.synchronize()
+        spec, st, net, b = policy_world(dev, name)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        card, _ = engine.run(spec, st, net, b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = all_launches()
+        t0 = time.perf_counter()
+        spec_c, st_c, net_c, b_c = policy_world("cpu", name)
+        cpu, _ = engine.run(spec_c, st_c, net_c, b_c)
+        cpu_s = time.perf_counter() - t0
+        n_leaves = assert_same(card, cpu, f"policies {name}")
+        del cpu
+        summ = summarize(card)
+        spec_p, st_p, net_p, b_p = policy_world(dev, name)
+        prof_row, _ = tick_profile(spec_p, st_p, net_p, b_p, static_cache(spec_p, st_p, net_p))
+        row = {
+            "phase": "policies", "policy": name, "n_users": spec.n_users,
+            "n_fogs": spec.n_fogs, "window": spec.window,
+            "task_rows": spec.task_capacity, "ticks": spec.n_ticks,
+            "derive_acks": spec.derive_acks, "leaves_equal": n_leaves,
+            "n_scheduled": summ["n_scheduled"], "n_published": summ["n_published"],
+            "n_completed": summ["n_completed"], "n_dropped": summ["n_dropped"],
+            "n_deferred_max": summ["n_deferred_max"],
+            "fogs_used": len(set(card.tasks.fog[card.tasks.fog >= 0].tolist())),
+            "wall_s": wall, "cpu_run_s": cpu_s,
+            "task_offload_decisions_per_sec": summ["n_scheduled"] / wall,
+            "ms_per_tick": wall / spec.n_ticks * 1e3,
+            "launches": launches, **prof_row,
+        }
+        if spec.learn_active:
+            row["learn_lat_cnt"] = float(card.learn.lat_cnt)
+            row["learn_pick_count"] = card.learn.pick_count.tolist()
+            row["learn_pick_p_below_one"] = int((card.learn.pick_p < 1.0).sum())
+        emit(row)
+        if spec.learn_active and not row["learn_lat_cnt"] > 0:
+            raise SystemExit(f"policies {name}: no reward was credited")
+        if not 0 < launches["fused_arrival_plan"] <= spec.n_ticks:
+            raise SystemExit(f"policies {name}: launches {launches}")
+        policy_launches[name] = launches["fused_arrival_plan"]
+        del card
+
     # each row's launches: the main paths' calls at that row's shape
     by_path = {
         ("fused_arrival_plan", "bench"): {
             "bench": fused_main,
             "tp_window": window_launches["fused_arrival_plan"],
+            **{f"policies {k}": v for k, v in policy_launches.items()},
+        },
+        ("fused_arrival_plan", "rr_grid"): {
+            "rr_grid": rr_launches["fused_arrival_plan"],
         },
         ("fused_arrival_plan", "tp"): {"tp": tp_launches["fused_arrival_plan"]},
         ("pairwise_rank", "wide_fog"): {"wide_fog": wide_launches},

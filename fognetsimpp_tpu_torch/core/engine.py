@@ -4,9 +4,11 @@ Counterpart of ``fognetsimpp_tpu/core/engine.py`` for the per-phase
 (unfused) tick: mobility and association (every tick unless the world is
 static) -> connect -> adverts -> spawn (``_phase_spawn`` at one send per
 tick, ``_phase_spawn_multi`` above, both with the 802.11 uplink loss) ->
-dense broker -> ``completions_per_tick`` completion passes -> fog
-arrivals (two-stage candidate front, K-window compaction, shared tail)
--> per-node message counters -> energy and lifecycle.  The JAX package's
+broker (dense for the task-independent policies, ``broker_dense_ok``;
+compacted for the rest) -> ``completions_per_tick`` completion passes ->
+fog arrivals (two-stage candidate front, K-window compaction, shared
+tail) -> the bandit learners' reward credit (learned policies only) ->
+per-node message counters -> energy and lifecycle.  The JAX package's
 fused slot-window front-end is bit-identical to this tick
 (``tests/test_fused.py``) and is not ported.  :func:`run` replaces the
 ``lax.scan`` with a Python loop and hoists the static link cache out of
@@ -33,13 +35,15 @@ import torch
 from ..dynspec import DynSpec, dyn_of
 from ..envelope import broker_dense_ok, check_slice
 from ..f32math import const, fma
+from ..learn.bandits import arms_view, exp3_probs
+from ..learn.rewards import credit_batch
 from ..net.energy import step_energy
 from ..net.mobility import MobilityBounds, default_bounds, step_mobility
 from ..net.topology import LinkCache, NetParams, associate
 from ..ops.queues import NO_TASK, batched_enqueue, batched_pop, plan_arrivals
 from ..ops.scatter import add_drop, set_drop
-from ..ops.sched import scalar_winner
-from ..random import randint, split, uniform
+from ..ops.sched import at, scalar_winner, schedule_batch, task_uniform
+from ..random import PRNGKey, randint, split, uniform
 from ..spec import STATIC_MAC_ERR, FogModel, Policy, Stage, WorldSpec
 from ..state import WorldState
 
@@ -216,7 +220,7 @@ class TickBuf(NamedTuple):
 # ----------------------------------------------------------------------
 
 def _i8(v: int, dev) -> torch.Tensor:
-    return torch.tensor(v, dtype=torch.int8, device=dev)
+    return torch.full((), v, dtype=torch.int8, device=dev)
 
 
 def _isum(x: torch.Tensor, dim=None) -> torch.Tensor:
@@ -581,6 +585,19 @@ def _phase_spawn_multi(spec, state, net, cache, buf, t0, t1, dv: DynSpec, tp=Non
     return state.replace(users=users, tasks=tasks, metrics=metrics, key=key), buf
 
 
+def _fanout(users, metrics, buf: TickBuf, per_topic: torch.Tensor):
+    """Topic fan-out (``publishAll``): every publish of a topic is
+    delivered to each of its subscribers; ``per_topic`` holds this tick's
+    publishes a topic as exact float32 integers.  Returns the users,
+    metrics, buffer and the delivery count."""
+    # a masked row sum rather than a matmul, so no TF32 setting reaches it
+    deliveries = (users.sub_mask.to(_F32) * per_topic[None, :]).sum(dim=1).to(_I32)
+    n_del = _isum(deliveries)
+    users = users.replace(n_delivered=users.n_delivered + deliveries)
+    metrics = metrics.replace(n_fanout=metrics.n_fanout + n_del)
+    return users, metrics, buf._replace(rx_u=buf.rx_u + deliveries), n_del
+
+
 def _phase_broker_dense(spec, state, cache, buf, t1, tp=None):
     """The dense broker: every matured publish is decided this tick
     against one scalar winner over the (stale) fog view; topic fan-out
@@ -607,12 +624,7 @@ def _phase_broker_dense(spec, state, cache, buf, t1, tp=None):
         if tp is not None:
             # exact f32 integers: the sum does not depend on its order
             per_topic = tp.psum(per_topic)
-        # a masked row sum rather than a matmul, so no TF32 setting reaches it
-        deliveries = (users.sub_mask.to(_F32) * per_topic[None, :]).sum(dim=1).to(_I32)
-        n_del = _isum(deliveries)
-        users = users.replace(n_delivered=users.n_delivered + deliveries)
-        metrics = metrics.replace(n_fanout=metrics.n_fanout + n_del)
-        buf = buf._replace(rx_u=buf.rx_u + deliveries)
+        users, metrics, buf, n_del = _fanout(users, metrics, buf, per_topic)
 
     # key split kept for stream alignment with the compacted broker
     key = split(state.key, 2)[0]
@@ -629,7 +641,7 @@ def _phase_broker_dense(spec, state, cache, buf, t1, tp=None):
     )
     choice_ok = choice_s >= 0
     if spec.policy == int(Policy.MAX_MIPS) and F > 0:
-        win_mips = b.view_mips[torch.clamp(choice_s, 0, F - 1).long()]
+        win_mips = at(b.view_mips, torch.clamp(choice_s, 0, F - 1))
         guard2 = mask2 & choice_ok & ~(tasks.mips_req.reshape(U, S) < win_mips)
     else:
         guard2 = torch.zeros((U, S), dtype=torch.bool, device=dev)
@@ -641,7 +653,7 @@ def _phase_broker_dense(spec, state, cache, buf, t1, tp=None):
         torch.where(rejected2, _i8(_ST_REJECTED, dev), _i8(_ST_NO_RESOURCE, dev)),
     )
     if F > 0:
-        d_bf_c = cache.d2b[U + torch.clamp(choice_s, 0, F - 1).long()]
+        d_bf_c = at(cache.d2b, U + torch.clamp(choice_s, 0, F - 1))
     else:
         d_bf_c = torch.zeros((), dtype=_F32, device=dev)
     tasks = tasks.replace(
@@ -670,6 +682,143 @@ def _phase_broker_dense(spec, state, cache, buf, t1, tp=None):
         rx_u=buf.rx_u + cnt_u,
     )
     return state.replace(tasks=tasks, users=users, metrics=metrics, key=key), buf
+
+
+def _phase_broker(spec, state, cache, buf, t1):
+    """The compacted broker: up to K matured publishes a tick (the
+    tick-keyed rotated window, the rest deferred) are decided one by one
+    by :func:`~..ops.sched.schedule_batch` against the broker's stale fog
+    view, and partitioned into scheduled and no-resource (the MIPS
+    guard's rejections belong to MAX_MIPS and LOCAL_FIRST, which never
+    come here).  With a learned policy the pick counts advance at the end
+    of the window and an EXP3-capable world records each pick's
+    probability for the credit phase."""
+    tasks, b = state.tasks, state.broker
+    T, F, K = spec.task_capacity, spec.n_fogs, spec.window
+    U, S = spec.n_users, spec.max_sends_per_user
+    dev = t1.device
+    mask = (tasks.stage == _ST_PUB_INFLIGHT) & (tasks.t_at_broker <= t1)
+    rot, state = _rot_and_defer(spec, state, mask, K)
+    idx, idxc, valid = _compact(mask, K, T, rot)
+    g = idxc.long()
+    mips_g = tasks.mips_req[g]
+    user_g = torch.div(g, S, rounding_mode="floor")
+    t_ab_g = tasks.t_at_broker[g]
+
+    n_del = torch.zeros((), dtype=_I32, device=dev)
+    metrics, users = state.metrics, state.users
+    if spec.fanout_enabled:
+        topics = torch.arange(spec.n_topics, dtype=_I32, device=dev)
+        topic_g = users.pub_topic[user_g]
+        per_topic = _isum(
+            (topic_g[None, :] == topics[:, None]) & valid[None, :], 1
+        ).to(_F32)
+        users, metrics, buf, n_del = _fanout(users, metrics, buf, per_topic)
+
+    keys = split(state.key, 2)
+    key, k_sched = keys[0], keys[1]
+    fog_alive = state.nodes.alive[U: U + F]
+    reg_eff = b.registered
+    fog_efrac = state.nodes.energy[U: U + F] / torch.clamp_min(
+        state.nodes.energy_capacity[U: U + F], const(1e-12, dev)
+    )
+    any_fog = reg_eff.any()
+    rand_u = None
+    if spec.policy in (int(Policy.RANDOM), int(Policy.DYNAMIC), int(Policy.EXP3)):
+        # the task-id-keyed stream shared with the native DES
+        rand_u = task_uniform(PRNGKey(spec.policy_seed, dev), idxc)
+    choice, rr_new = schedule_batch(
+        spec.policy, valid, mips_g, b.view_busy, b.view_mips, reg_eff,
+        fog_alive, fog_efrac, 2.0 * cache.d2b[U: U + F], b.rr_next, k_sched,
+        spec.bug_compat.mips0_divisor,
+        policy_id=b.policy_id, order_t=t_ab_g, rand_u=rand_u,
+        learn=arms_view(state.learn) if spec.learn_active else None,
+    )
+    choice_ok = choice >= 0
+    fog_node = U + torch.clamp(choice, 0, F - 1).long()
+    sched = valid & any_fog & choice_ok
+    no_res = valid & ~sched
+
+    learn = state.learn
+    if spec.learn_active:
+        picked = _per_fog(sched, choice, F)
+        learn = learn.replace(
+            pick_count=learn.pick_count + _isum(picked, 1).to(_F32)
+        )
+        if spec.policy == int(Policy.EXP3) or (
+            spec.policy == int(Policy.DYNAMIC) and spec.learn_in_dynamic
+        ):
+            p_vec = exp3_probs(learn.logw, b.registered & fog_alive, learn.explore)
+            # p at each row's chosen fog: one nonzero a column, so exact
+            p_row = torch.where(picked, p_vec[:, None], 0.0).sum(dim=0)
+            if spec.policy == int(Policy.DYNAMIC):
+                p_row = torch.where(b.policy_id == int(Policy.EXP3), p_row, 1.0)
+            learn = learn.replace(
+                pick_p=set_drop(learn.pick_p, idx, torch.where(sched, p_row, 1.0))
+            )
+
+    inf_t = torch.full((), _INF, dtype=_F32, device=dev)
+    tasks = tasks.replace(
+        stage=set_drop(
+            tasks.stage, idx,
+            torch.where(sched, _i8(_ST_TASK_INFLIGHT, dev), _i8(_ST_NO_RESOURCE, dev)),
+        ),
+        fog=set_drop(tasks.fog, idx, torch.where(sched, choice, NO_TASK)),
+        t_at_fog=set_drop(
+            tasks.t_at_fog, idx, torch.where(sched, t_ab_g + cache.d2b[fog_node], inf_t)
+        ),
+    )
+    if not spec.derive_acks:
+        tasks = tasks.replace(
+            t_ack4_fwd=set_drop(tasks.t_ack4_fwd, idx, t_ab_g + cache.d2b[user_g]),
+            t_ack3=set_drop(tasks.t_ack3, idx, inf_t),
+        )
+    sums = _isum(torch.stack([sched, no_res, valid]), 1)
+    metrics = metrics.replace(
+        n_scheduled=metrics.n_scheduled + sums[0],
+        n_no_resource=metrics.n_no_resource + sums[1],
+    )
+    buf = buf._replace(
+        tx_b=buf.tx_b + sums[0] + sums[2] + n_del,
+        rx_b=buf.rx_b + sums[2],
+        rx_u=add_drop(buf.rx_u, user_g, valid.to(_I32)),
+    )
+    return state.replace(
+        tasks=tasks, users=users, broker=b.replace(rr_next=rr_new),
+        metrics=metrics, key=key, learn=learn,
+    ), buf
+
+
+def _phase_learn_credit(spec, state, t1, dv: DynSpec):
+    """Delayed-reward credit: the DONE tasks whose status-6 ack has landed
+    by ``t1`` and is not yet credited (up to K a tick, the tick-keyed
+    rotated window; the rest credit a later tick) fold ``exp(-latency /
+    scale)`` into the arms of the fogs picked at publish time, exactly
+    once each.  The discounted statistics decay every tick."""
+    tasks, learn = state.tasks, state.learn
+    T, F, K = spec.task_capacity, spec.n_fogs, spec.window
+    due = (
+        (tasks.stage == _ST_DONE)
+        & (learn.credited == 0)
+        & (tasks.fog >= 0)
+        & (tasks.t_ack6 <= t1)
+    )
+    rot = None
+    if K < T:
+        rot = (((state.tick.long() * 2654435761) & _M32) % T).to(_I32)
+    idx, idxc, valid = _compact(due, K, T, rot)
+    g = idxc.long()
+    fog_g = tasks.fog[g]
+    lat = torch.where(valid, tasks.t_ack6[g] - tasks.t_create[g], 0.0)
+    memb = _per_fog(valid, fog_g, F)
+    learn = credit_batch(
+        learn, valid, memb, lat, learn.pick_p[g], F,
+        dv.learn_discount, dv.learn_reward_scale,
+    )
+    learn = learn.replace(
+        credited=set_drop(learn.credited, idx, torch.ones((), dtype=torch.int8, device=t1.device))
+    )
+    return state.replace(learn=learn)
 
 
 def _phase_completions(spec, state, cache, buf, t1, tp=None):
@@ -1068,11 +1217,17 @@ def make_step(spec: WorldSpec):
             state, buf = _phase_spawn_multi(spec, state, net, cache, buf, t0, t1, dv)
         else:
             state, buf = _phase_spawn(spec, state, net, cache, buf, t0, t1, dv)
-        state, buf = _phase_broker_dense(spec, state, cache, buf, t1)
+        if broker_dense_ok(spec):
+            state, buf = _phase_broker_dense(spec, state, cache, buf, t1)
+        else:
+            state, buf = _phase_broker(spec, state, cache, buf, t1)
         if F > 0:
             for _ in range(spec.completions_per_tick):
                 state, buf = _phase_completions(spec, state, cache, buf, t1)
             state, buf = _phase_fog_arrivals(spec, state, cache, buf, t1)
+        if spec.learn_active:
+            # after the fog phases, so an ack landing this tick credits now
+            state = _phase_learn_credit(spec, state, t1, dv)
 
         rest = torch.zeros((spec.n_aps + spec.n_routers,), dtype=_I32, device=dev)
         tx_all = torch.cat([buf.tx_u, buf.tx_f, buf.tx_b[None], rest])

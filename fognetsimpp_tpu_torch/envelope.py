@@ -14,7 +14,8 @@ from .spec import FogModel, Policy, WorldSpec
 def broker_dense_ok(spec: WorldSpec) -> bool:
     """The dense broker's gate (``engine._broker_dense_ok``): with the
     faithful ``mips0_divisor`` quirk the argmin winner is task-independent,
-    one scalar decision per tick, as it is for the MAX_MIPS scan."""
+    one scalar decision per tick, as it is for the MAX_MIPS scan.  Every
+    other policy takes the compacted broker."""
     if spec.policy == int(Policy.MAX_MIPS):
         return True
     return spec.policy in (
@@ -34,8 +35,6 @@ def slice_reject_reason(spec: WorldSpec, net=None) -> Optional[str]:
         or spec.v2_local_broker or spec.adv_periodic or spec.app_gen != 3
     ):
         return "the v1/v2 apps, POOL fogs and LOCAL_FIRST (ROADMAP.md §1 item 10)"
-    if spec.learn_active or not broker_dense_ok(spec):
-        return "the compacted broker and its policies (ROADMAP.md §1 item 8)"
     if spec.link_up_s > 0:
         return "the link warm-up of the v1/v2 example world (ROADMAP.md §1 item 10)"
     if spec.wired_queue_enabled:

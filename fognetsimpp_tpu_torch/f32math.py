@@ -19,8 +19,10 @@ import torch
 
 def const(x: float, device) -> torch.Tensor:
     """A Python float rounded to a 0-d float32 tensor, as JAX rounds a
-    weakly typed constant before it meets a float32 array."""
-    return torch.tensor(x, dtype=torch.float32, device=device)
+    weakly typed constant before it meets a float32 array.  Made by a
+    fill on the device (``torch.tensor`` would copy from the host and
+    wait for the card)."""
+    return torch.full((), x, dtype=torch.float32, device=device)
 
 
 def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -166,3 +168,217 @@ def sinf(y: torch.Tensor) -> torch.Tensor:
 def cosf(y: torch.Tensor) -> torch.Tensor:
     """float32 ``cos`` with glibc's bits (XLA's on the CPU), any device."""
     return _sincosf(y, cos=True)
+
+
+# ----------------------------------------------------------------------
+# exp / log / log1p
+# ----------------------------------------------------------------------
+#
+# XLA's CPU backend does not call the C library for a float32 ``exp`` or
+# ``log``: it inlines its own vectorised Cephes-style polynomials (the
+# ``exp_f32``/``log_f32`` routines its LLVM IR names), and LLVM contracts
+# each multiply feeding one add into a fused multiply-add.  The functions
+# below are those routines step for step, every contracted pair through
+# :func:`fma`, every other step a float32 op, so they give XLA's bits on
+# any device.
+
+def _c32(h: str) -> float:
+    """A float32 constant given by its float hex, as a Python float."""
+    return float.fromhex(h)
+
+
+#: ``exp_f32``: input clamp, log2(e), ln 2 in two parts, the Cephes
+#: polynomial's coefficients p0..p4 (p5 is 0.5).
+_EXP_LO, _EXP_HI = _c32("-0x1.5f3334p+6"), _c32("0x1.633334p+6")
+_LOG2E = _c32("0x1.715476p+0")
+_LN2_HI, _LN2_LO = _c32("0x1.63p-1"), _c32("-0x1.bd0106p-13")
+_EXP_P = tuple(_c32(h) for h in (
+    "0x1.a0d2cep-13", "0x1.6e879cp-10", "0x1.111210p-7", "0x1.555382p-5",
+    "0x1.555554p-3",
+))
+#: ``log_f32``: the smallest normal, sqrt(1/2), the polynomial's
+#: coefficients p0..p8 and ln 2 in two parts (q1, q2).
+_TINY_NORMAL = _c32("0x1p-126")
+_SQRTHF = _c32("0x1.6a09e6p-1")
+_LOG_P = tuple(_c32(h) for h in (
+    "0x1.204376p-4", "-0x1.d7a370p-4", "0x1.de4a34p-4", "-0x1.fcba9ep-4",
+    "0x1.23d37ep-3", "-0x1.555ca0p-3", "0x1.999d58p-3", "-0x1.fffff8p-3",
+    "0x1.555554p-2",
+))
+_LOG_Q1, _LOG_Q2 = _c32("-0x1.bd0106p-13"), _c32("0x1.63p-1")
+#: ``log1p`` below |x| < sqrt(2) - 1: the numerator's and the
+#: denominator's coefficients, highest power first.
+_LOG1P_SMALL = _c32("0x1.a8279ap-2")
+_LOG1P_NUM = tuple(_c32(h) for h in (
+    "0x1.7bc096p-15", "0x1.fe818ap-2", "0x1.a509f4p+2", "0x1.de9738p+4",
+    "0x1.e798ecp+5", "0x1.c8e75ap+5", "0x1.40a202p+4",
+))
+_LOG1P_DEN = tuple(_c32(h) for h in (
+    "0x1p0", "0x1.e2035ap+3", "0x1.4c30b6p+6", "0x1.bb865ap+7",
+    "0x1.351946p+8", "0x1.b0db14p+7", "0x1.e0f304p+5",
+))
+
+
+def _f32(x: torch.Tensor) -> None:
+    if x.dtype != torch.float32:
+        raise TypeError(f"expects float32, got {x.dtype}")
+
+
+def ftz(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with float32 subnormals flushed to a zero of their sign.
+
+    XLA's CPU runtime computes with the flush-to-zero and
+    denormals-are-zero modes on: a subnormal result is 0 and a subnormal
+    input counts as 0.  Torch keeps subnormals on the CPU and on the card,
+    so a step whose result can fall below 2^-126 flushes it here.
+    """
+    return torch.where(torch.abs(x) < _TINY_NORMAL, x * 0.0, x)
+
+
+def expf(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``exp`` with XLA's CPU bits, any device.
+
+    ``x`` is clamped to [-87.8, 88.8]; ``m = floor(x log2(e) + 1/2)``,
+    clamped to [-127, 127]; ``r = x - m ln 2`` in two fused steps; the
+    degree-5 polynomial by fused steps; ``2^m`` built from the exponent
+    bits, so ``m = -127`` gives 0 (XLA flushes where the exact result
+    would be subnormal).
+    """
+    _f32(x)
+    dev = x.device
+    xc = torch.clamp(x, _EXP_LO, _EXP_HI)
+    m = torch.floor(fma(xc, const(_LOG2E, dev), const(0.5, dev)))
+    m = torch.clamp(m, -127.0, 127.0)
+    r = fma(-m, const(_LN2_HI, dev), xc)
+    r = fma(-m, const(_LN2_LO, dev), r)
+    y = fma(r, const(_EXP_P[0], dev), const(_EXP_P[1], dev))
+    for c in _EXP_P[2:] + (0.5,):
+        y = fma(y, r, const(c, dev))
+    y = fma(y, r * r, r) + 1.0
+    bits = m.to(torch.int64) * (1 << 23) + 0x3F800000
+    out = ftz(y * bits.to(torch.int32).view(torch.float32))
+    return torch.where(torch.isnan(x), x, out)
+
+
+def _log_core(t: torch.Tensor) -> torch.Tensor:
+    """``log_f32`` on positive normal float32 ``t`` (no special cases)."""
+    dev = t.device
+    bits = t.view(torch.int32)
+    e = ((bits >> 23) - 127).to(torch.float32) + 1.0
+    mant = ((bits & 0x007FFFFF) | 0x3F000000).view(torch.float32)
+    small = mant < _SQRTHF
+    xr = (mant - 1.0) + torch.where(small, mant, 0.0)
+    e = e - torch.where(small, 1.0, 0.0)
+    x2 = xr * xr
+    x3 = x2 * xr
+    p = [const(c, dev) for c in _LOG_P]
+    y = fma(xr, p[0], p[1])
+    y1 = fma(xr, p[3], p[4])
+    y = fma(y, xr, p[2])
+    y1 = fma(y1, xr, p[5])
+    y = fma(y, x3, y1)
+    y2 = fma(xr, p[6], p[7])
+    y2 = fma(y2, xr, p[8])
+    y = fma(y, x3, y2)
+    y = fma(y, x3, e * _LOG_Q1)
+    t0 = fma(const(-0.5, dev).expand_as(x2), x2, xr) + y
+    return fma(const(_LOG_Q2, dev).expand_as(e), e, t0)
+
+
+def logf(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``log`` with XLA's CPU bits, any device: Cephes' range
+    reduction to [sqrt(1/2), sqrt(2)), its degree-8 polynomial by fused
+    steps, subnormal inputs count as 0 (:func:`ftz`); ``log(0)`` is
+    ``-inf``, ``log(inf)`` is ``inf``, a negative or NaN input NaN."""
+    _f32(x)
+    x = ftz(x)
+    out = _log_core(torch.clamp_min(x, _TINY_NORMAL))
+    out = torch.where(x == 0.0, float("-inf"), out)
+    out = torch.where(x == float("inf"), float("inf"), out)
+    return torch.where((x < 0.0) | torch.isnan(x), float("nan"), out)
+
+
+def log1pf(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``log1p`` with XLA's CPU bits, any device: ``log(1 + x)``
+    by :func:`logf`, and below |x| < sqrt(2) - 1 Cephes' rational form
+    ``x - x^2/2 + x^3 P(x)/Q(x)`` by fused steps."""
+    _f32(x)
+    dev = x.device
+    x = ftz(x)
+    large = logf(x + 1.0)
+
+    def horner(coefs):
+        acc = torch.full_like(x, coefs[0])
+        for c in coefs[1:]:
+            acc = fma(acc, x, const(c, dev))
+        return acc
+
+    x2 = x * x
+    ratio = horner(_LOG1P_NUM) / horner(_LOG1P_DEN)
+    small = x + fma(const(-0.5, dev).expand_as(x2), x2, (x * x2) * ratio)
+    return torch.where(torch.abs(x) < _LOG1P_SMALL, small, large)
+
+
+# ----------------------------------------------------------------------
+# reductions and scans in XLA's CPU order
+# ----------------------------------------------------------------------
+#
+# A float32 sum's bits follow the order of its adds.  XLA's CPU pipeline
+# rewrites a reduction over more than 32 elements into a tree: the axis
+# is zero-padded to a multiple of 32, the padding split low/high as
+# ``p // 2`` / ``p - p // 2``, each window of 32 summed left to right
+# from 0, and the same again on the window sums until 32 or fewer remain,
+# which one loop adds left to right.  A cumulative sum over more than 16
+# elements becomes blocks of 16 (the axis zero-padded at its end): an
+# inclusive left-to-right scan in each block, plus the exclusive scan of
+# the block totals, itself computed by the same rule.
+
+_SUM_WINDOW = 32
+_SCAN_BLOCK = 16
+
+
+def _serial_sum(x: torch.Tensor) -> torch.Tensor:
+    """Left-to-right sum from 0 over the last axis."""
+    acc = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    for i in range(x.shape[-1]):
+        acc = acc + x[..., i]
+    return acc
+
+
+def xla_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """float32 sum of ``x`` over ``dim`` with XLA's CPU bits."""
+    _f32(x)
+    x = x.movedim(dim, -1)
+    while x.shape[-1] > _SUM_WINDOW:
+        n = x.shape[-1]
+        pad = -n % _SUM_WINDOW
+        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
+        x = _serial_sum(x.reshape(*x.shape[:-1], -1, _SUM_WINDOW))
+    return _serial_sum(x)
+
+
+def _serial_scan(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive left-to-right scan from 0 over the last axis."""
+    acc = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    out = []
+    for i in range(x.shape[-1]):
+        acc = acc + x[..., i]
+        out.append(acc)
+    return torch.stack(out, dim=-1)
+
+
+def xla_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """float32 inclusive cumulative sum of ``x`` over its last axis with
+    XLA's CPU bits (``jnp.cumsum``)."""
+    _f32(x)
+    n = x.shape[-1]
+    if n <= _SCAN_BLOCK:
+        return _serial_scan(x)
+    blocks = torch.nn.functional.pad(x, (0, -n % _SCAN_BLOCK))
+    blocks = blocks.reshape(*x.shape[:-1], -1, _SCAN_BLOCK)
+    inner = _serial_scan(blocks)
+    totals = inner[..., -1]
+    # exclusive scan of the totals: 0, then their inclusive scan
+    before = torch.nn.functional.pad(xla_cumsum(totals)[..., :-1], (1, 0))
+    out = inner + before[..., None]
+    return out.reshape(*x.shape[:-1], -1)[..., :n]

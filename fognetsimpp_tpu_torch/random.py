@@ -61,7 +61,12 @@ def PRNGKey(seed: int, device: Union[str, torch.device] = "cpu") -> torch.Tensor
     s = int(seed)
     if not -(2 ** 31) <= s < 2 ** 31:
         raise ValueError(f"seed {seed} is outside the int32 range")
-    return torch.tensor([0, s & _M32], dtype=torch.int64, device=device)
+    # fills on the device: a tensor from host data would be a copy
+    # that waits for the card
+    return torch.cat([
+        torch.zeros((1,), dtype=torch.int64, device=device),
+        torch.full((1,), s & _M32, dtype=torch.int64, device=device),
+    ])
 
 
 def _counts(shape: Sequence[int], device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -113,8 +118,8 @@ def uniform(
     does), then clamped below by ``minval``.
     """
     dev = key.device
-    lo = torch.tensor(minval, dtype=torch.float32, device=dev)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=dev)
+    lo = torch.full((), minval, dtype=torch.float32, device=dev)
+    hi = torch.full((), maxval, dtype=torch.float32, device=dev)
     bits = random_bits(key, shape)
     fbits = (bits >> 9) | 0x3F800000
     floats = _bits_to_f32(fbits) - 1.0

@@ -3,8 +3,7 @@
 Counterpart of ``fognetsimpp_tpu/state.py``.  Every class lists the same
 fields in the same order with the same shapes and dtypes as its JAX
 twin, including the zero-row sub-states of subsystems the port does not
-carry yet (``ChaosState``, ``HierState``, ``LearnState``,
-``TelemetryState``), so a flattened port state lines up with
+carry yet (``ChaosState``, ``HierState``, ``TelemetryState``), so a flattened port state lines up with
 ``jax.tree_util.tree_leaves`` of the JAX state leaf by leaf.
 
 One representation differs: a PRNG key (``WorldState.key``,
@@ -161,7 +160,9 @@ class Metrics(Struct):
 
 @dataclasses.dataclass
 class LearnState(Struct):
-    """Bandit learner state (inert: zero-row provenance columns)."""
+    """Bandit learner state (``fognetsimpp_tpu/learn/bandits.LearnState``):
+    the per-fog arm statistics, and per-task decision provenance sized
+    ``spec.learn_capacity`` (zero rows unless the learn subsystem is on)."""
 
     pick_count: torch.Tensor  # (F,) f32
     reward_cnt: torch.Tensor  # (F,) f32
@@ -261,6 +262,30 @@ class WorldState(Struct):
     chaos: ChaosState
     hier: HierState
     telem: TelemetryState
+
+
+def init_learn_state(spec: WorldSpec, device) -> LearnState:
+    """The t=0 learner for ``spec``: zero-row provenance columns when the
+    learn subsystem is off."""
+    F, Tl = spec.n_fogs, spec.learn_capacity
+    f32 = torch.float32
+
+    def full(shape, v, dt=f32):
+        return torch.full(shape, v, dtype=dt, device=device)
+
+    return LearnState(
+        pick_count=full((F,), 0.0),
+        reward_cnt=full((F,), 0.0),
+        reward_sum=full((F,), 0.0),
+        disc_cnt=full((F,), 0.0),
+        disc_sum=full((F,), 0.0),
+        logw=full((F,), 0.0),
+        explore=full((), spec.learn_explore),
+        lat_sum=full((), 0.0),
+        lat_cnt=full((), 0.0),
+        pick_p=full((Tl,), 1.0),
+        credited=full((Tl,), 0, torch.int8),
+    )
 
 
 def init_state(
@@ -382,20 +407,7 @@ def init_state(
     metrics = Metrics(
         **{f.name: full((), 0, i32) for f in dataclasses.fields(Metrics)}
     )
-    Tl = spec.learn_capacity
-    learn = LearnState(
-        pick_count=full((F,), 0.0, f32),
-        reward_cnt=full((F,), 0.0, f32),
-        reward_sum=full((F,), 0.0, f32),
-        disc_cnt=full((F,), 0.0, f32),
-        disc_sum=full((F,), 0.0, f32),
-        logw=full((F,), 0.0, f32),
-        explore=full((), spec.learn_explore, f32),
-        lat_sum=full((), 0.0, f32),
-        lat_cnt=full((), 0.0, f32),
-        pick_p=full((Tl,), 1.0, f32),
-        credited=full((Tl,), 0, i8),
-    )
+    learn = init_learn_state(spec, dev)
     Fc, Tc = spec.chaos_fogs, spec.chaos_tasks
     chaos = ChaosState(
         key=trandom.PRNGKey(0, dev),

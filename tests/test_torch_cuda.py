@@ -408,3 +408,69 @@ def test_wireless_card_run_equals_cpu_run(cuda, builder, kw):
         assert a.dtype == c.dtype and a.tobytes() == c.tobytes()
     assert sums == spec.n_ticks  # one Bianchi keying a tick
     assert 0 < plans <= spec.n_ticks
+
+
+#: A wired world on the compacted broker, small enough for the CPU run.
+_COMPACT = dict(
+    n_users=64, n_fogs=4, fog_mips=(40000.0, 80000.0, 20000.0, 60000.0),
+    send_interval=0.01, horizon=0.1, start_time_max=0.02, queue_capacity=16,
+    derive_acks=False,
+)
+_COMPACT_POLICIES = {
+    "round_robin": dict(policy=int(Policy.ROUND_ROBIN)),
+    "random": dict(policy=int(Policy.RANDOM)),
+    "ucb": dict(policy=int(Policy.UCB)),
+    "ducb": dict(policy=int(Policy.DUCB)),
+    "exp3": dict(policy=int(Policy.EXP3)),
+    "dynamic": dict(policy=int(Policy.DYNAMIC), learn_in_dynamic=True),
+    # the dense broker's world, for the no-sync check of its tick
+    "min_busy_dense": dict(policy=int(Policy.MIN_BUSY), derive_acks=True),
+}
+
+
+def _compact_world(device, name):
+    spec, st, net, b = smoke.build(device=device, **{**_COMPACT, **_COMPACT_POLICIES[name]})
+    if name == "dynamic":  # the traced id names EXP3
+        st = st.replace(broker=st.broker.replace(
+            policy_id=torch.full((), int(Policy.EXP3), dtype=torch.int32, device=device)))
+    return spec, st, net, b
+
+
+@pytest.mark.parametrize("name", sorted(_COMPACT_POLICIES))
+def test_compacted_card_run_equals_cpu_run(cuda, name):
+    ak.reset_launches()
+    spec, st, net, b = _compact_world(cuda, name)
+    card, _ = engine.run(spec, st, net, b)
+    torch.cuda.synchronize()
+    launches = ak.LAUNCHES["fused_arrival_plan"]
+    spec, st, net, b = _compact_world("cpu", name)
+    cpu, _ = engine.run(spec, st, net, b)
+    for a, c in zip(state_to_numpy(card), state_to_numpy(cpu)):
+        assert a.dtype == c.dtype and a.tobytes() == c.tobytes()
+    assert 0 < launches <= spec.n_ticks
+    if spec.learn_active:
+        assert float(cpu.learn.lat_cnt) > 0
+
+
+@pytest.mark.parametrize(
+    "name", ["ucb", "exp3", "round_robin", "dynamic", "min_busy_dense"]
+)
+def test_compacted_broker_tick_does_not_synchronise(cuda, name):
+    """A whole tick of a compacted-broker world (the broker's decisions,
+    the learners' bookkeeping and credit, the arrival kernel) waits for
+    the card nowhere: no host copy, no read of a device value.  The dense
+    broker's tick, beside it, neither."""
+    from fognetsimpp_tpu_torch.net.topology import associate
+
+    spec, st, net, b = _compact_world(cuda, name)
+    step = engine.make_step(spec)
+    cache = associate(net, st.nodes.pos, st.nodes.alive, spec.broker_index)
+    for _ in range(30):  # past the first decisions and credits
+        st = step(st, net, b, cache)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st = step(st, net, b, cache)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(st.metrics.n_scheduled) > 0

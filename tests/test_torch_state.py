@@ -16,9 +16,12 @@ from fognetsimpp_tpu import Policy
 from fognetsimpp_tpu.core import engine as jengine
 from fognetsimpp_tpu.net import topology as jtopology
 from fognetsimpp_tpu.scenarios import smoke as jsmoke
+from fognetsimpp_tpu_torch import envelope
 from fognetsimpp_tpu_torch.core import engine as tengine
 from fognetsimpp_tpu_torch.net import topology as ttopology
 from fognetsimpp_tpu_torch.scenarios import smoke as tsmoke
+from fognetsimpp_tpu_torch.spec import FogModel
+from fognetsimpp_tpu_torch.spec import WorldSpec as TWorldSpec
 from fognetsimpp_tpu_torch.state import (
     WorldState,
     net_from_numpy,
@@ -130,12 +133,12 @@ def test_entry_points_need_a_device_when_cuda_is_absent():
 @pytest.mark.parametrize(
     "kw, item",
     [
-        (dict(policy=int(Policy.ROUND_ROBIN)), "item 8"),
-        (dict(policy=int(Policy.UCB)), "item 8"),
+        (dict(n_brokers=2), "item 13"),
+        (dict(fog_model=int(FogModel.POOL), app_gen=2), "item 10"),
         (dict(two_stage_arrivals=False), "item 7"),
         (dict(link_up_s=1.0), "item 10"),
         (dict(wired_queue_enabled=True), "item 25"),
-        (dict(policy=int(Policy.RANDOM)), "item 8"),
+        (dict(telemetry=True, telemetry_hist=True), "item 14"),
         (dict(policy=int(Policy.LOCAL_FIRST), broker_mips=2048.0), "item 10"),
         (dict(chaos=True, chaos_mtbf_s=1.0, chaos_mttr_s=0.1), "item 12"),
         (dict(telemetry=True), "item 14"),
@@ -145,6 +148,11 @@ def test_entry_points_need_a_device_when_cuda_is_absent():
 def test_specs_outside_the_slice_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         tsmoke.build(device="cpu", horizon=0.05, **kw)
+    spec = TWorldSpec(
+        n_users=2, n_fogs=2, send_interval=0.05, horizon=0.05,
+        max_sends_per_user=5, **kw,
+    ).validate()
+    assert item in envelope.slice_reject_reason(spec)
 
 
 def test_link_cache_and_pair_delay_match_jax():
