@@ -70,9 +70,9 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    on the card watching ``nodes.alive`` (at least one user shut down and
    one restarted), card against CPU every leaf;
 
-12. rr_grid: ``benchmarks.py::config2`` at its own size (96 users x 4
-   fogs, ROUND_ROBIN on the compacted broker, K = 1,024, 1,000 ticks of
-   1 ms): a stepped card run that keeps every arrival window, with
+12. rr_grid: ``benchmarks.py::config2`` (96 users x 4 fogs, ROUND_ROBIN
+   on the compacted broker, K = 1,024), cut to 250 of its 1,000 ticks of
+   1 ms: a stepped card run that keeps every arrival window, with
    ``fused_arrival_plan`` held against its plain version on every
    non-empty one (and timed on the first), then ``engine.run`` timed
    (decisions per second, ms per tick, launches), card against CPU every
@@ -84,6 +84,32 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    ``LEARN_HORIZON``: each timed after a warm-up run, card against CPU
    every leaf, its short profile, and for the learned ones the credited
    count ``learn.lat_cnt``, which must be above 0;
+14. replicas_small: the replica axis (``run_batched``: one ``vmap`` of
+   the tick a tick, the kernels' batching rules laying the replicas'
+   windows end to end) on 4 replicas of config 3's world cut to 32 users
+   x 6 fogs and of config 4's cut to 40 users, card against CPU every
+   leaf, one wrapper call of each kernel a tick;
+15. config3: ``benchmarks.py::config3`` at full width, 64 replicas of
+   1,000 users x 24 fogs (1,536 fogs end to end: ``pairwise_rank`` and
+   the per-fog reductions a replica), 250 ticks of 1 ms;
+16. config4: ``benchmarks.py::config4`` at its 128 replicas (512 fogs
+   end to end: ``fused_arrival_plan``; 8,192 cells: ``cell_sum_ordered``
+   on 1,288,832 entries every tick), 100 ticks of 5 ms;
+17. config5: one chunk of 32 of ``benchmarks.py::config5``'s 256 load
+   levels at full width (10,000 users x 32 fogs, K = 4,096, 50 ticks of
+   5 ms): a batch of 32 replicas for each of its four policies (1,024
+   fogs end to end: ``fused_arrival_plan``), then the four as one
+   ``Policy.DYNAMIC`` batch of 128 (5b: 4,096 fogs, ``pairwise_rank``).
+   Phases 15-17 each run a batch once to warm up (its first 10 ticks)
+   and once timed (ms a
+   tick, decisions per second over all replicas, peak device memory,
+   each wrapper's calls a tick, which must be the single world's one),
+   hold replicas 0, 1 and R - 1 against single-world card runs of their
+   states (every leaf), profile a few batched ticks (device events and
+   busy share), and hold each kernel against its plain version on the
+   first non-empty end-to-end input of the timed run, timed beside its
+   bound; functorch's per-replica fallback is off throughout, and a
+   kernel input on the CPU fails the phase;
 
 then the ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` prints them, and ``{"ok": true, "device": {...}}`` last.
@@ -122,6 +148,9 @@ CELL_KERNELS = (
 MAX_CELL_LAUNCHES = 4
 #: Cycles of one dependent float32 add, the unit of a cell's chain.
 CYCLES_PER_ADD = 4
+#: Cycles of the sleep kernel that holds the stream while the host queues
+#: the calls ``stream_ms`` times (about 25 ms at the H100's boost clock).
+SLEEP_CYCLES = 50_000_000
 
 SOURCES = {
     "fused_arrival_plan": "fognetsimpp_tpu_torch/csrc/arrival_plan.cu",
@@ -175,7 +204,7 @@ TP_SHARDS = 4
 #: The bench's per-shard exchange window (bench.py:579-580): 34,142.
 TP_K_EX = max(256, int(1.3 * (TP_WORLD["n_users"] // TP_SHARDS) * 5e-3 / 0.05) + 64)
 #: Ticks of the tp world held card against CPU (the CPU run's length).
-TP_CHECK_TICKS = 10
+TP_CHECK_TICKS = 5
 #: Masked rows of a shard's arrival-plan window at the tp world's tick 0,
 #: all bound for one fog (this script's ``tp_profile`` phase on an H100);
 #: the kernel phase holds the kernel against its plain version on such a
@@ -186,9 +215,10 @@ TP_TICK0_MASKED = 86_103
 BENCH_MASKED = 2_281
 
 #: ``benchmarks.py::config2`` at its own size: 96 users x 4 fogs,
-#: ROUND_ROBIN, send interval 10 ms, dt 1 ms, 1.0 s (1,000 ticks).
+#: ROUND_ROBIN, send interval 10 ms, dt 1 ms, cut from 1.0 s to 0.25 s
+#: (250 ticks) for the script's time (``benchmarks.py 2`` runs it whole).
 RR_GRID = dict(
-    n_users=96, n_fogs=4, send_interval=0.01, horizon=1.0, dt=1e-3,
+    n_users=96, n_fogs=4, send_interval=0.01, horizon=0.25, dt=1e-3,
     max_sends_per_user=104, arrival_window=1024,
 )
 #: The compacted broker's policies on the bench world (``policies``): row
@@ -209,6 +239,23 @@ LEARN_HORIZON = 0.3
 #: Ticks stepped before a world's short profile, and the ticks profiled.
 PROFILE_FROM, PROFILE_TICKS = 8, 4
 
+#: The replica axis on small worlds, card against CPU (``replicas_small``):
+#: world -> (builder name, policy, arguments).  The smoke world is config 3's cut
+#: to 32 users x 6 fogs; the wireless one config 4's cut to 40 users.
+REPLICAS_SMALL = {
+    "smoke": ("smoke", "MIN_LATENCY", dict(
+        n_users=32, n_fogs=6, send_interval=0.01, horizon=0.04, dt=1e-3,
+        max_sends_per_user=8, arrival_window=64, start_time_max=0.02)),
+    "wireless5": ("wireless5", "ENERGY_AWARE", dict(
+        numb_users=40, horizon=0.1, dt=5e-3, extra_aps=4, mac_model="bianchi")),
+}
+SMALL_R, REPLICA_SEED = 4, 5
+#: Ticks of a replica phase's warm-up run (its shapes are the run's).
+REPLICA_WARM_TICKS = 10
+#: ``benchmarks.py``'s ``CONFIG4_R``, and config 5's chunk of load levels
+#: (the script runs one chunk of the 256).
+CONFIG4_R, CONFIG5_CHUNK = 128, 32
+
 #: tests/test_parity_wireless.py's fast-cycling battery world (12 mJ
 #: batteries, 18 mW net drain while publishing) at dt 10 ms, MIN_BUSY.
 CHURN = dict(
@@ -228,18 +275,22 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
 
+    from fognetsimpp_tpu_torch import benchmarks as bm
     from fognetsimpp_tpu_torch.core import engine
+    from fognetsimpp_tpu_torch.core.engine import run_batched
     from fognetsimpp_tpu_torch.net.topology import associate
     from fognetsimpp_tpu_torch.ops import arrival_kernels as ak
     from fognetsimpp_tpu_torch.ops import cell_kernels as ck
     from fognetsimpp_tpu_torch.ops import cuda_build
     from fognetsimpp_tpu_torch.ops import queues as tq
     from fognetsimpp_tpu_torch.ops import ring_kernels as rk
+    from fognetsimpp_tpu_torch.parallel.replicas import replicate_state, strict_vmap
+    from fognetsimpp_tpu_torch.parallel.sweep import policy_batches
     from fognetsimpp_tpu_torch.parallel.taskshard import run_tp_sharded
     from fognetsimpp_tpu_torch.runtime.signals import summarize
     from fognetsimpp_tpu_torch.scenarios import cell_sum_inputs, smoke, wireless
     from fognetsimpp_tpu_torch.spec import BugCompat, Policy
-    from fognetsimpp_tpu_torch.state import state_to_numpy, tree_leaves
+    from fognetsimpp_tpu_torch.state import state_to_numpy, tree_leaves, tree_map
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -306,6 +357,28 @@ def main() -> int:
             torch.cuda.synchronize()
             runs.append(a.elapsed_time(b) / reps)
         return statistics.median(runs)
+
+    def stream_ms(fn, reps, runs=5):
+        """Device ms a call of ``fn``, its launches back to back: the calls
+        are queued behind a sleep kernel that holds the stream while the
+        host launches them, so the CUDA events around them time the card's
+        work and not the host's (median of ``runs``).  For the replica paths'
+        kernel rows, where the profiler's trace of a call came back with
+        some of its launches missing on the card."""
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(runs):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SLEEP_CYCLES)
+            a.record()
+            for _ in range(reps):
+                fn()
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b) / reps)
+        return statistics.median(times)
 
     def max_abs_err(got, want):
         err = 0.0
@@ -379,11 +452,13 @@ def main() -> int:
             for g, w in zip(got, want)
         )
 
-    def check_arrival_kernel(name, inp, F, reps):
+    def check_arrival_kernel(name, inp, F, reps, by_events=False):
         """The kernel against its plain version on ``inp``: exact equality
         (or SystemExit), device and wall times of both and of the torch
         sort composition, launches a call, and the bound.  ``reps`` =
-        (kernel device, plain device, kernel wall, plain wall) calls."""
+        (kernel device, plain device, kernel wall, plain wall) calls.
+        ``by_events`` takes the device times from :func:`stream_ms` and the
+        profiler's trace only for the launches a call."""
         fused = name == "fused_arrival_plan"
         if fused:
             run_k = lambda: ak.fused_arrival_plan(*inp, F)  # noqa: E731
@@ -416,25 +491,36 @@ def main() -> int:
         dev_k = {k: v / n_k[k] for k, v in us_k.items()
                  if any(s in k for s in OUR_KERNELS)}
         launches = sum(v for k, v in n_k.items() if any(s in k for s in OUR_KERNELS))
-        if not dev_k:
+        if not dev_k and not by_events:
             raise SystemExit(f"{name}: the profiler saw no device time of its kernels")
         if launches > MAX_ARRIVAL_LAUNCHES + 1e-9:
             raise SystemExit(f"{name}: {launches} launches a call")
         b = bound(*inp[:2], F, fused)
+        if by_events:
+            # the plain version of an end-to-end window takes seconds a call:
+            # one timed run of it, and its wall time is that run's
+            plain_ms = stream_ms(run_p, reps[1], runs=1)
+            times = {"ms": stream_ms(run_k, reps[0]),
+                     "plain_ms": plain_ms, "plain_wrapper_ms": plain_ms,
+                     "library_ms": stream_ms(run_lib, reps[1]),
+                     "timed_by": "CUDA events behind a sleep kernel"}
+        else:
+            times = {"ms": sum(dev_k.values()) / 1e3,
+                     "plain_ms": sum(device_us(run_p, reps[1])[0].values()) / 1e3,
+                     "plain_wrapper_ms": per_call_ms(run_p, reps[3]),
+                     "library_ms": sum(device_us(run_lib, reps[1])[0].values()) / 1e3,
+                     "timed_by": "torch.profiler"}
         return {
             "name": name, "K": K, "F": F, "masked_rows": int(inp[0].sum()),
-            "equal": equal, "max_abs_err": err,
-            "ms": sum(dev_k.values()) / 1e3, "launches_a_call": launches,
+            "equal": equal, "max_abs_err": err, **times,
+            "launches_a_call": launches,
             "device_us_by_launch": {
                 s: sum(v for k, v in dev_k.items() if s in k)
                 for s in OUR_KERNELS if any(s in k for k in dev_k)
             },
-            "plain_ms": sum(device_us(run_p, reps[1])[0].values()) / 1e3,
-            "library_ms": sum(device_us(run_lib, reps[1])[0].values()) / 1e3,
             "library_rank_equal": bool(torch.equal(run_lib(), got[0])),
             # wall time per call of the Python wrapper, launches included
             "wrapper_ms": per_call_ms(run_k, reps[2]),
-            "plain_wrapper_ms": per_call_ms(run_p, reps[3]),
             **b,
         }
 
@@ -452,6 +538,7 @@ def main() -> int:
             "wrapper_us": r["wrapper_ms"] * 1e3,
             "plain_wrapper_us": r["plain_wrapper_ms"] * 1e3,
             "bound_us": r["bound_ms"] * 1e3, "bound_by": r["bound_by"],
+            "timed_by": r["timed_by"],
             "bound_sort_compares": r["sort_compares"], "bound_ops": r["ops"],
             "bound_bytes": r["bytes"], "bound_key_sectors": r["key_sectors"],
         })
@@ -478,6 +565,7 @@ def main() -> int:
             "bound_sort_compares": r["sort_compares"],
             "bound_ops": r["ops"], "bound_bytes": r["bytes"],
             "wrapper_ms": r["wrapper_ms"], "launches_a_call": r["launches_a_call"],
+            "timed_by": r["timed_by"],
         }
 
     def empty_row(r):
@@ -651,20 +739,23 @@ def main() -> int:
     def static_cache(spec, st, net):
         return associate(net, st.nodes.pos, st.nodes.alive, spec.broker_index)
 
-    def tick_profile(spec, st, net, b, cache):
+    def tick_profile(spec, st, net, b, cache, tick=None):
         """Where a world's tick time goes: PROFILE_FROM ticks stepped into
         the steady state, PROFILE_TICKS timed without the profiler, the
         next PROFILE_TICKS profiled (an empty trace is taken again, up to
-        six times).  Returns the row (wall ms a tick both ways, device
-        events, device ms and busy share a tick, the heaviest kernels) and
-        the device µs by kernel name."""
-        step = engine.make_step(spec)
+        six times).  ``tick`` (state -> state) replaces the world's own
+        step, for a replica batch.  Returns the row (wall ms a tick both
+        ways, device events, device ms and busy share a tick, the heaviest
+        kernels) and the device µs by kernel name."""
+        if tick is None:
+            step = engine.make_step(spec)
+            tick = lambda s: step(s, net, b, cache)  # noqa: E731
         for _ in range(PROFILE_FROM):
-            st = step(st, net, b, cache)
+            st = tick(st)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(PROFILE_TICKS):
-            st = step(st, net, b, cache)
+            st = tick(st)
         torch.cuda.synchronize()
         wall_plain = time.perf_counter() - t0
         for attempt in range(6):
@@ -673,7 +764,7 @@ def main() -> int:
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 for _ in range(PROFILE_TICKS):
-                    st = step(st, net, b, cache)
+                    st = tick(st)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
             dev_us, n_events, by_name = device_events(prof)
@@ -1043,7 +1134,7 @@ def main() -> int:
             capture_output=True, text=True, check=True,
         ).stdout.split()[0])
 
-    def check_cell_kernel(case, cell, vals, A, reps):
+    def check_cell_kernel(case, cell, vals, A, reps, by_events=False):
         run_k = lambda: ck.cell_sum_ordered(cell, vals, A)  # noqa: E731
         run_p = lambda: ck.cell_sum_ordered_plain(cell, vals, A)  # noqa: E731
         idx = torch.where((cell >= 0) & (cell < A), cell, A).long()
@@ -1069,7 +1160,7 @@ def main() -> int:
         clock = sm_clock_mhz()  # read beside the window
         us_l, n_l = device_us(run_lib, reps[0], ("index",))
         dev_l = {k: v / n_l[k] for k, v in us_l.items() if "index" in k}
-        if not dev_k or not dev_l:
+        if (not dev_k or not dev_l) and not by_events:
             raise SystemExit("cell_sum_ordered: the profiler saw no device time "
                              "of the kernel or of index_add_")
         if len(dev_k) > MAX_CELL_LAUNCHES:
@@ -1080,12 +1171,14 @@ def main() -> int:
             "name": "cell_sum_ordered", "case": case, "N": cell.shape[0], "A": A,
             "largest_cell": largest, "equal": equal, "max_abs_err": err,
             "index_add_bit_equal": bool(torch.equal(lib_out.view(torch.int32), want.view(torch.int32))),
-            "ms": sum(dev_k.values()) / 1e3,
+            "ms": stream_ms(run_k, reps[0]) if by_events else sum(dev_k.values()) / 1e3,
+            "timed_by": "CUDA events behind a sleep kernel" if by_events else "torch.profiler",
             "launches_a_call": len(dev_k),
             "device_us_by_launch": {s: sum(v for k, v in dev_k.items() if s in k)
                                     for s in CELL_KERNELS if any(s in k for k in dev_k)},
             "traced_share": {k: n_k[k] for k in ours},
-            "library_ms": sum(dev_l.values()) / 1e3,
+            "library_ms": (stream_ms(run_lib, reps[0]) if by_events
+                           else sum(dev_l.values()) / 1e3),
             # CUDA events around a call: the plain version waits once for
             # the card (its round count), so its wall time is its time
             "plain_ms": per_call_ms(run_p, reps[1]),
@@ -1316,6 +1409,191 @@ def main() -> int:
             raise SystemExit(f"policies {name}: launches {launches}")
         policy_launches[name] = launches["fused_arrival_plan"]
         del card
+
+    # ---- 14-17. the replica axis ------------------------------------------
+    def single_replica(batch, r):
+        return tree_map(lambda x: x[r].clone(), batch)
+
+    def replica_launches(launches):
+        """Arrival-plan wrapper calls (either kernel) and per-cell sums."""
+        return (launches["fused_arrival_plan"] + launches["pairwise_rank"],
+                launches["cell_sum_ordered"])
+
+    # 14. replicas_small: the batching rules on the card against the CPU's
+    # plain versions under the same rules, every leaf
+    small_rows = []
+    for world, (builder, pol, kw) in REPLICAS_SMALL.items():
+        build = smoke.build if builder == "smoke" else getattr(wireless, builder)
+        kw = dict(kw, policy=int(Policy[pol]))
+        finals = {}
+        for device in (dev, "cpu"):
+            spec, st, net, b = build(device=device, **kw)
+            batch = replicate_state(spec, st, SMALL_R, seed=REPLICA_SEED)
+            reset_launches()
+            with strict_vmap():
+                finals[str(device)] = run_batched(spec, batch, net, b)[0]
+            if device == dev:
+                launches = all_launches()
+        n_leaves = assert_same(finals[str(dev)], finals["cpu"], f"replicas_small {world}")
+        arrival, cells = replica_launches(launches)
+        small_rows.append({"world": world, "replicas": SMALL_R, "ticks": spec.n_ticks,
+                           "leaves_equal": n_leaves, "launches": launches})
+        if arrival != spec.n_ticks or cells != (spec.n_ticks if spec.n_aps else 0):
+            raise SystemExit(f"replicas_small {world}: launches {launches} in "
+                             f"{spec.n_ticks} ticks")
+    emit({"phase": "replicas_small", "worlds": small_rows})
+
+    def replica_phase(phase, spec, batch, net, b, extra=None):
+        """One replica batch at full width: a warm-up run, a timed run
+        (through ``run_batched``, every kernel input kept by a tap that
+        also refuses a CPU tensor), replicas 0, 1 and R - 1 against
+        single-world card runs of their states (every leaf, and the same
+        wrapper calls a tick), and a short profile of the batched tick.
+        Returns the row and each kernel's first non-empty real input."""
+        R = batch.t.shape[0]
+        with strict_vmap():  # warm-up: every shape of the run, its first ticks
+            run_batched(spec, batch, net, b, n_ticks=REPLICA_WARM_TICKS)
+        torch.cuda.synchronize()
+        kept = {"fused_arrival_plan": [], "pairwise_rank": [], "cell_sum_ordered": []}
+
+        def tap(name, *args):
+            if not args[0].is_cuda:
+                raise SystemExit(f"{phase}: {name} took the CPU path")
+            kept[name].append(args)
+
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_build.TAPS.append(tap)
+        try:
+            with strict_vmap():
+                t0 = time.perf_counter()
+                final, _ = run_batched(spec, batch, net, b)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            cuda_build.TAPS.remove(tap)
+        launches = all_launches()
+        peak = torch.cuda.max_memory_allocated()
+        n_sched = int(final.metrics.n_scheduled.sum())
+        n_pub = int(final.metrics.n_published.sum())
+        checked = {}
+        for r in sorted({0, 1, R - 1}):
+            reset_launches()
+            one, _ = engine.run(spec, single_replica(batch, r), net, b)
+            torch.cuda.synchronize()
+            if replica_launches(all_launches()) != replica_launches(launches):
+                raise SystemExit(f"{phase}: replica {r} alone made {all_launches()} "
+                                 f"wrapper calls, the batch {launches}")
+            checked[r] = assert_same(tree_map(lambda x: x[r], final), one,
+                                     f"{phase}: replica {r} against its single run")
+        del final, one
+        arrival, cells = replica_launches(launches)
+        if arrival != spec.n_ticks or cells not in (0, spec.n_ticks):
+            raise SystemExit(f"{phase}: launches {launches} in {spec.n_ticks} ticks")
+        with strict_vmap():
+            tick, _ = engine.batched_tick(spec, net, b, batch)
+            prof_row, by_name = tick_profile(spec, batch, net, b, None, tick=tick)
+        first = {}
+        for name, calls in kept.items():
+            for args in calls:
+                rows = args[0] if name != "cell_sum_ordered" else (
+                    (args[0] >= 0) & (args[0] < args[2]))
+                if int(rows.sum()):
+                    first[name] = args
+                    break
+        row = {
+            "phase": phase, "replicas": R, "n_users": spec.n_users,
+            "n_fogs": spec.n_fogs, "window": spec.window,
+            "task_rows_per_replica": spec.task_capacity, "ticks": spec.n_ticks,
+            "leaves_equal_single": checked, "n_scheduled": n_sched,
+            "n_published": n_pub,
+            "wall_s": wall, "ms_per_tick": wall / spec.n_ticks * 1e3,
+            "task_offload_decisions_per_sec": n_sched / wall,
+            "peak_device_bytes": peak, "launches": launches,
+            "launches_per_tick": {k: v / spec.n_ticks for k, v in launches.items()},
+            "flattened_fogs": R * spec.n_fogs, **(extra or {}), **prof_row,
+            "arrival_kernels_device_us_per_tick": sum(
+                v for k, v in by_name.items() if any(s in k for s in OUR_KERNELS)),
+            "cell_kernel_device_us_per_tick": sum(
+                v for k, v in by_name.items() if any(s in k for s in CELL_KERNELS)),
+        }
+        return row, first, launches
+
+    def flattened_kernel_rows(path, first, launches, flat_fogs):
+        """Each kernel of a replica path against its plain version on the
+        first non-empty end-to-end input of the timed run (``flat_fogs``
+        fogs end to end), a row of the kernels line each."""
+        for name, args in first.items():
+            if name == "cell_sum_ordered":
+                r = check_cell_kernel(f"{path}, first real input", *args, (20, 1),
+                                      by_events=True)
+                emit({"phase": "kernel", **{k: v for k, v in r.items()
+                                            if not k.endswith("_ms")},
+                      "device_us": r["ms"] * 1e3, "plain_wall_us": r["plain_ms"] * 1e3,
+                      "index_add_device_us": r["library_ms"] * 1e3,
+                      "wrapper_us": r["wrapper_ms"] * 1e3,
+                      "bound_us": r["bound_ms"] * 1e3, "chain_us": r["chain_ms"] * 1e3})
+                kernel_rows[(name, path)] = {
+                    "name": name, "route": "cuda", "source": SOURCES[name],
+                    "replaces": REPLACES[name],
+                    "launches": launches[name], "max_abs_err": r["max_abs_err"],
+                    "ms": r["ms"], "plain_ms": r["plain_ms"],
+                    "bound_ms": r["bound_ms"], "bound_by": "bytes",
+                    "library_ms": r["library_ms"],
+                    "library": "Tensor.index_add_ (atomic adds, another order)",
+                    "shape": {"N": r["N"], "A": r["A"], "largest_cell": r["largest_cell"]},
+                    "shape_of": path, "bound_bytes": r["bound_bytes"],
+                    "wrapper_ms": r["wrapper_ms"], "launches_a_call": r["launches_a_call"],
+                    "timed_by": r["timed_by"],
+                }
+                continue
+            r = check_arrival_kernel(name, args[:3], flat_fogs, (10, 2, 10, 1),
+                                     by_events=True)
+            emit_kernel(r, f"{path}, first non-empty end-to-end window")
+            kernel_rows[(name, path)] = kernel_row(r, path, "real, replicas end to end")
+        for name, _ in first.items():
+            kernel_rows[(name, path)]["launches"] = launches[name]
+            kernel_rows[(name, path)]["launches_by_path"] = {path: launches[name]}
+
+    # 15. config3: benchmarks.py::config3 at full width, 64 replicas
+    spec, st, net, b = bm.config3_world(dev)
+    batch = replicate_state(spec, st, 64, seed=0)
+    row, first, launches = replica_phase("config3", spec, batch, net, b)
+    emit(row)
+    flattened_kernel_rows("config3", first, launches, row["flattened_fogs"])
+    del batch, first
+
+    # 16. config4: benchmarks.py::config4 at its 128 replicas, 100 ticks
+    spec, st, net, b = bm.config4_world(device=dev)
+    batch = replicate_state(spec, st, CONFIG4_R, seed=0)
+    row, first, launches = replica_phase("config4", spec, batch, net, b)
+    emit(row)
+    flattened_kernel_rows("config4", first, launches, row["flattened_fogs"])
+    del batch, first
+
+    # 17. config5: one chunk of 32 load levels of benchmarks.py::config5,
+    # each policy's batch, then the four as one Policy.DYNAMIC batch (5b)
+    loads = bm.config5_loads()[:CONFIG5_CHUNK]
+    c5_kw = bm.config5_build_kw(device=dev)
+    pols = [int(p) for p in bm.CONFIG5_POLICIES]
+    for dynamic, path in ((False, "config5"), (True, "config5b")):
+        total = {"fused_arrival_plan": 0, "pairwise_rank": 0, "cell_sum_ordered": 0}
+        kernel_first = {}
+        for batch_pols, spec, batch, net, b in policy_batches(
+            smoke.build, pols, loads, dynamic=dynamic, **c5_kw
+        ):
+            row, first, launches = replica_phase(
+                path, spec, batch, net, b,
+                {"policies": [Policy(p).name for p in batch_pols],
+                 "load_levels": len(loads), "load_levels_of_config": 256})
+            emit(row)
+            for k in total:
+                total[k] += launches[k]
+            for k, v in first.items():
+                kernel_first.setdefault(k, v)
+            del batch
+        flattened_kernel_rows(path, kernel_first, total, row["flattened_fogs"])
+        del kernel_first
 
     # each row's launches: the main paths' calls at that row's shape
     by_path = {

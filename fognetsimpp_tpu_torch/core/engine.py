@@ -275,8 +275,8 @@ def _compact(
     dev = mask.device
     C = _compact_lane_width(T)
     B = -(-T // C)
-    m2 = torch.zeros((B * C,), dtype=_I32, device=dev)
-    m2[:T] = mask.to(_I32)
+    # out of place, so that a replica batch (vmap) can pass through
+    m2 = torch.cat([mask.to(_I32), torch.zeros((B * C - T,), dtype=_I32, device=dev)])
     wcs = torch.cumsum(m2.reshape(B, C), dim=1).to(_I32)
     bsum = wcs[:, -1]
     k = torch.arange(K, dtype=_I32, device=dev)
@@ -1307,6 +1307,24 @@ def _finalize_derived_acks(
     )
 
 
+def _runner_setup(spec: WorldSpec, net: NetParams, dev, bounds, n_ticks):
+    """``run``'s checks and defaults: ``(bounds, n_ticks)``."""
+    check_slice(spec, net)
+    if spec.derive_acks and not spec.assume_static:
+        raise ValueError("derive_acks needs assume_static (one static link cache)")
+    if spec.assume_static and net.mac_loss_tab.shape[0] > 0:
+        raise ValueError(STATIC_MAC_ERR)
+    if bounds is None:
+        bounds = default_bounds(device=dev)
+    return bounds, spec.n_ticks if n_ticks is None else n_ticks
+
+
+def _static_cache(spec: WorldSpec, net: NetParams, state: WorldState) -> LinkCache:
+    """One association for the whole run: positions and liveness are
+    constant, so no mobility or association runs a tick."""
+    return associate(net, state.nodes.pos, state.nodes.alive, spec.broker_index)
+
+
 def run(
     spec: WorldSpec,
     state: WorldState,
@@ -1319,23 +1337,56 @@ def run(
     Returns ``(final_state, None)``: per-tick series recording is not
     ported.  The state stays on its device; the loop never waits for it.
     """
-    check_slice(spec, net)
-    if spec.derive_acks and not spec.assume_static:
-        raise ValueError("derive_acks needs assume_static (one static link cache)")
-    dev = state.t.device
-    if bounds is None:
-        bounds = default_bounds(device=dev)
-    n = spec.n_ticks if n_ticks is None else n_ticks
+    bounds, n = _runner_setup(spec, net, state.t.device, bounds, n_ticks)
     step = make_step(spec)
-    static_cache = None
-    if spec.assume_static:
-        if net.mac_loss_tab.shape[0] > 0:
-            raise ValueError(STATIC_MAC_ERR)
-        # one association for the whole run: positions and liveness are
-        # constant, so no mobility or association runs a tick
-        static_cache = associate(net, state.nodes.pos, state.nodes.alive, spec.broker_index)
+    static_cache = _static_cache(spec, net, state) if spec.assume_static else None
     for _ in range(n):
         state = step(state, net, bounds, static_cache)
     if spec.derive_acks:
         state = _finalize_derived_acks(spec, state, static_cache)
     return state, None
+
+
+def batched_tick(
+    spec: WorldSpec, net: NetParams, bounds: MobilityBounds, batch: WorldState
+):
+    """``(tick, cache)``: ``tick(batch) -> batch`` advances R worlds like
+    ``batch`` one tick, one ``torch.func.vmap`` of ``make_step(spec)``;
+    ``cache`` is each replica's static link cache (None on a moving
+    world), computed from ``batch`` as JAX computes it inside its vmap.
+    The port draws no numbers from torch's generator, so the vmap refuses
+    randomness."""
+    step = make_step(spec)
+    vmap = torch.func.vmap
+    if not spec.assume_static:
+        return vmap(lambda s: step(s, net, bounds), randomness="error"), None
+    cache = vmap(lambda s: _static_cache(spec, net, s))(batch)
+    tick = vmap(lambda s, c: step(s, net, bounds, c), randomness="error")
+    return (lambda s: tick(s, cache)), cache
+
+
+def run_batched(
+    spec: WorldSpec,
+    batch: WorldState,
+    net: NetParams,
+    bounds: Optional[MobilityBounds] = None,
+    n_ticks: Optional[int] = None,
+) -> Tuple[WorldState, None]:
+    """:func:`run` for R worlds at once: ``batch`` carries a leading
+    replica axis on every leaf, and ``net`` and ``bounds`` are shared.
+
+    Each tick is one call of :func:`batched_tick`, so every operation of
+    the tick launches once for all R worlds; the kernels' batching rules
+    (:mod:`..ops.arrival_kernels`, :mod:`..ops.cell_kernels`) lay the
+    replicas' windows end to end for one kernel call.  Replica r of the
+    result equals :func:`run` on replica r of ``batch``, leaf for leaf.
+    """
+    bounds, n = _runner_setup(spec, net, batch.t.device, bounds, n_ticks)
+    tick, cache = batched_tick(spec, net, bounds, batch)
+    for _ in range(n):
+        batch = tick(batch)
+    if spec.derive_acks:
+        batch = torch.func.vmap(
+            lambda s, c: _finalize_derived_acks(spec, s, c)
+        )(batch, cache)
+    return batch, None

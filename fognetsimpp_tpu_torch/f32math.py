@@ -25,6 +25,27 @@ def const(x: float, device) -> torch.Tensor:
     return torch.full((), x, dtype=torch.float32, device=device)
 
 
+@torch.library.custom_op("fns::bitcast", mutates_args=())
+def _bitcast_op(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return x.view(dtype).clone()
+
+
+@_bitcast_op.register_vmap
+def _bitcast_vmap(info, in_dims, x, dtype):
+    return _bitcast_op(x, dtype), in_dims[0]
+
+
+def bitcast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x.view(dtype)`` for a dtype of the same width: the same bits read
+    as another type.  A tensor of a replica batch (``vmap``) goes through
+    a custom operator whose batching rule views the whole batch at once,
+    since PyTorch releases before 2.13 have no batching rule for a dtype
+    view."""
+    if torch._C._functorch.is_functorch_wrapped_tensor(x):
+        return _bitcast_op(x, dtype)
+    return x.view(dtype)
+
+
 def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """``round_f32(a * b + c)`` with a single rounding, for float32 inputs.
 
@@ -39,7 +60,7 @@ def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     s = p + c64
     bv = s - p
     err = (p - (s - bv)) + (c64 - bv)
-    even = (s.view(torch.int64) & 1) == 0
+    even = (bitcast(s, torch.int64) & 1) == 0
     inf = torch.full_like(s, float("inf"))
     toward = torch.where(err > 0, inf, -inf)
     nudge = torch.isfinite(s) & (err != 0) & even
@@ -134,7 +155,7 @@ def _reduce_large(xi: torch.Tensor):
 def _sincosf(y: torch.Tensor, cos: bool) -> torch.Tensor:
     if y.dtype != torch.float32:
         raise TypeError(f"sinf/cosf take float32, got {y.dtype}")
-    xi = y.view(torch.int32).long() & _M32
+    xi = bitcast(y, torch.int32).long() & _M32
     top = (xi >> 20) & 0x7FF
     x = y.double()
     # |y| < 120: reduce_fast, with the single-rounded x - n * pi/2
@@ -256,16 +277,16 @@ def expf(x: torch.Tensor) -> torch.Tensor:
         y = fma(y, r, const(c, dev))
     y = fma(y, r * r, r) + 1.0
     bits = m.to(torch.int64) * (1 << 23) + 0x3F800000
-    out = ftz(y * bits.to(torch.int32).view(torch.float32))
+    out = ftz(y * bitcast(bits.to(torch.int32), torch.float32))
     return torch.where(torch.isnan(x), x, out)
 
 
 def _log_core(t: torch.Tensor) -> torch.Tensor:
     """``log_f32`` on positive normal float32 ``t`` (no special cases)."""
     dev = t.device
-    bits = t.view(torch.int32)
+    bits = bitcast(t, torch.int32)
     e = ((bits >> 23) - 127).to(torch.float32) + 1.0
-    mant = ((bits & 0x007FFFFF) | 0x3F000000).view(torch.float32)
+    mant = bitcast((bits & 0x007FFFFF) | 0x3F000000, torch.float32)
     small = mant < _SQRTHF
     xr = (mant - 1.0) + torch.where(small, mant, 0.0)
     e = e - torch.where(small, 1.0, 0.0)

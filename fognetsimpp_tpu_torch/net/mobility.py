@@ -18,9 +18,10 @@ import torch
 from ..device import resolve_device
 from ..f32math import const, cosf, fma, sinf
 from ..spec import Mobility
-from ..state import Struct
+from ..state import Struct, register_pytree
 
 
+@register_pytree
 @dataclasses.dataclass
 class MobilityBounds(Struct):
     lo: torch.Tensor  # (2,) f32 constraint area min (x, y)

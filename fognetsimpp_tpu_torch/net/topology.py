@@ -28,11 +28,12 @@ from ..device import resolve_device
 from ..f32math import const, fma
 from ..ops import cell_kernels
 from ..ops.scatter import add_drop
-from ..state import Struct
+from ..state import Struct, register_pytree
 
 _I32, _F32 = torch.int32, torch.float32
 
 
+@register_pytree
 @dataclasses.dataclass
 class NetParams(Struct):
     """Static-per-scenario network data (same leaves as the JAX twin)."""
@@ -51,6 +52,7 @@ class NetParams(Struct):
     mac_loss_tab: torch.Tensor  # (n_max+1,) f32
 
 
+@register_pytree
 @dataclasses.dataclass
 class LinkCache(Struct):
     """Derived connectivity of one tick (constant on a static world)."""

@@ -19,6 +19,14 @@ and the bucket count (no host synchronisation).  The wrapper allocates the
 kernels' scratch.  On a CPU tensor it runs the plain version beside it,
 which the tests hold against the Pallas kernels in interpret mode.  Each
 wrapper call that launches the kernels adds one to :data:`LAUNCHES`.
+
+Each wrapper is a ``torch.library`` custom operator with a batching rule,
+so a replica batch (``vmap`` over the tick) reaches the kernels once for
+all R replicas: the rule lays the R windows end to end (rows ``r * K +
+k``, fog keys ``r * F + f``, masked-out rows keyed past every replica's
+fogs) and calls the wrapper on them, with the fused kernel while R * F
+fits it and the rank kernel plus the per-fog reductions window by
+window past it.  On the CPU the same rule runs the plain versions.
 """
 from __future__ import annotations
 
@@ -73,6 +81,34 @@ def pairwise_rank_plain(
     return torch.where(mask, cnt, torch.full_like(cnt, -1))
 
 
+def fog_reductions(
+    mask: torch.Tensor, fog_key: torch.Tensor, t_key: torch.Tensor, n_fogs: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(counts, t_min, first), each (..., F): the per-fog reductions of
+    :func:`fused_arrival_plan_plain` over the last axis of (..., K)
+    inputs, so that a batch of windows is reduced window by window (an
+    empty fog gives +inf and K; -0.0 kept as XLA's min keeps it)."""
+    K = mask.shape[-1]
+    dev = mask.device
+    fid = torch.arange(n_fogs, dtype=torch.int32, device=dev)[:, None]
+    per_fog = (fog_key[..., None, :] == fid) & mask[..., None, :]
+    counts = per_fog.sum(dim=-1, dtype=torch.int32)
+    lead = per_fog.shape[:-1]
+    if K == 0:
+        return (counts, torch.full(lead, float("inf"), device=dev),
+                torch.full(lead, K, dtype=torch.int32, device=dev))
+    tmat = torch.where(per_fog, t_key[..., None, :], float("inf"))
+    t_min = tmat.amin(dim=-1)
+    # XLA's min orders -0.0 below +0.0; amin returns either zero
+    neg = (t_key == 0) & torch.signbit(t_key)
+    neg_zero = (per_fog & neg[..., None, :]).any(dim=-1)
+    t_min = torch.where(neg_zero & (t_min == 0), torch.full_like(t_min, -0.0), t_min)
+    is_min = per_fog & (tmat == t_min[..., None])
+    ids = torch.arange(K, dtype=torch.int32, device=dev)
+    first = torch.where(is_min, ids, K).amin(dim=-1).to(torch.int32)
+    return counts, t_min, first
+
+
 def fused_arrival_plan_plain(
     mask: torch.Tensor, fog_key: torch.Tensor, t_key: torch.Tensor, n_fogs: int
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -80,26 +116,8 @@ def fused_arrival_plan_plain(
     has ``t_min = +inf`` and ``first = K``; a fog whose earliest time is a
     zero has ``t_min = -0.0`` if one of its rows holds -0.0, bit for bit as
     the Pallas kernel's (XLA's) min gives it."""
-    K = mask.shape[0]
-    dev = mask.device
     rank = pairwise_rank_plain(mask, fog_key, t_key)
-    fid = torch.arange(n_fogs, dtype=torch.int32, device=dev)
-    per_fog = (fog_key[None, :] == fid[:, None]) & mask[None, :]
-    counts = per_fog.sum(dim=1, dtype=torch.int32)
-    tmat = torch.where(per_fog, t_key[None, :], float("inf"))
-    t_min = tmat.amin(dim=1) if K else torch.full(
-        (n_fogs,), float("inf"), device=dev
-    )
-    # XLA's min orders -0.0 below +0.0; amin returns either zero
-    neg_zero = (per_fog & ((t_key == 0) & torch.signbit(t_key))[None, :]).any(dim=1)
-    t_min = torch.where(neg_zero & (t_min == 0), torch.full_like(t_min, -0.0), t_min)
-    is_min = per_fog & (tmat == t_min[:, None])
-    ids = torch.arange(K, dtype=torch.int32, device=dev)
-    first = torch.where(is_min, ids[None, :], K)
-    first = first.amin(dim=1).to(torch.int32) if K else torch.full(
-        (n_fogs,), K, dtype=torch.int32, device=dev
-    )
-    return rank, counts, t_min, first
+    return (rank, *fog_reductions(mask, fog_key, t_key, n_fogs))
 
 
 # ----------------------------------------------------------------------
@@ -153,14 +171,10 @@ def _check_inputs(mask, fog_key, t_key) -> int:
     return K
 
 
-def fused_arrival_plan(
+def _fused_impl(
     mask: torch.Tensor, fog_key: torch.Tensor, t_key: torch.Tensor, n_fogs: int
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(rank (K,), counts (F,), t_min (F,), first (F,)) in one kernel.
-
-    Inputs: ``mask`` (K,) bool, ``fog_key`` (K,) i32 (``n_fogs`` where
-    masked out), ``t_key`` (K,) f32 (+inf where masked out).
-    """
+    cuda_build.tap("fused_arrival_plan", mask, fog_key, t_key, n_fogs)
     if not mask.is_cuda:
         return fused_arrival_plan_plain(mask, fog_key, t_key, n_fogs)
     K = _check_inputs(mask, fog_key, t_key)
@@ -191,10 +205,10 @@ def fused_arrival_plan(
     return rank, counts, t_min, first
 
 
-def pairwise_rank(
+def _pairwise_impl(
     mask: torch.Tensor, fog_key: torch.Tensor, t_key: torch.Tensor
 ) -> torch.Tensor:
-    """(K,) i32 within-fog arrival rank; -1 where masked out."""
+    cuda_build.tap("pairwise_rank", mask, fog_key, t_key)
     if not mask.is_cuda:
         return pairwise_rank_plain(mask, fog_key, t_key)
     K = _check_inputs(mask, fog_key, t_key)
@@ -214,3 +228,108 @@ def pairwise_rank(
         cuda_build.raise_on(err, "pairwise_rank")
         cuda_build.count_launch(LAUNCHES, "pairwise_rank")
     return rank
+
+
+# The wrappers are custom operators so that a replica batch (``vmap``
+# over the tick) reaches them through the batching rules below, which
+# launch one kernel for all replicas on their windows laid end to end.
+
+@torch.library.custom_op("fns::fused_arrival_plan", mutates_args=())
+def _fused_op(
+    mask: torch.Tensor, fog_key: torch.Tensor, t_key: torch.Tensor, n_fogs: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    return _fused_impl(mask, fog_key, t_key, n_fogs)
+
+
+@torch.library.custom_op("fns::pairwise_rank", mutates_args=())
+def _pairwise_op(
+    mask: torch.Tensor, fog_key: torch.Tensor, t_key: torch.Tensor, n_fogs: int
+) -> torch.Tensor:
+    return _pairwise_impl(mask, fog_key, t_key)
+
+
+def fused_arrival_plan(
+    mask: torch.Tensor, fog_key: torch.Tensor, t_key: torch.Tensor, n_fogs: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(rank (K,), counts (F,), t_min (F,), first (F,)) in one kernel.
+
+    Inputs: ``mask`` (K,) bool, ``fog_key`` (K,) i32 (``n_fogs`` where
+    masked out), ``t_key`` (K,) f32 (+inf where masked out).  Under
+    ``vmap`` the R windows are laid end to end, R * F fogs: one call of
+    the fused kernel up to :data:`FUSED_MAX_FOGS` of them, past it one
+    call of the rank kernel and the per-fog reductions window by window.
+    """
+    return _fused_op(mask, fog_key, t_key, int(n_fogs))
+
+
+def pairwise_rank(
+    mask: torch.Tensor, fog_key: torch.Tensor, t_key: torch.Tensor,
+    n_fogs: int = -1,
+) -> torch.Tensor:
+    """(K,) i32 within-fog arrival rank; -1 where masked out.  Under
+    ``vmap`` the caller names ``n_fogs``, the bound of the masked rows'
+    keys, so that the replicas' keys can be told apart end to end."""
+    return _pairwise_op(mask, fog_key, t_key, int(n_fogs))
+
+
+def _flat_keys(mask: torch.Tensor, fog_key: torch.Tensor, n_fogs: int) -> torch.Tensor:
+    """(R * K,) fog keys of R windows end to end: replica r's fog f is
+    ``r * F + f``; a masked-out row (key F, which would be replica r + 1's
+    fog 0) gets ``R * F``, past every replica's fogs."""
+    R = mask.shape[0]
+    off = torch.arange(R, dtype=torch.int32, device=mask.device)[:, None] * n_fogs
+    return torch.where(mask, fog_key + off, R * n_fogs).reshape(-1)
+
+
+def _compare_ok(mask: torch.Tensor) -> bool:
+    """Whether a window this wide takes the kernels: always on the card;
+    on the CPU only up to the plain compare's width
+    (``queues._PAIRWISE_MAX``), past which the stable-sort rank runs, as
+    ``queues.plan_arrivals`` picks for one world."""
+    from .queues import _PAIRWISE_MAX
+
+    return mask.is_cuda or mask.shape[0] <= _PAIRWISE_MAX
+
+
+def _flat_rank(mask, f_flat, t_flat) -> torch.Tensor:
+    """The rank of the end-to-end window (:func:`_compare_ok`)."""
+    from .queues import _sort_rank
+
+    if _compare_ok(mask):
+        return pairwise_rank(mask, f_flat, t_flat)
+    return _sort_rank(mask, f_flat, t_flat)
+
+
+@_fused_op.register_vmap
+def _fused_vmap(info, in_dims, mask, fog_key, t_key, n_fogs):
+    R = info.batch_size
+    mask, fog_key, t_key = (
+        cuda_build.batch_first(x, d, R) for x, d in zip((mask, fog_key, t_key), in_dims[:3])
+    )
+    K, F = mask.shape[1], n_fogs
+    f_flat = _flat_keys(mask, fog_key, F)
+    m_flat, t_flat = mask.reshape(-1), t_key.reshape(-1)
+    if 0 < R * F <= FUSED_MAX_FOGS and _compare_ok(m_flat):
+        rank, counts, t_min, first = fused_arrival_plan(m_flat, f_flat, t_flat, R * F)
+        counts, t_min, first = (x.reshape(R, F) for x in (counts, t_min, first))
+        off = torch.arange(R, dtype=torch.int32, device=mask.device)[:, None] * K
+        # an empty fog's first is R * K end to end, K in its own window
+        first = torch.where(first >= R * K, K, first - off).to(torch.int32)
+    else:
+        # the (F, K) membership a replica, never (R F, R K) end to end
+        rank = _flat_rank(m_flat, f_flat, t_flat)
+        counts, t_min, first = fog_reductions(mask, fog_key, t_key, F)
+    return (rank.reshape(R, K), counts, t_min, first), (0, 0, 0, 0)
+
+
+@_pairwise_op.register_vmap
+def _pairwise_vmap(info, in_dims, mask, fog_key, t_key, n_fogs):
+    if n_fogs < 0:
+        raise ValueError("pairwise_rank under vmap needs n_fogs, the key bound")
+    R = info.batch_size
+    mask, fog_key, t_key = (
+        cuda_build.batch_first(x, d, R) for x, d in zip((mask, fog_key, t_key), in_dims[:3])
+    )
+    rank = _flat_rank(mask.reshape(-1), _flat_keys(mask, fog_key, n_fogs),
+                      t_key.reshape(-1))
+    return rank.reshape(mask.shape), 0

@@ -24,7 +24,9 @@ launch, where each of the card's block slots walks at most
 else cell segments, four launches with scratch from ``torch.empty``,
 whose work follows the entries.  It never waits for the card and raises
 if a launch fails; on a CPU tensor it runs :func:`cell_sum_ordered_plain`.
-Each call on the card adds one to :data:`LAUNCHES`.
+Each call on the card adds one to :data:`LAUNCHES`.  The wrapper is a
+``torch.library`` custom operator whose batching rule sums a replica
+batch (``vmap``) in one call, the replicas' cells laid end to end.
 """
 from __future__ import annotations
 
@@ -112,12 +114,8 @@ def _one_block_slots(dev: torch.device) -> int:
     return _slots[index]
 
 
-def cell_sum_ordered(
-    cell: torch.Tensor, vals: torch.Tensor, n_cells: int
-) -> torch.Tensor:
-    """(n_cells,) float32: the index-order sum of ``vals`` (N,) float32
-    in each cell of ``cell`` (N,) int32; cells outside ``[0, n_cells)``,
-    negative ones included, dropped."""
+def _cell_sum_impl(cell: torch.Tensor, vals: torch.Tensor, n_cells: int) -> torch.Tensor:
+    cuda_build.tap("cell_sum_ordered", cell, vals, n_cells)
     if not (cell.is_cuda or vals.is_cuda):
         return cell_sum_ordered_plain(cell, vals, n_cells)
     n_cells = int(n_cells)
@@ -148,3 +146,32 @@ def cell_sum_ordered(
     cuda_build.raise_on(err, "cell_sum_ordered")
     cuda_build.count_launch(LAUNCHES, "cell_sum_ordered")
     return out
+
+
+@torch.library.custom_op("fns::cell_sum_ordered", mutates_args=())
+def _cell_sum_op(cell: torch.Tensor, vals: torch.Tensor, n_cells: int) -> torch.Tensor:
+    return _cell_sum_impl(cell, vals, n_cells)
+
+
+def cell_sum_ordered(
+    cell: torch.Tensor, vals: torch.Tensor, n_cells: int
+) -> torch.Tensor:
+    """(n_cells,) float32: the index-order sum of ``vals`` (N,) float32
+    in each cell of ``cell`` (N,) int32; cells outside ``[0, n_cells)``,
+    negative ones included, dropped.  Under ``vmap`` the R replicas' entries
+    are laid end to end, replica r's cell a at ``r * A + a`` and every
+    dropped entry at ``R * A``, and one call sums all R * A cells."""
+    return _cell_sum_op(cell, vals, int(n_cells))
+
+
+@_cell_sum_op.register_vmap
+def _cell_sum_vmap(info, in_dims, cell, vals, n_cells):
+    R, A = info.batch_size, n_cells
+    cell, vals = (
+        cuda_build.batch_first(x, d, R) for x, d in zip((cell, vals), in_dims[:2])
+    )
+    kept = (cell >= 0) & (cell < A)
+    off = torch.arange(R, dtype=torch.int32, device=cell.device)[:, None] * A
+    flat = torch.where(kept, cell + off, R * A).reshape(-1)
+    out = cell_sum_ordered(flat, vals.reshape(-1), R * A)
+    return out.reshape(R, A), 0

@@ -7,6 +7,8 @@ The library lives in ``_build/`` under a name keyed on the hash of all
 the sources, so an edited source is rebuilt and an unchanged tree is not.
 The first kernel call builds it; :func:`build` also returns ``ptxas``'s
 report (registers, shared memory, spills) for whoever wants to print it.
+The wrappers' shared helpers live here too: launch counts, the stream,
+error checks, the input taps and the batching rules' operand layout.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -32,11 +34,31 @@ _count_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _fns: Dict[str, object] = {}
 
+#: Callables ``tap(name, *inputs)`` that every kernel wrapper hands its
+#: inputs to before it runs, at the level where a kernel sees them (a
+#: replica batch laid end to end); a harness appends one to keep real
+#: windows and removes it after.
+TAPS: List[Callable] = []
+
 
 def count_launch(launches: Dict[str, int], name: str) -> None:
     """Add one to ``launches[name]``; shard threads launch concurrently."""
     with _count_lock:
         launches[name] += 1
+
+
+def tap(name: str, *inputs) -> None:
+    """Hand a kernel call's inputs to every callable in :data:`TAPS`."""
+    for fn in TAPS:
+        fn(name, *inputs)
+
+
+def batch_first(x: torch.Tensor, dim: Optional[int], n: int) -> torch.Tensor:
+    """A batching rule's operand with its replica axis first and
+    contiguous, broadcast to ``n`` rows where it has none (``dim`` None)."""
+    if dim is None:
+        return x.expand((n,) + tuple(x.shape)).contiguous()
+    return x.movedim(dim, 0).contiguous()
 
 
 def stream_of(dev) -> int:

@@ -78,9 +78,10 @@ def _sort_rank(mask, f_key, t_arrive) -> torch.Tensor:
         torch.where(is_start, idx, torch.zeros_like(idx)), dim=0
     ).values
     rank_sorted = torch.where(mask[order], idx - seg_start, -1).to(torch.int32)
-    rank = torch.zeros((K,), dtype=torch.int32, device=dev)
-    rank[order] = rank_sorted
-    return rank
+    # out of place, so that a replica batch (vmap) can pass through
+    return torch.zeros((K,), dtype=torch.int32, device=dev).scatter(
+        0, order, rank_sorted
+    )
 
 
 def plan_arrivals(
@@ -116,7 +117,7 @@ def plan_arrivals(
         )
     else:
         if small:
-            rank = ak.pairwise_rank(mask, f_key, t_key)
+            rank = ak.pairwise_rank(mask, f_key, t_key, F)
         else:
             rank = _sort_rank(mask, f_key, t_arrive)
         if per_fog is None:

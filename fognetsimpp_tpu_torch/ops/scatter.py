@@ -27,7 +27,7 @@ def set_drop(col: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
     """
     pad, i, n = _padded(col, idx)
     v = torch.as_tensor(vals, dtype=col.dtype, device=col.device)
-    pad[i] = v.expand(i.shape + tuple(col.shape[1:]))
+    pad = pad.index_put((i,), v.expand(i.shape + tuple(col.shape[1:])))
     return pad[:n]
 
 
@@ -39,5 +39,5 @@ def add_drop(col: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
     """
     pad, i, n = _padded(col, idx)
     v = torch.as_tensor(vals, dtype=col.dtype, device=col.device)
-    pad.index_add_(0, i, v.expand(i.shape + tuple(col.shape[1:])))
+    pad = pad.index_add(0, i, v.expand(i.shape + tuple(col.shape[1:])))
     return pad[:n]

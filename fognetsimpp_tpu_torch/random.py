@@ -24,7 +24,7 @@ from typing import Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from .f32math import fma
+from .f32math import bitcast, fma
 
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -99,9 +99,10 @@ def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
 
 def _bits_to_f32(bits: torch.Tensor) -> torch.Tensor:
     """Reinterpret uint32 words (in int64) as float32 bit patterns."""
-    return torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits).to(
-        torch.int32
-    ).view(torch.float32)
+    return bitcast(
+        torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits).to(torch.int32),
+        torch.float32,
+    )
 
 
 def uniform(

@@ -11,6 +11,11 @@ One representation differs: a PRNG key (``WorldState.key``,
 (see :mod:`fognetsimpp_tpu_torch.random`); :func:`state_to_numpy` hands it
 back as uint32.
 
+Every dataclass here is registered as a ``torch.utils._pytree`` node
+(:func:`register_pytree`), so ``torch.func.vmap`` takes and returns a
+whole world: a replica batch is the same tree with a leading axis on
+every leaf (:mod:`..parallel.replicas`).
+
 The carry-across functions :func:`state_to_numpy`,
 :func:`state_from_numpy` and :func:`net_from_numpy` move a world between
 the two packages as a flat list of numpy arrays in leaf order.
@@ -23,6 +28,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from . import random as trandom
 from .device import resolve_device
@@ -41,6 +47,14 @@ class Struct:
         return dataclasses.replace(self, **changes)
 
 
+def register_pytree(cls):
+    """Class decorator: ``cls``, a dataclass of tensors and dataclasses,
+    becomes a torch pytree node whose children are its fields in order."""
+    pytree.register_dataclass(cls)
+    return cls
+
+
+@register_pytree
 @dataclasses.dataclass
 class NodeState(Struct):
     """Per-node state, length N, layout [users | fogs | broker | aps | routers]."""
@@ -64,6 +78,7 @@ class NodeState(Struct):
     assoc_sum: torch.Tensor  # (N,) i32
 
 
+@register_pytree
 @dataclasses.dataclass
 class UserState(Struct):
     """Per-user application state, length U."""
@@ -80,6 +95,7 @@ class UserState(Struct):
     n_delivered: torch.Tensor  # (U,) i32
 
 
+@register_pytree
 @dataclasses.dataclass
 class FogState(Struct):
     """Per-fog FIFO server state, length F; ``queue`` is an (F, Q) ring."""
@@ -96,6 +112,7 @@ class FogState(Struct):
     pool_avail: torch.Tensor  # (F,) f32
 
 
+@register_pytree
 @dataclasses.dataclass
 class BrokerView(Struct):
     """The base broker's (possibly stale) table of fog nodes."""
@@ -113,6 +130,7 @@ class BrokerView(Struct):
     policy_id: torch.Tensor  # () i32
 
 
+@register_pytree
 @dataclasses.dataclass
 class TaskState(Struct):
     """Task lifecycle table, capacity T = U * max_sends_per_user; slot
@@ -137,6 +155,7 @@ class TaskState(Struct):
     req_open: torch.Tensor  # (T,) int8
 
 
+@register_pytree
 @dataclasses.dataclass
 class Metrics(Struct):
     """Running counters, all () i32."""
@@ -158,6 +177,7 @@ class Metrics(Struct):
     n_deferred_max: torch.Tensor
 
 
+@register_pytree
 @dataclasses.dataclass
 class LearnState(Struct):
     """Bandit learner state (``fognetsimpp_tpu/learn/bandits.LearnState``):
@@ -177,6 +197,7 @@ class LearnState(Struct):
     credited: torch.Tensor  # (Tl,) int8
 
 
+@register_pytree
 @dataclasses.dataclass
 class ChaosState(Struct):
     """Fault-injection state (inert: zero-row per-fog/per-task leaves)."""
@@ -195,6 +216,7 @@ class ChaosState(Struct):
     n_retry_exhausted: torch.Tensor  # () i32
 
 
+@register_pytree
 @dataclasses.dataclass
 class HierState(Struct):
     """Federated multi-broker state (inert: zero-row on one broker)."""
@@ -211,6 +233,7 @@ class HierState(Struct):
     n_hop_exhausted: torch.Tensor  # () i32
 
 
+@register_pytree
 @dataclasses.dataclass
 class TelemetryState(Struct):
     """Device telemetry accumulators (inert: zero-row when off)."""
@@ -245,6 +268,7 @@ class TelemetryState(Struct):
     j_dropped: torch.Tensor
 
 
+@register_pytree
 @dataclasses.dataclass
 class WorldState(Struct):
     """The full world.  ``t`` is the tick-boundary clock."""

@@ -474,3 +474,123 @@ def test_compacted_broker_tick_does_not_synchronise(cuda, name):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert int(st.metrics.n_scheduled) > 0
+
+
+# ----------------------------------------------------------------------
+# the replica axis on the card
+# ----------------------------------------------------------------------
+
+#: Small replica worlds, card against CPU: config 3's world cut to 32
+#: users x 6 fogs, config 4's cut to 40 users, and UCB's credit phase.
+_REPLICA_WORLDS = {
+    "min_latency": ("smoke", dict(
+        n_users=32, n_fogs=6, policy=int(Policy.MIN_LATENCY), send_interval=0.01,
+        horizon=0.04, dt=1e-3, max_sends_per_user=8, arrival_window=64,
+        start_time_max=0.02)),
+    "wireless5": ("wireless5", dict(
+        numb_users=40, horizon=0.1, dt=5e-3, extra_aps=4, mac_model="bianchi",
+        policy=int(Policy.ENERGY_AWARE))),
+    "ucb": ("smoke", dict(_COMPACT, policy=int(Policy.UCB))),
+}
+
+
+def _replica_world(device, name, R=4):
+    from fognetsimpp_tpu_torch.parallel.replicas import replicate_state
+
+    builder, kw = _REPLICA_WORLDS[name]
+    build = smoke.build if builder == "smoke" else getattr(wireless, builder)
+    spec, st, net, b = build(device=device, **kw)
+    return spec, replicate_state(spec, st, R, seed=5), net, b
+
+
+@pytest.mark.parametrize("name", sorted(_REPLICA_WORLDS))
+def test_replica_batch_card_equals_cpu(cuda, name):
+    """``run_batched`` on the card against the same batch on the CPU,
+    every leaf, with one wrapper call of each kernel a tick for all
+    replicas and no per-replica fallback."""
+    from fognetsimpp_tpu_torch.parallel.replicas import strict_vmap
+
+    ak.reset_launches()
+    ck.reset_launches()
+    with strict_vmap():
+        spec, batch, net, b = _replica_world(cuda, name)
+        card, _ = engine.run_batched(spec, batch, net, b)
+        torch.cuda.synchronize()
+        plans = ak.LAUNCHES["fused_arrival_plan"] + ak.LAUNCHES["pairwise_rank"]
+        sums = ck.LAUNCHES["cell_sum_ordered"]
+        spec, batch, net, b = _replica_world("cpu", name)
+        cpu, _ = engine.run_batched(spec, batch, net, b)
+    for a, c in zip(state_to_numpy(card), state_to_numpy(cpu)):
+        assert a.dtype == c.dtype and a.tobytes() == c.tobytes()
+    assert plans == spec.n_ticks
+    assert sums == (spec.n_ticks if spec.n_aps else 0)
+
+
+@pytest.mark.parametrize("R, K, F", [(4, 2048, 32), (128, 1556, 4), (64, 256, 24)])
+def test_kernel_rules_on_card_equal_plain(cuda, R, K, F):
+    """The batching rules on the card: R windows end to end in one call
+    (the fused kernel up to 1,024 fogs, past it the rank kernel and the
+    reductions a replica), each replica equal to its plain window."""
+    from fognetsimpp_tpu_torch.parallel.replicas import strict_vmap
+
+    rng = np.random.default_rng(R * K + F)
+    mask = rng.random((R, K)) < 0.6
+    mask[1] = False  # an empty replica
+    fog = rng.integers(0, F, (R, K)).astype(np.int32)
+    t = np.round(rng.random((R, K)) * 0.01, 4).astype(np.float32)
+    cpu = [torch.from_numpy(a) for a in (
+        mask, np.where(mask, fog, F).astype(np.int32),
+        np.where(mask, t, np.inf).astype(np.float32))]
+    ak.reset_launches()
+    with strict_vmap():
+        got = torch.func.vmap(lambda m, f, k: ak.fused_arrival_plan(m, f, k, F))(
+            *[a.to(cuda) for a in cpu])
+    torch.cuda.synchronize()
+    assert ak.LAUNCHES["fused_arrival_plan"] + ak.LAUNCHES["pairwise_rank"] == 1
+    for r in range(R):
+        want = ak.fused_arrival_plan_plain(cpu[0][r], cpu[1][r], cpu[2][r], F)
+        for g, w in zip(got, want):
+            assert g[r].dtype == w.dtype and g[r].cpu().numpy().tobytes() == w.numpy().tobytes()
+
+
+def test_cell_sum_rule_on_card(cuda):
+    """config 4's per-cell sum laid end to end over 128 replicas in one
+    call (the segments tier), each replica equal to its plain sum."""
+    from fognetsimpp_tpu_torch.parallel.replicas import strict_vmap
+
+    cell, vals, A = _cell_case("config4")
+    R = 128
+    rng = np.random.default_rng(1)
+    perms = [rng.permutation(cell.shape[0]) for _ in range(R)]
+    c = torch.stack([cell[p] for p in perms])
+    v = torch.stack([vals[p] for p in perms])
+    ck.reset_launches()
+    with strict_vmap():
+        got = torch.func.vmap(lambda a, x: ck.cell_sum_ordered(a, x, A))(
+            c.to(cuda), v.to(cuda))
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["cell_sum_ordered"] == 1
+    for r in (0, 1, R - 1):
+        want = ck.cell_sum_ordered_plain(c[r], v[r], A)
+        assert got[r].cpu().numpy().tobytes() == want.numpy().tobytes()
+
+
+@pytest.mark.parametrize("name", ["min_latency", "ucb"])
+def test_batched_tick_does_not_synchronise(cuda, name):
+    """A tick of a wired replica batch waits for the card nowhere either.
+    (A wireless tick copies ``sinf``'s tables from the host, replicas or
+    not: ``ROADMAP.md`` item 19.)"""
+    from fognetsimpp_tpu_torch.parallel.replicas import strict_vmap
+
+    spec, batch, net, b = _replica_world(cuda, name)
+    with strict_vmap():
+        tick, _ = engine.batched_tick(spec, net, b, batch)
+        for _ in range(8):
+            batch = tick(batch)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            batch = tick(batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert int(batch.metrics.n_published.sum()) > 0
