@@ -110,6 +110,41 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    first non-empty end-to-end input of the timed run, timed beside its
    bound; functorch's per-replica fallback is off throughout, and a
    kernel input on the CPU fails the phase;
+18. chunked: the bench world (dt 5 ms, 20 ticks) through
+   ``engine.run_chunked`` in chunks of 7, promoted (the knobs a device
+   operand), timed with and without a callback that keeps each boundary's
+   state: the callback sees ticks 7, 14 and 20 and its kept states stay
+   intact, every leaf equals the card's ``engine.run`` and the CPU's
+   ``run_chunked``;
+19. reconfigure: config 4's single world (100 ticks in chunks of 25), its
+   idle power and shutdown threshold retuned at tick 50: equal to the
+   manual composition (two promoted ``engine.run`` calls) and to the CPU,
+   every leaf; the alive users at each boundary;
+20. dyn4: ``benchmarks.py``'s dyn4, ``sweep_dyn``'s batch over config 4's
+   world (idle power {2, 4, 6, 8} mW x shutdown {10, 20} %, 16 replicas a
+   cell, 128 in all), each replica's knobs a row of the device operand,
+   run as phases 15-17 run theirs; the first and last replica of cells 0
+   and 7 against promoted single-world card runs on their cell's knobs;
+21. learned_grid: the bench world under UCB (``derive_acks`` off, 60
+   ticks), reward scale {0.25, 0.3} x discount {0.99, 0.995}, 16
+   replicas a cell (2,048 fogs end to end: ``pairwise_rank``, held against
+   its plain version on the first real input), as phase 20; the 0.3 cells'
+   first and last replicas against promoted single runs;
+22. whatif: the bench world's twin (uplink loss 1 %, as ``bench.py``
+   builds it) run 20 ticks, then ``sweep_dyn_from`` forks the carry onto 8
+   loss values from 0.01 to 0.08, 20 ticks ahead, timed as one ask
+   (``whatif_latency_s``); rows 0 and 7 against direct promoted runs from
+   the same carry, and ``fused_arrival_plan`` against its plain version on
+   the first real end-to-end window (empty: the fork's fogs are saturated
+   and fast-drop every arrival);
+23. tp_chunked: the tp_window world with loss 1 % and a stop time of 80
+   ms under ``run_tp_chunked`` at four shards in chunks of 5, loss and stop
+   time retuned at tick 10: equal to the manual composition and to the
+   single-device ``run_chunked`` with the same retune; then
+   ``unstamp_tp_carry`` and a 4-cell stop-time fork, each row equal to a
+   cold promoted run from the carry.
+   Every phase from 18 on resets the wrapper counts before its path and
+   fails if a kernel of the path was launched no time;
 
 then the ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` prints them, and ``{"ok": true, "device": {...}}`` last.
@@ -167,7 +202,13 @@ REPLACES = {
 }
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also holds the script's seconds so far."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": round(time.perf_counter() - _T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -266,6 +307,20 @@ CHURN = dict(
 )
 
 
+#: ``reconfigure``: config 4's single world in chunks of 25 ticks, its
+#: energy knobs retuned at tick 50 of 100.
+RECONF_CHUNK, RECONF_AT = 25, 50
+RECONF_KNOBS = {"idle_power_w": 4e-3, "shutdown_frac": 0.2}
+#: ``learned_grid``: reward scale x discount on the bench world under UCB,
+#: 16 replicas a cell (64 x 32 = 2,048 fogs end to end).
+LEARNED_KNOBS = {"learn_reward_scale": [0.25, 0.3], "learn_discount": [0.99, 0.995]}
+LEARNED_NRC = 16
+#: ``whatif``: loss values 0.01-0.08 forked from the twin world's carry.
+WHATIF_CELLS = 8
+#: ``tp_chunked``: the retune at tick 10 of the tp_window world's 20.
+TP_RETUNE = {"uplink_loss_prob": 0.03, "send_stop_time": 0.06}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -286,7 +341,12 @@ def main() -> int:
     from fognetsimpp_tpu_torch.ops import ring_kernels as rk
     from fognetsimpp_tpu_torch.parallel.replicas import replicate_state, strict_vmap
     from fognetsimpp_tpu_torch.parallel.sweep import policy_batches
-    from fognetsimpp_tpu_torch.parallel.taskshard import run_tp_sharded
+    from fognetsimpp_tpu_torch.dynspec import apply_knobs, dyn_of, dyn_to_device, shape_key
+    from fognetsimpp_tpu_torch.parallel.sweep import dyn_batch as sweep_dyn_batch
+    from fognetsimpp_tpu_torch.parallel.sweep import sweep_dyn_from
+    from fognetsimpp_tpu_torch.parallel.taskshard import (
+        run_tp_chunked, run_tp_sharded, unstamp_tp_carry,
+    )
     from fognetsimpp_tpu_torch.runtime.signals import summarize
     from fognetsimpp_tpu_torch.scenarios import cell_sum_inputs, smoke, wireless
     from fognetsimpp_tpu_torch.spec import BugCompat, Policy
@@ -1443,16 +1503,22 @@ def main() -> int:
                              f"{spec.n_ticks} ticks")
     emit({"phase": "replicas_small", "worlds": small_rows})
 
-    def replica_phase(phase, spec, batch, net, b, extra=None):
+    def replica_phase(phase, spec, batch, net, b, extra=None, dyn_rows=None,
+                      singles=None):
         """One replica batch at full width: a warm-up run, a timed run
         (through ``run_batched``, every kernel input kept by a tap that
         also refuses a CPU tensor), replicas 0, 1 and R - 1 against
         single-world card runs of their states (every leaf, and the same
         wrapper calls a tick), and a short profile of the batched tick.
-        Returns the row and each kernel's first non-empty real input."""
+        With ``dyn_rows`` (a knob grid, ``spec`` its shape key) each
+        replica runs its row of knobs, and the replicas checked are
+        ``singles``' keys, each against a single promoted run on its
+        cell's knobs (the value).  Returns the row and each kernel's first
+        non-empty real input."""
         R = batch.t.shape[0]
         with strict_vmap():  # warm-up: every shape of the run, its first ticks
-            run_batched(spec, batch, net, b, n_ticks=REPLICA_WARM_TICKS)
+            run_batched(spec, batch, net, b, n_ticks=REPLICA_WARM_TICKS,
+                        dyn_rows=dyn_rows)
         torch.cuda.synchronize()
         kept = {"fused_arrival_plan": [], "pairwise_rank": [], "cell_sum_ordered": []}
 
@@ -1467,7 +1533,7 @@ def main() -> int:
         try:
             with strict_vmap():
                 t0 = time.perf_counter()
-                final, _ = run_batched(spec, batch, net, b)
+                final, _ = run_batched(spec, batch, net, b, dyn_rows=dyn_rows)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
         finally:
@@ -1477,9 +1543,10 @@ def main() -> int:
         n_sched = int(final.metrics.n_scheduled.sum())
         n_pub = int(final.metrics.n_published.sum())
         checked = {}
-        for r in sorted({0, 1, R - 1}):
+        singles = singles or {r: None for r in (0, 1, R - 1)}
+        for r in sorted(singles):
             reset_launches()
-            one, _ = engine.run(spec, single_replica(batch, r), net, b)
+            one, _ = engine.run(spec, single_replica(batch, r), net, b, dyn=singles[r])
             torch.cuda.synchronize()
             if replica_launches(all_launches()) != replica_launches(launches):
                 raise SystemExit(f"{phase}: replica {r} alone made {all_launches()} "
@@ -1491,7 +1558,7 @@ def main() -> int:
         if arrival != spec.n_ticks or cells not in (0, spec.n_ticks):
             raise SystemExit(f"{phase}: launches {launches} in {spec.n_ticks} ticks")
         with strict_vmap():
-            tick, _ = engine.batched_tick(spec, net, b, batch)
+            tick, _ = engine.batched_tick(spec, net, b, batch, dyn_rows)
             prof_row, by_name = tick_profile(spec, batch, net, b, None, tick=tick)
         first = {}
         for name, calls in kept.items():
@@ -1595,6 +1662,240 @@ def main() -> int:
         flattened_kernel_rows(path, kernel_first, total, row["flattened_fogs"])
         del kernel_first
 
+    # ---- 18-23. the promoted knobs: chunks, retunes, grids, the what-if --
+    def keep_states(kept):
+        """A run_chunked callback that keeps each boundary's state and a
+        host copy of its leaves."""
+        return lambda s, done: kept.append((done, s, state_to_numpy(s)))
+
+    def kept_intact(kept, what):
+        for done, s, snap in kept:
+            now = state_to_numpy(s)
+            if int(s.tick) != done or any(a.tobytes() != c.tobytes()
+                                          for a, c in zip(now, snap)):
+                raise SystemExit(f"{what}: the state kept at tick {done} changed")
+
+    def dyn_on(spec, device, **knobs):
+        """``spec``'s knobs, retuned by ``knobs``, as an operand on ``device``."""
+        return dyn_to_device(dyn_of(apply_knobs(spec, knobs) if knobs else spec), device)
+
+    def need_launches(what, launches, names):
+        """The path went through each kernel in ``names``."""
+        for name in names:
+            if launches[name] <= 0:
+                raise SystemExit(f"{what}: the path never launched {name} ({launches})")
+
+    # 18. chunked: run_chunked on the bench world, a callback between chunks
+    kw = bench_world(5e-3)
+    spec, st, net, b = smoke.build(device=dev, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref, _ = engine.run(spec, st, net, b)
+    torch.cuda.synchronize()
+    wall_run = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine.run_chunked(spec, st, net, b, chunk_ticks=7)
+    torch.cuda.synchronize()
+    wall_plain = time.perf_counter() - t0
+    kept = []
+    reset_launches()
+    t0 = time.perf_counter()
+    card = engine.run_chunked(spec, st, net, b, chunk_ticks=7, callback=keep_states(kept))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+    need_launches("chunked", launches, ("fused_arrival_plan",))
+    seen = [d for d, _, _ in kept]
+    if seen != [7, 14, 20]:
+        raise SystemExit(f"chunked: the callback saw {seen}")
+    kept_intact(kept, "chunked")
+    n_run = assert_same(card, ref, "chunked against engine.run on the card")
+    spec_c, st_c, net_c, b_c = smoke.build(device="cpu", **kw)
+    n_cpu = assert_same(card, engine.run_chunked(spec_c, st_c, net_c, b_c, chunk_ticks=7),
+                        "chunked card against CPU")
+    emit({"phase": "chunked", "ticks": spec.n_ticks, "chunk_ticks": 7,
+          "callback_ticks": seen, "leaves_equal_run": n_run, "leaves_equal_cpu": n_cpu,
+          "wall_s": wall, "ms_per_tick": wall / spec.n_ticks * 1e3,
+          "no_callback_ms_per_tick": wall_plain / spec.n_ticks * 1e3,
+          "run_wall_s": wall_run, "run_ms_per_tick": wall_run / spec.n_ticks * 1e3,
+          "n_scheduled": int(card.metrics.n_scheduled), "launches": launches})
+    chunked_launches = launches
+    del kept, card, ref
+
+    # 19. reconfigure: config 4's single world, the energy knobs retuned at
+    # tick 50 of 100 in chunks of 25
+    at = RECONF_AT
+
+    def reconf(done):
+        return RECONF_KNOBS if done == at else None
+
+    def alive_users(s, U):
+        return int(s.nodes.alive[:U].sum())
+
+    spec, st, net, b = bm.config4_world(device=dev)
+    U = spec.n_users
+    alive_at = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    card = engine.run_chunked(
+        spec, st, net, b, chunk_ticks=RECONF_CHUNK, reconfigure=reconf,
+        callback=lambda s, done: alive_at.__setitem__(done, alive_users(s, U)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+    need_launches("reconfigure", launches, ("fused_arrival_plan", "cell_sum_ordered"))
+    key = shape_key(spec)
+    mid, _ = engine.run(key, st, net, b, n_ticks=at, dyn=dyn_on(spec, dev))
+    manual, _ = engine.run(key, mid, net, b, n_ticks=spec.n_ticks - at,
+                           dyn=dyn_on(spec, dev, **RECONF_KNOBS))
+    n_manual = assert_same(card, manual, "reconfigure against the manual composition")
+    del mid, manual
+    spec_c, st_c, net_c, b_c = bm.config4_world(device="cpu")
+    n_cpu = assert_same(card, engine.run_chunked(
+        spec_c, st_c, net_c, b_c, chunk_ticks=RECONF_CHUNK, reconfigure=reconf),
+        "reconfigure card against CPU")
+    emit({"phase": "reconfigure", "n_users": U, "ticks": spec.n_ticks,
+          "chunk_ticks": RECONF_CHUNK, "retuned_at": at, "knobs": RECONF_KNOBS,
+          "leaves_equal_manual": n_manual, "leaves_equal_cpu": n_cpu,
+          "alive_users_by_tick": alive_at,
+          "least_alive_before": min(v for k, v in alive_at.items() if k <= at),
+          "least_alive_after": min([v for k, v in alive_at.items() if k > at]
+                                   + [alive_users(card, U)]),
+          "wall_s": wall, "ms_per_tick": wall / spec.n_ticks * 1e3,
+          "launches": launches})
+    reconf_launches = launches
+    del card
+
+    # 20. dyn4: sweep_dyn's batch over config 4's energy knobs, 128 replicas
+    grid, key, batch, net, b, rows = bm.dyn4_batch(device=dev)
+    nrc = bm.DYN4_REPLICAS_PER_CELL
+    spec0 = bm.config4_world(device="cpu")[0]
+    singles = {
+        r: dyn_on(spec0, dev, **grid[r // nrc])
+        for c in (0, len(grid) - 1) for r in (c * nrc, (c + 1) * nrc - 1)
+    }
+    row, first, launches = replica_phase(
+        "dyn4", key, batch, net, b, {"cells": grid, "replicas_per_cell": nrc},
+        dyn_rows=rows, singles=singles)
+    emit(row)
+    need_launches("dyn4", launches, ("fused_arrival_plan", "cell_sum_ordered"))
+    dyn4_launches = launches
+    del batch, rows, first
+
+    # 21. learned_grid: the bench world under UCB, a reward scale x discount
+    # grid, 16 replicas a cell (2,048 fogs end to end: pairwise_rank)
+    grid, key, batch, net, b, rows = sweep_dyn_batch(
+        smoke.build, LEARNED_KNOBS, LEARNED_NRC, 0,
+        **dict(bench_world(5e-3), policy=int(Policy.UCB), derive_acks=False,
+               horizon=LEARN_HORIZON, device=dev))
+    spec0 = smoke.build(device="cpu", **dict(
+        bench_world(5e-3), policy=int(Policy.UCB), derive_acks=False,
+        horizon=LEARN_HORIZON))[0]
+    singles = {
+        r: dyn_on(spec0, dev, **grid[r // LEARNED_NRC])
+        for c, cell in enumerate(grid) if cell["learn_reward_scale"] == 0.3
+        for r in (c * LEARNED_NRC, (c + 1) * LEARNED_NRC - 1)
+    }
+    row, first, launches = replica_phase(
+        "learned_grid", key, batch, net, b,
+        {"cells": grid, "replicas_per_cell": LEARNED_NRC}, dyn_rows=rows, singles=singles)
+    emit(row)
+    need_launches("learned_grid", launches, ("pairwise_rank",))
+    flattened_kernel_rows("learned_grid", {k: v for k, v in first.items()
+                                           if k == "pairwise_rank"},
+                          launches, row["flattened_fogs"])
+    learned_launches = launches
+    del batch, rows, first
+
+    # 22. whatif: the bench world's twin (uplink loss 1 %), 20 ticks, then
+    # a fork onto 8 loss values 20 ticks ahead (bench.py's what-if)
+    kw = dict(bench_world(5e-3), uplink_loss_prob=0.01)
+    spec, st, net, b = smoke.build(device=dev, **kw)
+    carry, _ = engine.run(spec, st, net, b)
+    losses = [round(0.01 * (i + 1), 2) for i in range(WHATIF_CELLS)]
+    sweep_dyn_from(spec, carry, net, b, {"uplink_loss_prob": losses[:2]}, 2)  # warm-up
+    torch.cuda.synchronize()
+    calls = []
+
+    def tap(name, *args):
+        if not args[0].is_cuda:
+            raise SystemExit(f"whatif: {name} took the CPU path")
+        calls.append((name, args))
+
+    reset_launches()
+    cuda_build.TAPS.append(tap)
+    try:
+        t0 = time.perf_counter()
+        cells, fork = sweep_dyn_from(spec, carry, net, b, {"uplink_loss_prob": losses},
+                                     spec.n_ticks)
+        n_sched = int(fork.metrics.n_scheduled.sum())
+        ask_s = time.perf_counter() - t0
+    finally:
+        cuda_build.TAPS.remove(tap)
+    launches = all_launches()
+    need_launches("whatif", launches, ("fused_arrival_plan",))
+    key = shape_key(spec)
+    checked = {}
+    for i in (0, len(cells) - 1):
+        one, _ = engine.run(key, carry, net, b, n_ticks=spec.n_ticks,
+                            dyn=dyn_on(spec, dev, **cells[i]))
+        checked[i] = assert_same(tree_map(lambda x, i=i: x[i], fork), one,
+                                 f"whatif row {i} against its direct run")
+    emit({"phase": "whatif", "fork_tick": spec.n_ticks, "cells": cells,
+          "ticks_ahead": spec.n_ticks, "leaves_equal_direct": checked,
+          "whatif_latency_s": ask_s, "n_scheduled": n_sched, "launches": launches})
+    # each kernel's first non-empty input; past the carry's tick 20 the
+    # saturated fogs fast-drop every arrival, so the windows are empty and
+    # the first of them stands in
+    first = {}
+    for name, args in calls:
+        if name not in first and int(args[0].sum()):
+            first[name] = args
+    for name, args in calls:
+        first.setdefault(name, args)
+    flattened_kernel_rows("whatif", first, launches, len(cells) * spec.n_fogs)
+    del carry, fork, first, calls
+
+    # 23. tp_chunked: the tp_window world under four shards in chunks of 5,
+    # its loss and stop time retuned at tick 10; then the carry forked
+    kw = dict(bench_world(5e-3), uplink_loss_prob=0.01, send_stop_time=0.08)
+
+    def tp_reconf(done):
+        return TP_RETUNE if done == 10 else None
+
+    spec, st, net, b = smoke.build(device=dev, **kw)
+    reset_launches()
+    t0 = time.perf_counter()
+    sp_f, card = run_tp_chunked(spec, st, net, b, n_shards=TP_SHARDS, chunk_ticks=5,
+                                reconfigure=tp_reconf)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+    need_launches("tp_chunked", launches, ("fused_arrival_plan",))
+    sp_a, mid = run_tp_sharded(spec, st, net, b, n_shards=TP_SHARDS, n_ticks=10)
+    _, manual = run_tp_sharded(apply_knobs(sp_a, TP_RETUNE), mid, net, b,
+                               n_shards=TP_SHARDS, n_ticks=spec.n_ticks - 10)
+    n_manual = assert_same(card, manual, "tp_chunked against the manual composition")
+    single = engine.run_chunked(spec, st, net, b, chunk_ticks=5, reconfigure=tp_reconf)
+    n_single = assert_same(card, single, "tp_chunked against run_chunked on one device")
+    del mid, manual, single
+    sp_w, carry = unstamp_tp_carry(sp_f, card)
+    fork_knobs = {"send_stop_time": [0.06, 0.11, 0.13, 0.15]}
+    cells, fork = sweep_dyn_from(sp_w, carry, net, b, fork_knobs, 10)
+    key = shape_key(sp_w)
+    for i, cell in enumerate(cells):
+        cold, _ = engine.run(key, carry, net, b, n_ticks=10, dyn=dyn_on(sp_w, dev, **cell))
+        assert_same(tree_map(lambda x, i=i: x[i], fork), cold, f"tp what-if row {i}")
+    emit({"phase": "tp_chunked", "n_shards": TP_SHARDS, "ticks": spec.n_ticks,
+          "chunk_ticks": 5, "retune": TP_RETUNE, "spec_after": {
+              k: getattr(sp_f, k) for k in TP_RETUNE},
+          "leaves_equal_manual": n_manual, "leaves_equal_single_device": n_single,
+          "fork_cells": cells, "fork_rows_equal_cold_runs": len(cells),
+          "wall_s": wall, "ms_per_tick": wall / spec.n_ticks * 1e3,
+          "launches": launches})
+    tp_chunked_launches = launches
+    del card, carry, fork
+
     # each row's launches: the main paths' calls at that row's shape
     by_path = {
         ("fused_arrival_plan", "bench"): {
@@ -1615,6 +1916,16 @@ def main() -> int:
             "wireless": wireless_launches["cell_sum_ordered"],
         },
     }
+    # the promoted paths at the shapes of earlier rows: the bench world's
+    # window (chunked, tp_chunked), config 4's single world (reconfigure)
+    # and its 128 replicas end to end (dyn4)
+    by_path[("fused_arrival_plan", "bench")].update(
+        chunked=chunked_launches["fused_arrival_plan"],
+        tp_chunked=tp_chunked_launches["fused_arrival_plan"])
+    for name in ("fused_arrival_plan", "cell_sum_ordered"):
+        by_path[(name, "wireless")]["reconfigure"] = reconf_launches[name]
+        by_path[(name, "config4")] = dict(
+            kernel_rows[(name, "config4")]["launches_by_path"], dyn4=dyn4_launches[name])
     for key, paths in by_path.items():
         kernel_rows[key]["launches"] = sum(paths.values())
         kernel_rows[key]["launches_by_path"] = paths

@@ -11,16 +11,20 @@ one JSON line a config:
   5. policy × load sweep, 10k users × 4 policies × 256 load levels in
      chunks of 32; ``5b`` the same grid with ``Policy.DYNAMIC``, one batch
      a chunk
+  dyn4. config 4's world under a ``sweep_dyn`` grid of its energy knobs:
+     idle power {2, 4, 6, 8} mW × shutdown threshold {10, 20} %, 16
+     replicas a cell (``CONFIG4_R`` = 128 in all), the knobs a per-replica
+     device operand
 
-Configs 2-4: one warm-up run, then three runs rekeyed 1, 2, 3 (config
-4: ``1000 + c``), timed on the host clock with one trailing sync; each
+Configs 2-4 and dyn4: one warm-up run, then three runs rekeyed 1, 2, 3
+(configs 4 and dyn4: ``1000 + c``), timed on the host clock with one trailing sync; each
 run's own seconds are printed beside the total (``runs_s``; the last
 holds the sync), so the spread shows.  Config 5: the first chunk's
 first batch as the warm-up, then the whole sweep timed once, the
 worlds' builds included as JAX's compiles are, each chunk's seconds in
 ``runs_s``.  A decision is a scheduled task (``metrics.n_scheduled``).
 
-Run on a CUDA card: ``python -m fognetsimpp_tpu_torch.benchmarks [2 3 4 5 5b]``
+Run on a CUDA card: ``python -m fognetsimpp_tpu_torch.benchmarks [2 3 4 5 5b dyn4]``
 (default 2 3 4 5).  It writes no ``BENCHMARK.json``.
 """
 from __future__ import annotations
@@ -35,7 +39,7 @@ import torch
 
 from .core.engine import run, run_batched
 from .parallel.replicas import replicate_state, strict_vmap
-from .parallel.sweep import policy_batches
+from .parallel.sweep import dyn_batch, policy_batches
 from .random import PRNGKey, split
 from .scenarios import smoke, wireless
 from .spec import Policy
@@ -65,19 +69,32 @@ def config3_world(device=None):
     )
 
 
-def config4_world(horizon: float = 0.5, device=None):
+def config4_world(horizon: float = 0.5, device=None, **overrides):
     """``benchmarks.py::config4``'s world: ``wireless5`` at 10,000 users,
     64 APs, the Bianchi MAC, ENERGY_AWARE, 5 ms ticks, the spec's own
-    arrival window."""
+    arrival window; ``overrides`` set spec fields (a grid's knobs)."""
     kw = dict(
         numb_users=10_000, horizon=horizon, dt=5e-3,
         policy=int(Policy.ENERGY_AWARE), send_interval=0.05,
-        queue_capacity=64, extra_aps=59, mac_model="bianchi",
+        queue_capacity=64, extra_aps=59, mac_model="bianchi", **overrides,
     )
     spec0 = wireless.wireless5(device="cpu", **kw)[0]
     return wireless.wireless5(
         arrival_window=spec0.auto_arrival_window, device=device, **kw
     )
+
+
+#: dyn4's grid: config 4's idle power and shutdown threshold, 16 replicas
+#: a cell, 8 cells (``CONFIG4_R`` = 128 replicas).
+DYN4_KNOBS = {"idle_power_w": [2e-3, 4e-3, 6e-3, 8e-3], "shutdown_frac": [0.10, 0.20]}
+DYN4_REPLICAS_PER_CELL = 16
+
+
+def dyn4_batch(horizon: float = 0.5, device=None, seed: int = 0):
+    """dyn4's replica batch (``sweep.dyn_batch``): ``(grid, key, batch,
+    net, bounds, dyn_rows)``."""
+    return dyn_batch(config4_world, DYN4_KNOBS, DYN4_REPLICAS_PER_CELL, seed,
+                     horizon=horizon, device=device)
 
 
 def config5_loads(n_loads: int = 256):
@@ -188,6 +205,32 @@ def config4() -> None:
            "peak_gib": round(torch.cuda.max_memory_allocated() / 2 ** 30, 3)})
 
 
+def dyn4() -> None:
+    """dyn4's batch three times, each rekeyed ``1000 + c``, every replica
+    on its cell's knobs."""
+    horizon = float(os.environ.get("CONFIG4_HORIZON", 0.5))
+    grid, key, batch, net, bounds, rows = dyn4_batch(horizon)
+    R = batch.t.shape[0]
+    dev = batch.t.device
+
+    def go(b):
+        fs = run_batched(key, b, net, bounds, dyn_rows=rows)[0]
+        return fs.metrics, fs.nodes.alive.sum(dim=1, dtype=torch.int32)
+
+    wall, outs, runs = _timed(go, batch, [
+        batch.replace(key=split(PRNGKey(1000 + c, dev), R)) for c in range(3)
+    ])
+    nrc = DYN4_REPLICAS_PER_CELL
+    alive = torch.stack([a for _, a in outs]).amin(dim=0).cpu().numpy()
+    _emit(f"dyn4:10k-mobile-energy-{len(grid)}cells-{R}rep", wall,
+          sum(_decisions(m) for m, _ in outs), key.n_ticks * R * 3, runs,
+          {"replicas": R, "cells": grid, "replicas_per_cell": nrc,
+           "arrival_window": key.window,
+           "alive_min_by_cell": [int(alive[i * nrc: (i + 1) * nrc].min())
+                                 for i in range(len(grid))],
+           "peak_gib": round(torch.cuda.max_memory_allocated() / 2 ** 30, 3)})
+
+
 def config5(dynamic: bool = False, n_users: int = 10_000, n_loads: int = 256,
             chunk: int = 32) -> None:
     loads = config5_loads(n_loads)
@@ -221,7 +264,7 @@ def config5(dynamic: bool = False, n_users: int = 10_000, n_loads: int = 256,
 
 
 CONFIGS = {"2": config2, "3": config3, "4": config4, "5": config5,
-           "5b": lambda: config5(dynamic=True)}
+           "5b": lambda: config5(dynamic=True), "dyn4": dyn4}
 
 
 def main(argv) -> int:

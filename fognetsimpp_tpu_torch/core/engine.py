@@ -12,7 +12,9 @@ per-node message counters -> energy and lifecycle.  The JAX package's
 fused slot-window front-end is bit-identical to this tick
 (``tests/test_fused.py``) and is not ported.  :func:`run` replaces the
 ``lax.scan`` with a Python loop and hoists the static link cache out of
-it, as the JAX ``run`` does.
+it, as the JAX ``run`` does; :func:`run_chunked` and :func:`run_jit` are
+its chunked and whole-run entry points, which by default take the
+promoted knobs as a device operand (:mod:`..dynspec`).
 
 Every leaf is held bit-exact against the JAX engine.  Three habits keep
 it so: Python float constants are rounded to float32 before they meet
@@ -28,11 +30,13 @@ A spec that enables anything outside this slice raises
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..dynspec import DynSpec, dyn_of
+from ..dynspec import (
+    DynSpec, apply_knobs, dyn_of, dyn_to_device, knob, promote_default, split_spec,
+)
 from ..envelope import broker_dense_ok, check_slice
 from ..f32math import const, fma
 from ..learn.bandits import arms_view, exp3_probs
@@ -346,7 +350,7 @@ def offered_rate_vector(
         & torch.isfinite(users.next_send)
     )
     if spec.send_stop_time != _INF:
-        publishing = publishing & (t0 < const(float(dv.send_stop_time), t0.device))
+        publishing = publishing & (t0 < knob(dv.send_stop_time, t0.device))
     # an IEEE division (torch's ``1.0 / x`` is a reciprocal times 1.0)
     rate = torch.where(
         publishing, torch.ones_like(users.send_interval) / users.send_interval, 0.0
@@ -363,7 +367,7 @@ def _uplink_loss_p(spec, net: NetParams, cache: LinkCache, dv: DynSpec, U: int, 
     has_mac = net.mac_loss_tab.shape[0] > 0
     if not (spec.uplink_loss_prob > 0 or has_mac):
         return None
-    p_eff = torch.full((U,), float(dv.uplink_loss_prob), dtype=_F32, device=dev)
+    p_eff = knob(dv.uplink_loss_prob, dev).expand(U)
     if has_mac:
         one = const(1.0, dev).expand(U)
         p_eff = fma(-(1.0 - p_eff), 1.0 - cache.mac_loss_p[:U], one)
@@ -449,7 +453,7 @@ def _phase_spawn(spec, state, net, cache, buf, t0, t1, dv: DynSpec, tp=None):
     )
     t_create = torch.maximum(users.next_send, t0)
     if spec.send_stop_time != _INF:
-        due = due & (t_create < const(float(dv.send_stop_time), dev))
+        due = due & (t_create < knob(dv.send_stop_time, dev))
     keys = split(state.key, 4)
     key, k_mips, k_jit, k_loss = keys[0], keys[1], keys[2], keys[3]
     if spec.fixed_mips_required is not None:
@@ -529,7 +533,7 @@ def _phase_spawn_multi(spec, state, net, cache, buf, t0, t1, dv: DynSpec, tp=Non
     fire = fma(j.to(_F32), interval[:, None], base[:, None])
     due2 = can[:, None] & (j >= 0) & (j < R) & (fire < t1)
     if spec.send_stop_time != _INF:
-        due2 = due2 & (fire < const(float(dv.send_stop_time), dev))
+        due2 = due2 & (fire < knob(dv.send_stop_time, dev))
     keys = split(state.key, 3)
     key, k_mips, k_loss = keys[0], keys[1], keys[2]
 
@@ -1164,16 +1168,23 @@ def prime_initial_advertisements(
 
 
 def make_step(spec: WorldSpec):
-    """The single-tick transition ``step(state, net, bounds, static_cache)``
-    for ``spec`` (the per-phase order of the JAX ``make_step``)."""
+    """The single-tick transition ``step(state, net, bounds, static_cache,
+    dyn)`` for ``spec`` (the per-phase order of the JAX ``make_step``).
+
+    ``dyn``: the promoted knobs as a device operand
+    (:func:`..dynspec.dyn_to_device`; under ``vmap`` one row of
+    :func:`..dynspec.dyn_rows`), with ``spec`` their shape key.  ``None``
+    reads the spec's own values as host constants.  The two differ where
+    the reference divides by a knob (:func:`..dynspec.div_knob`)."""
     spec.validate()
     check_slice(spec)
-    dv = dyn_of(spec)
+    dv_spec = dyn_of(spec)
 
     def step(
         state: WorldState, net: NetParams, bounds: MobilityBounds,
-        static_cache: Optional[LinkCache] = None,
+        static_cache: Optional[LinkCache] = None, dyn: Optional[DynSpec] = None,
     ) -> WorldState:
+        dv = dv_spec if dyn is None else dyn
         dev = state.t.device
         dt = const(spec.dt, dev)
         t0 = state.tick.to(_F32) * dt
@@ -1331,38 +1342,48 @@ def run(
     net: NetParams,
     bounds: Optional[MobilityBounds] = None,
     n_ticks: Optional[int] = None,
+    dyn: Optional[DynSpec] = None,
 ) -> Tuple[WorldState, None]:
     """Run ``n_ticks`` (default: the spec's horizon) on the state's device.
 
     Returns ``(final_state, None)``: per-tick series recording is not
     ported.  The state stays on its device; the loop never waits for it.
+    ``dyn``: the promoted knobs as a device operand, ``spec`` then being
+    their shape key (``dynspec.split_spec``); ``None`` takes the spec's
+    own values as host constants.
     """
     bounds, n = _runner_setup(spec, net, state.t.device, bounds, n_ticks)
     step = make_step(spec)
     static_cache = _static_cache(spec, net, state) if spec.assume_static else None
     for _ in range(n):
-        state = step(state, net, bounds, static_cache)
+        state = step(state, net, bounds, static_cache, dyn)
     if spec.derive_acks:
         state = _finalize_derived_acks(spec, state, static_cache)
     return state, None
 
 
 def batched_tick(
-    spec: WorldSpec, net: NetParams, bounds: MobilityBounds, batch: WorldState
+    spec: WorldSpec, net: NetParams, bounds: MobilityBounds, batch: WorldState,
+    dyn_rows: Optional[DynSpec] = None,
 ):
     """``(tick, cache)``: ``tick(batch) -> batch`` advances R worlds like
     ``batch`` one tick, one ``torch.func.vmap`` of ``make_step(spec)``;
     ``cache`` is each replica's static link cache (None on a moving
     world), computed from ``batch`` as JAX computes it inside its vmap.
-    The port draws no numbers from torch's generator, so the vmap refuses
-    randomness."""
+    ``dyn_rows`` gives each replica its own row of promoted knobs
+    (``dynspec.dyn_rows``), mapped beside the state.  The port draws no
+    numbers from torch's generator, so the vmap refuses randomness."""
     step = make_step(spec)
     vmap = torch.func.vmap
+    d_dim = None if dyn_rows is None else 0
     if not spec.assume_static:
-        return vmap(lambda s: step(s, net, bounds), randomness="error"), None
+        tick = vmap(lambda s, d: step(s, net, bounds, None, d),
+                    in_dims=(0, d_dim), randomness="error")
+        return (lambda s: tick(s, dyn_rows)), None
     cache = vmap(lambda s: _static_cache(spec, net, s))(batch)
-    tick = vmap(lambda s, c: step(s, net, bounds, c), randomness="error")
-    return (lambda s: tick(s, cache)), cache
+    tick = vmap(lambda s, c, d: step(s, net, bounds, c, d),
+                in_dims=(0, 0, d_dim), randomness="error")
+    return (lambda s: tick(s, cache, dyn_rows)), cache
 
 
 def run_batched(
@@ -1371,9 +1392,12 @@ def run_batched(
     net: NetParams,
     bounds: Optional[MobilityBounds] = None,
     n_ticks: Optional[int] = None,
+    dyn_rows: Optional[DynSpec] = None,
 ) -> Tuple[WorldState, None]:
     """:func:`run` for R worlds at once: ``batch`` carries a leading
     replica axis on every leaf, and ``net`` and ``bounds`` are shared.
+    ``dyn_rows``: each replica's promoted knobs, every leaf with the same
+    leading axis (``dynspec.dyn_rows``), ``spec`` then their shape key.
 
     Each tick is one call of :func:`batched_tick`, so every operation of
     the tick launches once for all R worlds; the kernels' batching rules
@@ -1382,7 +1406,7 @@ def run_batched(
     result equals :func:`run` on replica r of ``batch``, leaf for leaf.
     """
     bounds, n = _runner_setup(spec, net, batch.t.device, bounds, n_ticks)
-    tick, cache = batched_tick(spec, net, bounds, batch)
+    tick, cache = batched_tick(spec, net, bounds, batch, dyn_rows)
     for _ in range(n):
         batch = tick(batch)
     if spec.derive_acks:
@@ -1390,3 +1414,92 @@ def run_batched(
             lambda s, c: _finalize_derived_acks(spec, s, c)
         )(batch, cache)
     return batch, None
+
+
+def _promoted(spec: WorldSpec, dev) -> Tuple[WorldSpec, DynSpec]:
+    """The shape key of ``spec`` and its knobs as a device operand."""
+    key_spec, dyn = split_spec(spec)
+    return key_spec, dyn_to_device(dyn, dev)
+
+
+def run_chunked(
+    spec: WorldSpec,
+    state: WorldState,
+    net: NetParams,
+    bounds: Optional[MobilityBounds] = None,
+    chunk_ticks: int = 10_000,
+    callback: Optional[Callable[[WorldState, int], None]] = None,
+    telemetry_stream=None,
+    promote: Optional[bool] = None,
+    reconfigure: Optional[Callable[[int], Optional[dict]]] = None,
+    inject=None,
+) -> WorldState:
+    """The spec's horizon in chunks of ``chunk_ticks`` (``engine.run_chunked``),
+    ``callback(state, ticks_done)`` after each; equal to one :func:`run`
+    of the same path, leaf for leaf.
+
+    ``promote`` (default :func:`..dynspec.promote_default`): the chunks
+    run the shape key with the knobs as a device operand, and
+    ``reconfigure(ticks_done)``, called at every interior chunk boundary,
+    may return ``{field: value}`` of promoted knobs for the rest of the
+    horizon (:func:`..dynspec.apply_knobs` refuses a shape-defining field
+    or a gate flip).  ``promote=False`` takes the spec's values as host
+    constants.  No chunk writes into a state in place, so a state kept by
+    ``callback`` stays as it was handed over.
+    """
+    if promote is None:
+        promote = promote_default()
+    if reconfigure is not None and not promote:
+        raise ValueError(
+            "reconfigure re-configures the DynSpec operand between "
+            "chunks; it needs the promoted path (promote=True)"
+        )
+    if spec.record_tick_series:
+        raise ValueError(
+            "run_chunked does not collect per-tick series; run() per chunk "
+            "or record snapshots via the callback"
+        )
+    if telemetry_stream is not None:
+        raise NotImplementedError(
+            "not ported yet: telemetry_stream, the reservoir rows of the "
+            "telemetry plane (ROADMAP.md §1 item 14)"
+        )
+    if inject is not None:
+        raise NotImplementedError(
+            "not ported yet: inject, the twin's chunk-boundary arrivals "
+            "(ROADMAP.md §1 item 16)"
+        )
+    dev = state.t.device
+    live_spec = spec
+    run_spec, dyn = _promoted(spec, dev) if promote else (spec, None)
+    total = spec.n_ticks
+    chunk = min(chunk_ticks, total)
+    done = 0
+    while done < total:
+        n = min(chunk, total - done)
+        state, _ = run(run_spec, state, net, bounds, n_ticks=n, dyn=dyn)
+        done += n
+        if callback is not None:
+            callback(state, done)
+        if reconfigure is not None and done < total:
+            knobs = reconfigure(done)
+            if knobs:
+                live_spec = apply_knobs(live_spec, knobs)
+                dyn = dyn_to_device(dyn_of(live_spec), dev)
+    return state
+
+
+def run_jit(
+    spec: WorldSpec, state: WorldState, net: NetParams,
+    bounds: Optional[MobilityBounds] = None, promote: Optional[bool] = None,
+) -> WorldState:
+    """The whole horizon in one call (``engine.run_jit``), returning the
+    final state.  ``promote`` (default :func:`..dynspec.promote_default`)
+    runs the shape key with the knobs as a device operand;
+    ``promote=False`` takes them as host constants."""
+    if promote is None:
+        promote = promote_default()
+    if promote:
+        key_spec, dyn = _promoted(spec, state.t.device)
+        return run(key_spec, state, net, bounds, dyn=dyn)[0]
+    return run(spec, state, net, bounds)[0]

@@ -61,14 +61,9 @@ def check_slice(spec: WorldSpec, net=None) -> None:
         raise NotImplementedError(f"not ported yet: {why}")
 
 
-def check_replicas(spec: WorldSpec, dyn_rows=None) -> None:
+def check_replicas(spec: WorldSpec) -> None:
     """The replica axis's envelope (:mod:`.parallel.replicas`): the
-    single-device slice, with one spec for every replica."""
-    if dyn_rows is not None:
-        raise NotImplementedError(
-            "not ported yet: per-replica promoted knobs, run_replicated("
-            "dyn_rows=) (ROADMAP.md §1 item 11)"
-        )
+    single-device slice, with one shape key for every replica."""
     if spec.chaos:
         raise NotImplementedError(
             "not ported yet: per-replica chaos schedules "
@@ -84,15 +79,6 @@ def check_one_card(mesh) -> None:
             "not ported yet: replicas across cards, mesh= (run_sharded, "
             "shard_replicas, parallel/fleet.py; ROADMAP.md §1 item 27)"
         )
-
-
-def refuse_dyn_sweep(name: str) -> None:
-    """``sweep_dyn`` and ``sweep_dyn_from`` grid promoted knobs, which the
-    port does not carry as tensors yet."""
-    raise NotImplementedError(
-        f"not ported yet: {name}, a grid of promoted knobs (dynspec.DynSpec "
-        "rows; ROADMAP.md §1 item 11)"
-    )
 
 
 def check_tp_slice(spec: WorldSpec, net=None) -> None:

@@ -6,15 +6,17 @@ client: ``r = exp(-latency / learn_reward_scale)`` in (0, 1], credited to
 the fog picked at publish time (``core/engine._phase_learn_credit``).  The
 raw latency is accumulated beside it for the regret harness.  The float32
 steps are XLA's CPU ones (see :mod:`.bandits`): its division by a
-constant is a product with the float32 reciprocal, and its
-``disc * g + new`` and ``logw + eta * gain`` updates are single-rounded
-multiply-adds.
+constant is a product with the float32 reciprocal (a division by the
+promoted operand is an IEEE division: :func:`..dynspec.div_knob`), and
+its ``disc * g + new`` and ``logw + eta * gain`` updates are
+single-rounded multiply-adds.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..dynspec import div_knob, knob
 from ..f32math import const, expf, fma, ftz, xla_sum
 from ..state import LearnState
 
@@ -27,9 +29,8 @@ def _recip(x) -> float:
 
 def reward_from_latency(lat: torch.Tensor, scale) -> torch.Tensor:
     """Bounded reward in (0, 1] from an ack latency in seconds, for a host
-    float ``scale``."""
-    arg = -torch.clamp_min(lat, 0.0) * const(_recip(scale), lat.device)
-    return expf(arg)
+    float ``scale`` or the promoted operand."""
+    return expf(div_knob(-torch.clamp_min(lat, 0.0), scale))
 
 
 def _credit_counts_exact(k_rows: int) -> None:
@@ -60,8 +61,8 @@ def credit_batch(
     lat: torch.Tensor,  # (K,) f32
     pick_p_g: torch.Tensor,  # (K,) f32
     n_fogs: int,
-    discount,  # host float
-    reward_scale,  # host float
+    discount,  # host float or operand tensor
+    reward_scale,  # host float or operand tensor
 ) -> LearnState:
     """Fold one tick's credit window into the arm statistics, every
     per-fog sum a membership select over the (F, K) matrix added in
@@ -83,7 +84,7 @@ def credit_batch(
     mean = xla_sum(logw) * const(_recip(logw.shape[0]), dev)
     logw = ftz(logw - mean)
 
-    g = const(float(discount), dev).expand_as(cnt_f)
+    g = knob(discount, dev).expand_as(cnt_f)
     return learn.replace(
         reward_cnt=learn.reward_cnt + cnt_f,
         reward_sum=learn.reward_sum + sum_f,

@@ -15,7 +15,7 @@ from typing import Tuple
 
 import torch
 
-from ..dynspec import DynSpec
+from ..dynspec import DynSpec, div_knob, knob
 from ..f32math import const, fma
 
 
@@ -31,19 +31,19 @@ def step_energy(
     computing: torch.Tensor,  # (N,) bool: a fog serving a task
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One energy tick: ``(energy', alive')``; nodes outside the model
-    keep their energy and liveness."""
+    keep their energy and liveness.  ``dv``'s leaves are host constants or
+    device operands (:mod:`..dynspec`)."""
     dev = energy.device
 
     def c(x):
-        return const(float(x), dev)
+        return knob(x, dev)
 
     idle = c(dv.energy_idle_dt).expand_as(energy)
     drain = fma(c(dv.energy_rx_j).expand_as(energy), rx_count.float(),
                 fma(c(dv.energy_tx_j).expand_as(energy), tx_count.float(), idle))
     drain = drain + torch.where(computing, c(dv.energy_compute_dt), 0.0)
     # square-wave harvester: on for the first `duty` of each period
-    period = c(dv.harvest_period_s)
-    phase = torch.fmod(t, period) / period
+    phase = div_knob(torch.fmod(t, c(dv.harvest_period_s)), dv.harvest_period_s)
     gain = torch.where(phase < c(dv.harvest_duty), c(dv.energy_harvest_dt), 0.0)
     e = torch.where(
         has_energy,
@@ -53,7 +53,7 @@ def step_energy(
         ),
         energy,
     )
-    frac = e / torch.clamp_min(capacity, c(1e-12))
+    frac = e / torch.clamp_min(capacity, const(1e-12, dev))
     shut = has_energy & alive & (frac <= c(dv.shutdown_frac))
     boot = has_energy & ~alive & (frac >= c(dv.start_frac))
     alive2 = torch.where(shut, False, torch.where(boot, True, alive))

@@ -5,11 +5,11 @@ one spec, ``NetParams`` and ``MobilityBounds`` advance together, one
 ``vmap`` of the tick at a time (:func:`~..core.engine.run_batched`).
 Replicas differ in PRNG key, hence in task sizes and, with a start-time
 window, in app start times; a sweep (:mod:`.sweep`) also gives each its
-own publish interval, policy id or exploration rate.
+own publish interval, policy id, exploration rate or row of promoted
+knobs (``dyn_rows``, :func:`..dynspec.dyn_rows`).
 
 Chaos worlds (their per-replica fault schedules) are ``ROADMAP.md`` §1
-item 12 and per-replica promoted knobs (``dyn_rows``) item 11: both
-raise.
+item 12: they raise.
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..core.engine import run_batched
+from ..dynspec import DynSpec, dyn_to_device
 from ..envelope import check_replicas
 from ..net.mobility import MobilityBounds
 from ..net.topology import NetParams
@@ -88,12 +89,20 @@ def run_replicated(
     net: NetParams,
     bounds: Optional[MobilityBounds] = None,
     n_ticks: Optional[int] = None,
-    dyn_rows=None,
+    dyn_rows: Optional[DynSpec] = None,
 ) -> WorldState:
     """Advance every replica over the horizon (or ``n_ticks``); returns
-    the batched final state.  ``net`` and ``bounds`` are shared."""
-    check_replicas(spec, dyn_rows=dyn_rows)
-    return run_batched(spec, batch, net, bounds, n_ticks=n_ticks)[0]
+    the batched final state.  ``net`` and ``bounds`` are shared.
+
+    ``dyn_rows``: a DynSpec whose every leaf carries the replica axis
+    (:func:`..dynspec.dyn_rows`; host rows are copied to the batch's
+    device), so each replica runs its own promoted knob values; ``spec``
+    is then the grid's shared shape key.  ``None`` runs every replica on
+    the spec's own values as host constants."""
+    check_replicas(spec)
+    if dyn_rows is not None and not isinstance(dyn_rows.learn_discount, torch.Tensor):
+        dyn_rows = dyn_to_device(dyn_rows, batch.t.device)
+    return run_batched(spec, batch, net, bounds, n_ticks=n_ticks, dyn_rows=dyn_rows)[0]
 
 
 def replica_counters(final_batch: WorldState) -> Dict[str, np.ndarray]:

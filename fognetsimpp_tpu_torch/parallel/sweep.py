@@ -9,18 +9,25 @@ grid is one batch).  For a learned policy the exploration rate is data
 too (``learn.explore``): :func:`sweep_explore` runs a rate × load grid
 as one batch.
 
-Grids over promoted knobs (``sweep_dyn``, ``sweep_dyn_from``) are
-``ROADMAP.md`` §1 item 11, and ``mesh=`` (replicas across cards) item 27:
-they raise.
+Any promoted knob (:data:`..dynspec.DYN_FIELDS`) is data as well:
+:func:`sweep_dyn` runs a knob grid as one batch whose replicas carry
+their cell's DynSpec row, and :func:`sweep_dyn_from` forks a live state
+onto such a grid (the what-if).
+
+``mesh=`` (replicas across cards) is ``ROADMAP.md`` §1 item 27 and chaos
+worlds item 12: they raise.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterator, List, Mapping, Sequence, Tuple
+import dataclasses
+import itertools
+from typing import Callable, Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..envelope import check_one_card, refuse_dyn_sweep
+from ..dynspec import DYN_FIELDS, dyn_of, dyn_rows, shape_key
+from ..envelope import check_one_card
 from ..spec import ARGMIN_FAMILY, LEARNED_POLICIES, Policy, WorldSpec
 from ..state import WorldState, tree_map
 from .replicas import broadcast_state, replica_counters, replicate_state, run_replicated
@@ -190,12 +197,128 @@ def fork_state(state: WorldState, n: int) -> WorldState:
     return broadcast_state(state, n)
 
 
-def sweep_dyn(build: Callable[..., tuple], knobs: Mapping[str, Sequence], *args, **kwargs):
-    """Not ported yet: a grid of promoted knobs (``ROADMAP.md`` §1 item 11)."""
-    refuse_dyn_sweep("sweep_dyn")
+def _knob_grid(knobs: Mapping[str, Sequence], what: str) -> List[Dict]:
+    """The cartesian grid of ``knobs`` in sorted-name order, each cell a
+    ``{knob: value}`` dict; ``ValueError`` for a field that is not a
+    promoted knob."""
+    bad = sorted(set(knobs) - set(DYN_FIELDS))
+    if bad:
+        raise ValueError(
+            f"{what} grids promoted knobs only; {', '.join(bad)} "
+            "is shape-defining (see dynspec.DYN_FIELDS / the README "
+            "'one program, many worlds' table)"
+        )
+    names = sorted(knobs)
+    return [
+        dict(zip(names, vals))
+        for vals in itertools.product(*(knobs[k] for k in names))
+    ]
 
 
-def sweep_dyn_from(spec, state, net, bounds, knobs: Mapping[str, Sequence], n_ticks: int):
-    """Not ported yet: a grid of promoted knobs forked from a live state
-    (``ROADMAP.md`` §1 item 11)."""
-    refuse_dyn_sweep("sweep_dyn_from")
+def dyn_batch(
+    build: Callable[..., tuple],
+    knobs: Mapping[str, Sequence],
+    n_replicas_per_cell: int = 1,
+    seed: int = 0,
+    **build_kwargs,
+):
+    """The replica batch of a grid of promoted knobs, as :func:`sweep_dyn`
+    runs it: ``(grid, key, batch, net, bounds, dyn_rows)``, ``key`` the
+    grid's shared shape key and ``dyn_rows`` each replica's cell of knobs
+    on the batch's device.  ``(grid, None, None, None, None, None)`` for
+    an empty grid."""
+    grid = _knob_grid(knobs, "sweep_dyn")
+    if not grid:
+        return grid, None, None, None, None, None
+    spec0, state, net, bounds = build(**{**build_kwargs, **grid[0]})
+    if spec0.chaos:
+        raise NotImplementedError(
+            "not ported yet: per-cell chaos schedules in sweep_dyn "
+            "(refold_chaos_state; ROADMAP.md §1 item 12)"
+        )
+    cells = [dataclasses.replace(spec0, **cell).validate() for cell in grid]
+    key0 = shape_key(cells[0])
+    for cell, sp in zip(grid, cells):
+        if shape_key(sp) != key0:
+            raise ValueError(
+                f"grid cell {cell} leaves the shape bucket (a knob "
+                "crossed a trace gate, e.g. 0 vs positive): split the "
+                "sweep per gate class"
+            )
+    nrc = int(n_replicas_per_cell)
+    batch = _tile(replicate_state(spec0, state, nrc, seed=seed), len(cells))
+    rows = dyn_rows([dyn_of(sp) for sp in cells], state.t.device, nrc)
+    return grid, key0, batch, net, bounds, rows
+
+
+def sweep_dyn(
+    build: Callable[..., tuple],
+    knobs: Mapping[str, Sequence],
+    n_replicas_per_cell: int = 1,
+    seed: int = 0,
+    n_ticks: Optional[int] = None,
+    mesh=None,
+    **build_kwargs,
+) -> List[Dict]:
+    """A grid of promoted knobs as one replica batch (``sweep.sweep_dyn``).
+
+    ``knobs`` maps promoted fields to value lists; the world is built at
+    the first cell's values (``build(**build_kwargs, **cell0)``), every
+    cell must keep its shape key (a grid that crosses a gate, e.g. loss 0
+    and 0.2, raises), and the batch runs the shared key with each
+    replica's cell row of knobs as an operand (:func:`dyn_batch`).  Cell
+    i holds replicas ``i * n_replicas_per_cell`` to
+    ``(i + 1) * n_replicas_per_cell - 1``, keyed as :func:`.replicate_state`
+    keys one cell.
+
+    Returns ``[{knob: value, ..., "counters": {name: (n_rep,) array}}]``
+    in grid order.
+    """
+    check_one_card(mesh)
+    grid, key0, batch, net, bounds, rows = dyn_batch(
+        build, knobs, n_replicas_per_cell, seed, **build_kwargs
+    )
+    if not grid:
+        return []
+    final = run_replicated(key0, batch, net, bounds, n_ticks=n_ticks, dyn_rows=rows)
+    counters = replica_counters(final)
+    nrc = int(n_replicas_per_cell)
+    return [
+        {**cell, "counters": {k: v[i * nrc: (i + 1) * nrc] for k, v in counters.items()}}
+        for i, cell in enumerate(grid)
+    ]
+
+
+def sweep_dyn_from(
+    spec: WorldSpec,
+    state: WorldState,
+    net,
+    bounds,
+    knobs: Mapping[str, Sequence],
+    n_ticks: int,
+) -> Tuple[List[Dict], Optional[WorldState]]:
+    """A grid of promoted knobs forked from a live state (``sweep.sweep_dyn_from``):
+    row i of the batch is ``state`` itself (:func:`fork_state`: the same
+    key, nothing resampled) run ``n_ticks`` ticks under cell i's knobs,
+    which equals a direct run of the retuned spec from ``state``.  Every
+    cell must keep ``spec``'s shape key.
+
+    Returns ``(grid, final_batch)``; ``([], None)`` for an empty grid.
+    """
+    grid = _knob_grid(knobs, "what-if")
+    if not grid:
+        return [], None
+    cells = [dataclasses.replace(spec, **cell).validate() for cell in grid]
+    key0 = shape_key(spec)
+    for cell, sp in zip(grid, cells):
+        if shape_key(sp) != key0:
+            raise ValueError(
+                f"what-if cell {cell} leaves the live session's shape "
+                "bucket (a knob crossed a trace gate, e.g. 0 vs "
+                "positive): such a retuning needs a recompile and "
+                "cannot be answered from the live program"
+            )
+    batch = fork_state(state, len(cells))
+    rows = dyn_rows([dyn_of(sp) for sp in cells], state.t.device)
+    final = run_replicated(key0, batch, net, bounds, n_ticks=n_ticks, dyn_rows=rows)
+    return grid, final

@@ -26,9 +26,11 @@ The shards run as threads of one process on one device
 (:mod:`.shards`), the way ``shard_map`` runs one body per device.  Every
 leaf is bit-equal to the single-device engine where the JAX TP tick is
 (no exchange window, or a windowed spec), and to the JAX TP runner with
-a bounded exchange window.  Telemetry, the latency histogram and journeys
-are not carried (``envelope.check_tp_slice``); DynSpec promotion and
-donation have no counterpart: the runner takes the static path.
+a bounded exchange window.  By default the runners take the promoted
+knobs as a device operand shared by the shards (``promote``, as the JAX
+TP runner does; :mod:`..dynspec`), and :func:`run_tp_chunked` may retune
+them between chunks.  Telemetry, the latency histogram and journeys are
+not carried (``envelope.check_tp_slice``); donation has no counterpart.
 """
 from __future__ import annotations
 
@@ -58,7 +60,7 @@ from ..core.engine import (
     _phase_spawn_multi,
     tp_reject_reason,
 )
-from ..dynspec import DynSpec, dyn_of
+from ..dynspec import DynSpec, apply_knobs, dyn_of, dyn_to_device, promote_default, split_spec
 from ..envelope import check_tp_slice
 from ..f32math import const
 from ..net.mobility import MobilityBounds
@@ -457,13 +459,24 @@ def run_tp_shards(
     n_ticks: Optional[int] = None,
     exchange_window: Optional[int] = None,
     pad: bool = True,
+    promote: Optional[bool] = None,
 ) -> Tuple[WorldSpec, List[WorldState]]:
     """Run the sharded horizon and return every shard's final LOCAL state
     (its rows, and its own copy of the replicated leaves), with the
-    padded spec.  :func:`run_tp_sharded` joins them."""
+    padded spec.  :func:`run_tp_sharded` joins them.  ``promote``: the
+    shards run the padded spec's shape key with its knobs as one device
+    operand, read by every shard."""
     spec, state, net, k_ex, window_k = _tp_setup(
         spec, state, net, n_shards, exchange_window, pad
     )
+    if promote is None:
+        promote = promote_default()
+    if promote:
+        # split after padding: the key describes the world that runs
+        run_spec, dyn = split_spec(spec)
+        dv = dyn_to_device(dyn, state.t.device)
+    else:
+        run_spec, dv = spec, dyn_of(spec)
     n = int(n_shards)
     ticks = spec.n_ticks if n_ticks is None else n_ticks
     cache = associate(net, state.nodes.pos, state.nodes.alive, spec.broker_index)
@@ -471,8 +484,7 @@ def run_tp_shards(
     U_loc, S = spec.n_users // n, spec.max_sends_per_user
 
     def body(s: int) -> WorldState:
-        spec_l, st, net_l, cache_l = _shard_view(spec, state, net, cache, n, s)
-        dv = dyn_of(spec_l)
+        spec_l, st, net_l, cache_l = _shard_view(run_spec, state, net, cache, n, s)
         tp = TpCtx(
             group=group, n_shards=n, shard=s, n_users_global=spec.n_users,
             u_off=s * U_loc, t_off=s * U_loc * S, d2b_full=cache.d2b,
@@ -495,6 +507,7 @@ def run_tp_sharded(
     n_ticks: Optional[int] = None,
     exchange_window: Optional[int] = None,
     pad: bool = True,
+    promote: Optional[bool] = None,
 ) -> Tuple[WorldSpec, WorldState]:
     """Advance ONE world whose user and task rows span ``n_shards``
     shards, on the state's device (``taskshard.run_tp_sharded``).
@@ -507,11 +520,13 @@ def run_tp_sharded(
     per-shard candidates exchanged a tick (default: all of them, never
     deferring); a windowed spec runs the distributed K-window instead and
     takes no ``exchange_window``.  ``bounds`` is unused: the TP family is
-    static.
+    static.  ``promote`` (default :func:`..dynspec.promote_default`):
+    the knobs ride a device operand; ``promote=False`` folds the spec's
+    values as host constants.
     """
     del bounds
     spec, finals = run_tp_shards(
-        spec, state, net, n_shards, n_ticks, exchange_window, pad
+        spec, state, net, n_shards, n_ticks, exchange_window, pad, promote
     )
     U_loc = spec.n_users // int(n_shards)
 
@@ -540,11 +555,27 @@ def run_tp_chunked(
     callback: Optional[Callable[[WorldState, int], None]] = None,
     n_ticks: Optional[int] = None,
     exchange_window: Optional[int] = None,
+    promote: Optional[bool] = None,
+    reconfigure: Optional[Callable[[int], Optional[dict]]] = None,
 ) -> Tuple[WorldSpec, WorldState]:
     """The sharded horizon in chunks of ``chunk_ticks``, with
     ``callback(state, ticks_done)`` between them
     (``taskshard.run_tp_chunked``); equal to one :func:`run_tp_sharded`
-    call.  The population is padded once, before the first chunk."""
+    call.  The population is padded once, before the first chunk.
+
+    With ``promote`` (the default), ``reconfigure(ticks_done)``, called
+    at every interior chunk boundary after ``callback``, may return
+    ``{field: value}`` of promoted knobs for the rest of the horizon; they
+    land in the returned spec (:func:`..dynspec.apply_knobs` refuses a
+    shape-defining field or a gate flip).
+    """
+    if promote is None:
+        promote = promote_default()
+    if reconfigure is not None and not promote:
+        raise ValueError(
+            "reconfigure re-configures the DynSpec operand between "
+            "chunks; it needs the promoted path (promote=True)"
+        )
     spec, state, net = pad_users_to_multiple(spec, state, net, int(n_shards))
     total = spec.n_ticks if n_ticks is None else n_ticks
     chunk = max(1, min(chunk_ticks, total))
@@ -553,9 +584,24 @@ def run_tp_chunked(
         ticks = min(chunk, total - done)
         spec, state = run_tp_sharded(
             spec, state, net, bounds, n_shards=n_shards, n_ticks=ticks,
-            exchange_window=exchange_window,
+            exchange_window=exchange_window, promote=promote,
         )
         done += ticks
         if callback is not None:
             callback(state, done)
+        if reconfigure is not None and done < total:
+            knobs = reconfigure(done)
+            if knobs:
+                spec = apply_knobs(spec, knobs)
+    return spec, state
+
+
+def unstamp_tp_carry(spec: WorldSpec, state: WorldState) -> Tuple[WorldSpec, WorldState]:
+    """A TP chunk-boundary carry re-described by the unsharded spec
+    (``tp_shards`` 0), the fork point of the TP what-if
+    (``taskshard.unstamp_tp_carry``).  The joined carry already lies on
+    one device; padded users stay, inert.  The port stamps no per-shard
+    telemetry (``envelope.check_tp_slice``), so nothing else changes."""
+    if spec.tp_shards:
+        spec = dataclasses.replace(spec, tp_shards=0).validate()
     return spec, state

@@ -6,6 +6,8 @@ JAX is not installed: ``python -m pytest --noconftest -q
 tests/test_torch_cuda.py`` (``--noconftest`` skips the JAX set-up of
 ``tests/conftest.py``).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -594,3 +596,52 @@ def test_batched_tick_does_not_synchronise(cuda, name):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     assert int(batch.metrics.n_published.sum()) > 0
+
+
+# ----------------------------------------------------------------------
+# the promoted knobs on the card
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["ucb", "min_busy_dense"])
+def test_promoted_tick_and_operand_do_not_synchronise(cuda, name):
+    """``dyn_to_device`` (one pinned copy), a promoted tick (every knob
+    read from the operand) and a batched tick on knob rows wait for the
+    card nowhere; the promoted card run equals the promoted CPU run."""
+    from fognetsimpp_tpu_torch import dynspec
+    from fognetsimpp_tpu_torch.net.topology import associate
+    from fognetsimpp_tpu_torch.parallel.replicas import replicate_state, strict_vmap
+
+    spec, st, net, b = _compact_world(cuda, name)
+    spec = dataclasses.replace(spec, learn_reward_scale=0.3, send_stop_time=0.2,
+                               uplink_loss_prob=0.05)
+    key, host = dynspec.split_spec(spec)
+    step = engine.make_step(key)
+    cache = associate(net, st.nodes.pos, st.nodes.alive, spec.broker_index)
+    dyn = dynspec.dyn_to_device(host, cuda)
+    for _ in range(30):
+        st = step(st, net, b, cache, dyn)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dyn = dynspec.dyn_to_device(dynspec.dyn_of(dynspec.apply_knobs(
+            spec, {"learn_reward_scale": 0.25})), cuda)
+        rows = dynspec.dyn_rows([host, host], cuda)
+        st = step(st, net, b, cache, dyn)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(st.metrics.n_scheduled) > 0
+    batch = replicate_state(key, st, 2)
+    with strict_vmap():
+        tick, _ = engine.batched_tick(key, net, b, batch, rows)
+        batch = tick(batch)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            batch = tick(batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    card = engine.run_chunked(spec, *_compact_world(cuda, name)[1:], chunk_ticks=25)
+    cpu_spec, cpu_st, cpu_net, cpu_b = _compact_world("cpu", name)
+    cpu = engine.run_chunked(spec, cpu_st, cpu_net, cpu_b, chunk_ticks=25)
+    for a, c in zip(state_to_numpy(card), state_to_numpy(cpu)):
+        assert a.dtype == c.dtype and a.tobytes() == c.tobytes()

@@ -1,0 +1,18 @@
+"""The C++-DES parity gate pointed at the port: ``tests/test_parity.py``'s
+queueing world (``:90``, 15,000 ticks) and its ENERGY_AWARE world
+(``:329``, 20,000 ticks), run by the port on the CPU and replayed through
+the native simulator with that file's assertions and tolerances; built,
+replayed and checked by ``tests/test_torch_des.py``.
+"""
+from tests import test_torch_des as des
+from tests.test_torch_des import one_torch_thread  # noqa: F401 (a fixture)
+
+
+def test_queueing_world_holds_to_the_des():
+    spec, final, d, used, _ = des.replay("queueing", des.port_run("queueing"))
+    des.check_queueing(spec, final, d, used)
+
+
+def test_energy_aware_world_holds_to_the_des():
+    spec, final, d, used, _ = des.replay("energy_aware", des.port_run("energy_aware"))
+    des.check_energy_aware(spec, final, d, used)

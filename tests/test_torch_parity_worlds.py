@@ -10,7 +10,9 @@ builds it, and the port's ``run`` is held against JAX ``run`` on every
 leaf, bit for bit (10,000 to 20,000 ticks of 0.1 ms).  Each world has
 its own file, so the three run side by side: ROUND_ROBIN here, the
 quirk-repaired world in ``tests/test_torch_parity_bug_modes.py`` and
-RANDOM in ``tests/test_torch_parity_random.py``.
+RANDOM in ``tests/test_torch_parity_random.py``.  Each file then replays
+the port's final state through the native DES with ``test_parity.py``'s
+assertions (``tests/test_torch_des.py``).
 """
 import jax
 import jax.numpy as jnp
@@ -78,9 +80,14 @@ def _build(name, mod, xp):
     return spec, state, net, bounds
 
 
+#: Each world's port final state, kept for its DES check in the same file.
+PORT_FINALS = {}
+
+
 def assert_port_matches_jax(name):
     spec_t, st_t, net_t, b_t = _build(name, tsmoke, torch)
     final_t, _ = tengine.run(spec_t, st_t, net_t, b_t)
+    PORT_FINALS[name] = final_t
     spec_j, st_j, net_j, b_j = _build(name, jsmoke, jnp)
     final_j, _ = jengine.run(spec_j, st_j, net_j, b_j)
     ref = [np.asarray(x) for x in jax.tree_util.tree_leaves(final_j)]
@@ -95,3 +102,21 @@ def assert_port_matches_jax(name):
 
 def test_round_robin_parity_world_matches_jax_every_leaf():
     assert_port_matches_jax("round_robin")
+
+
+def assert_port_holds_to_the_des(name, check):
+    """The port's final state of world ``name`` (this file's run of it, or
+    a fresh one) replayed through the native DES (``tests/test_torch_des.py``)
+    and held to ``check``, ``tests/test_parity.py``'s assertions."""
+    from tests import test_torch_des as des
+
+    final = PORT_FINALS[name] if name in PORT_FINALS else des.port_run(name)
+    spec, final, d, used, _ = des.replay(name, final)
+    check(spec, final, d, used)
+
+
+def test_round_robin_parity_world_holds_to_the_des():
+    from tests import test_torch_des as des
+
+    assert_port_holds_to_the_des(
+        "round_robin", lambda *a: des.check_other_policies(1, *a))

@@ -23,6 +23,7 @@ from fognetsimpp_tpu import Policy
 from fognetsimpp_tpu.parallel import replicas as jreplicas
 from fognetsimpp_tpu.scenarios import smoke as jsmoke
 from fognetsimpp_tpu.scenarios import wireless as jw
+from fognetsimpp_tpu_torch import dynspec as tdyn
 from fognetsimpp_tpu_torch.core import engine as tengine
 from fognetsimpp_tpu_torch.ops import arrival_kernels as ak
 from fognetsimpp_tpu_torch.ops import cell_kernels as ck
@@ -258,14 +259,21 @@ def test_cell_sum_rule_equals_per_replica_plain_and_xla(in_dims):
 # ----------------------------------------------------------------------
 
 def test_refusals_name_their_items():
+    """Promoted-knob rows run (item 11 is ported: ``tests/test_torch_dynspec.py``
+    holds them against JAX); replicas across cards and chaos still raise."""
     spec, state, net, bounds = tsmoke.build(device="cpu", n_users=4, n_fogs=2, horizon=0.01)
     batch = treplicas.replicate_state(spec, state, 2)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        treplicas.run_replicated(spec, batch, net, bounds, dyn_rows=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tsweep.sweep_dyn(tsmoke.build, {"uplink_loss_prob": [0.0, 0.1]}, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tsweep.sweep_dyn_from(spec, state, net, bounds, {"uplink_loss_prob": [0.1]}, 5)
+    key = tdyn.shape_key(spec)
+    rows = tdyn.dyn_rows([tdyn.dyn_of(spec)], "cpu", repeats=2)
+    final = treplicas.run_replicated(key, batch, net, bounds, dyn_rows=rows)
+    plain = treplicas.run_replicated(spec, batch, net, bounds)
+    _assert_same(final, state_to_numpy(plain), "dyn_rows at the spec's own values")
+    grid = tsweep.sweep_dyn(tsmoke.build, {"uplink_loss_prob": [0.05, 0.1]}, device="cpu",
+                            n_users=4, n_fogs=2, horizon=0.01)
+    assert [c["uplink_loss_prob"] for c in grid] == [0.05, 0.1]
+    assert grid[0]["counters"]["n_published"].shape == (1,)
+    cells, fork = tsweep.sweep_dyn_from(spec, state, net, bounds, {"learn_discount": [0.9]}, 5)
+    assert cells == [{"learn_discount": 0.9}] and fork.t.shape == (1,)
     with pytest.raises(NotImplementedError, match="item 27"):
         tsweep.sweep_policies(tsmoke.build, [0], [0.05], mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 27"):

@@ -363,3 +363,130 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         for mod in _imports(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "fognetsimpp_tpu"), (path, mod)
+
+
+# ----------------------------------------------------------------------
+# the promoted knobs under the TP tick
+# ----------------------------------------------------------------------
+
+#: ``tests/test_sharded_dynspec.py``'s TP world: SMALL under MIN_BUSY with
+#: a finite stop time, retuned to cut the sends mid-run.
+TP_DYN = dict(SMALL, policy=int(Policy.MIN_BUSY), send_stop_time=0.12)
+TP_DYN_TICKS, TP_DYN_SHARDS = 60, 4
+STOP = {"send_stop_time": 0.04}
+
+
+def _noop(state, done):
+    """A callback (JAX's chunked runners take no donated carry with it)."""
+
+
+def test_promoted_tp_retune_matches_jax_and_the_static_path():
+    """``tests/test_sharded_dynspec.py``'s promoted retune: the retuned
+    spec through the operand equals JAX's promoted TP runner and the
+    port's host-constant path."""
+    from fognetsimpp_tpu import dynspec as jdyn
+    from fognetsimpp_tpu_torch import dynspec as tdyn
+
+    spec_j, st_j, net_j, b_j = jsmoke.build(**TP_DYN)
+    mesh = make_mesh(TP_DYN_SHARDS, axis_name="node")
+    _, ref = jts.run_tp_sharded(
+        jdyn.apply_knobs(spec_j, STOP), st_j, net_j, b_j, mesh,
+        n_ticks=TP_DYN_TICKS, promote=True,
+    )
+    spec_t, st_t, net_t, b_t = tsmoke.build(device="cpu", **TP_DYN)
+    spec2 = tdyn.apply_knobs(spec_t, STOP)
+    out_spec, got = tts.run_tp_sharded(
+        spec2, st_t, net_t, b_t, n_shards=TP_DYN_SHARDS, n_ticks=TP_DYN_TICKS,
+        promote=True,
+    )
+    assert out_spec == spec2  # the real spec comes back, not the key
+    _assert_leaves_equal(got, _jax_leaves(ref), "promoted TP")
+    _, static = tts.run_tp_sharded(
+        spec2, st_t, net_t, b_t, n_shards=TP_DYN_SHARDS, n_ticks=TP_DYN_TICKS,
+        promote=False,
+    )
+    _assert_leaves_equal(got, state_to_numpy(static), "promoted vs static TP")
+    _, base = tts.run_tp_sharded(
+        spec_t, st_t, net_t, b_t, n_shards=TP_DYN_SHARDS, n_ticks=TP_DYN_TICKS,
+    )
+    assert int(got.metrics.n_published) < int(base.metrics.n_published)
+
+
+def test_tp_chunked_reconfigure_matches_jax_and_composes():
+    """``run_tp_chunked(reconfigure=)`` against JAX's, and against the
+    manual ``apply_knobs`` between two ``run_tp_sharded`` calls."""
+    from fognetsimpp_tpu import dynspec as jdyn
+    from fognetsimpp_tpu_torch import dynspec as tdyn
+
+    half = TP_DYN_TICKS // 2
+    calls = []
+
+    def reconf(done):
+        calls.append(done)
+        return STOP
+
+    spec_j, st_j, net_j, b_j = jsmoke.build(**TP_DYN)
+    mesh = make_mesh(TP_DYN_SHARDS, axis_name="node")
+    sp_jf, ref = jts.run_tp_chunked(
+        spec_j, st_j, net_j, b_j, mesh, chunk_ticks=half, n_ticks=TP_DYN_TICKS,
+        donate=False, promote=True, reconfigure=reconf, callback=_noop,
+    )
+    spec_t, st_t, net_t, b_t = tsmoke.build(device="cpu", **TP_DYN)
+    sp_f, got = tts.run_tp_chunked(
+        spec_t, st_t, net_t, b_t, n_shards=TP_DYN_SHARDS, chunk_ticks=half,
+        n_ticks=TP_DYN_TICKS, reconfigure=reconf,
+    )
+    assert calls == [half, half]  # JAX's interior boundary, then the port's
+    assert dataclasses.asdict(sp_f) == dataclasses.asdict(sp_jf)
+    assert sp_f.send_stop_time == pytest.approx(0.04)
+    _assert_leaves_equal(got, _jax_leaves(ref), "TP chunked reconfigure")
+    sp_a, mid = tts.run_tp_sharded(
+        spec_t, st_t, net_t, b_t, n_shards=TP_DYN_SHARDS, n_ticks=half)
+    _, manual = tts.run_tp_sharded(
+        tdyn.apply_knobs(sp_a, STOP), mid, net_t, b_t, n_shards=TP_DYN_SHARDS,
+        n_ticks=half,
+    )
+    _assert_leaves_equal(got, state_to_numpy(manual), "TP manual composition")
+    with pytest.raises(ValueError, match="promote"):
+        tts.run_tp_chunked(spec_t, st_t, net_t, b_t, n_shards=2, promote=False,
+                           reconfigure=reconf)
+    with pytest.raises(ValueError, match="flips a trace gate"):
+        tts.run_tp_chunked(spec_t, st_t, net_t, b_t, n_shards=2, chunk_ticks=10,
+                           n_ticks=20, reconfigure=lambda d: {"send_stop_time": float("inf")})
+
+
+def test_tp_whatif_fork_matches_jax_and_cold_runs():
+    """``tests/test_sharded_dynspec.py``'s TP what-if: a promoted TP carry
+    leaves the shards through ``unstamp_tp_carry`` and forks onto a knob
+    grid whose every row equals a direct run of the retuned spec from the
+    same carry, and JAX's fork, every leaf."""
+    from fognetsimpp_tpu.parallel import sweep as jsweep
+    from fognetsimpp_tpu_torch import dynspec as tdyn
+    from fognetsimpp_tpu_torch.parallel import sweep as tsweep
+    from fognetsimpp_tpu_torch.state import tree_map
+
+    half = TP_DYN_TICKS // 2
+    knobs = {"send_stop_time": [0.04, 0.08]}
+    spec_j, st_j, net_j, b_j = jsmoke.build(**TP_DYN)
+    mesh = make_mesh(TP_DYN_SHARDS, axis_name="node")
+    sp_j, carry_j = jts.run_tp_sharded(
+        spec_j, st_j, net_j, b_j, mesh, n_ticks=half, promote=True)
+    sp_j, carry_j = jts.unstamp_tp_carry(sp_j, carry_j)
+    _, ref = jsweep.sweep_dyn_from(sp_j, carry_j, net_j, b_j, knobs, half)
+
+    spec_t, st_t, net_t, b_t = tsmoke.build(device="cpu", **TP_DYN)
+    sp_tp, carry_sh = tts.run_tp_sharded(
+        spec_t, st_t, net_t, b_t, n_shards=TP_DYN_SHARDS, n_ticks=half)
+    sp_w, carry = tts.unstamp_tp_carry(sp_tp, carry_sh)
+    assert sp_w.tp_shards == 0 and dataclasses.asdict(sp_w) == dataclasses.asdict(sp_j)
+    _assert_leaves_equal(carry, _jax_leaves(carry_j), "TP carry")
+    grid, batch = tsweep.sweep_dyn_from(sp_w, carry, net_t, b_t, knobs, half)
+    _assert_leaves_equal(batch, _jax_leaves(ref), "TP what-if grid")
+    key = tdyn.shape_key(sp_w)
+    for i, cell in enumerate(grid):
+        dyn = tdyn.dyn_to_device(tdyn.dyn_of(dataclasses.replace(sp_w, **cell)), "cpu")
+        cold, _ = tengine.run(key, carry, net_t, b_t, n_ticks=half, dyn=dyn)
+        _assert_leaves_equal(tree_map(lambda x, i=i: x[i], batch),
+                             state_to_numpy(cold), f"TP what-if row {i}")
+    stamped = dataclasses.replace(sp_w, tp_shards=4)
+    assert tts.unstamp_tp_carry(stamped, carry)[0].tp_shards == 0
