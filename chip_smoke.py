@@ -25,8 +25,8 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    computes this function), and beside the ring all-gather one
    ``torch.cat(blocks, out=...)`` a shard, the library call that computes
    the same function;
-4. smoke: ``smoke.build(horizon=0.5)`` on the card against the same world on
-   the CPU, every leaf equal, and the run's summary;
+4. smoke: ``smoke.build(horizon=0.25)`` on the card against the same world
+   on the CPU, every leaf equal, and the run's summary;
 5. bench: the bench world at full width (10,000 users x 32 fogs, K = 4096,
    queue 128, derive_acks, 0.1 s) at dt 5 ms and dt 1 ms: card against CPU
    every leaf, decisions per second and ms per tick on the card after a
@@ -81,7 +81,8 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    without the ``mips0_divisor`` quirk, RANDOM, UCB, DUCB, EXP3 and
    DYNAMIC (``learn_in_dynamic``, its id set to EXP3), ``derive_acks``
    off for the learned ones as ``bench.py`` sets it, the learned ones at
-   ``LEARN_HORIZON``: each timed after a warm-up run, card against CPU
+   ``LEARN_HORIZON``: each timed after a warm-up run of its first
+   ``REPLICA_WARM_TICKS`` ticks, card against CPU
    every leaf, its short profile, and for the learned ones the credited
    count ``learn.lat_cnt``, which must be above 0;
 14. replicas_small: the replica axis (``run_batched``: one ``vmap`` of
@@ -142,7 +143,21 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    time retuned at tick 10: equal to the manual composition and to the
    single-device ``run_chunked`` with the same retune; then
    ``unstamp_tp_carry`` and a 4-cell stop-time fork, each row equal to a
-   cold promoted run from the carry.
+   cold promoted run from the carry;
+24. v1_bench, v2_bench, front_droptail: the bench world of phase 5 (dt 5
+   ms, ``derive_acks`` off, as these worlds need) under the v1 apps (POOL
+   fogs, LOCAL_FIRST on a 50,000-MIPS broker pool, periodic adverts), the
+   v2 hybrid broker (``app_gen=2``, ``v2_local_broker``), and the full
+   arrival front with DropTail link queues: each timed after a warm-up
+   run of its first ticks, card against CPU every leaf, a short profile; ``local_pool_scan``
+   against its plain version bit for bit on the first window of the v1
+   and the v2 run that holds a row, and on 8 replicas of the v2 window in
+   one launch (the batching rule), its device time, one launch a tick and
+   its bound; ``fused_arrival_plan`` against its plain version on the
+   first non-empty pool-arrival window of the v2 run;
+25. wired_v1 (``scenarios/wired_v1``, 0.5 s of 1 ms) and example
+   (``scenarios/example``, 1.1 s of 1 ms: past the 1.0414 s link-up and
+   into the drain), card against CPU every leaf.
    Every phase from 18 on resets the wrapper counts before its path and
    fails if a kernel of the path was launched no time;
 
@@ -187,7 +202,17 @@ CYCLES_PER_ADD = 4
 #: the calls ``stream_ms`` times (about 25 ms at the H100's boost clock).
 SLEEP_CYCLES = 50_000_000
 
+#: Name fragment of the local-pool scan's one launch in a device trace.
+POOL_KERNEL = "local_pool_scan_kernel"
+#: Dependent float32 operations on the pool's chain a row: v1 compares
+#: and subtracts; v2 also compares with the fire time and adds the refund.
+POOL_CHAIN_OPS = {False: 2, True: 4}
+#: Bytes and operations a valid row of the scan needs: its MIPS (and
+#: time, v2) read, and the chain's operations plus the take's select.
+POOL_ROW_OPS = {False: 3, True: 6}
+
 SOURCES = {
+    "local_pool_scan": "fognetsimpp_tpu_torch/csrc/pool_scan.cu",
     "fused_arrival_plan": "fognetsimpp_tpu_torch/csrc/arrival_plan.cu",
     "pairwise_rank": "fognetsimpp_tpu_torch/csrc/arrival_plan.cu",
     "ring_all_gather": "fognetsimpp_tpu_torch/csrc/ring_gather.cu",
@@ -199,6 +224,9 @@ REPLACES = {
     "ring_all_gather": "fognetsimpp_tpu/ops/pallas_kernels.py:234",
     # no TPU kernel: the index order of XLA's float32 scatter-add there
     "cell_sum_ordered": "fognetsimpp_tpu/net/topology.py:191",
+    # no TPU kernel: the lax.scan of the broker's local pool (v1 body;
+    # the v2 body at :1723)
+    "local_pool_scan": "fognetsimpp_tpu/core/engine.py:1689",
 }
 
 
@@ -273,6 +301,8 @@ POLICIES = {
     "exp3": ("EXP3", {}),
     "dynamic": ("DYNAMIC", {"learn_in_dynamic": True}),
 }
+#: Horizon of the smoke world's run (cut from 0.5 s for the script's time).
+SMOKE_HORIZON = 0.25
 #: Horizon of the learned policies' runs: at the bench world's 0.1 s no
 #: status-6 ack has landed under UCB or DUCB (tasks take 0.05-0.9 s on
 #: fogs of 1,000-4,000 MIPS), so their credit path would not run.
@@ -319,6 +349,20 @@ LEARNED_NRC = 16
 WHATIF_CELLS = 8
 #: ``tp_chunked``: the retune at tick 10 of the tp_window world's 20.
 TP_RETUNE = {"uplink_loss_prob": 0.03, "send_stop_time": 0.06}
+#: The bench world's v1/v2 and front phases: spec overrides of each.
+V1V2_BENCH = {
+    "v1_bench": dict(app_gen=1, fog_model=1, policy=5, broker_mips=50_000.0,
+                     adv_periodic=True, adv_on_completion=False, derive_acks=False),
+    "v2_bench": dict(app_gen=2, fog_model=1, policy=5, broker_mips=50_000.0,
+                     v2_local_broker=True, adv_periodic=True,
+                     adv_on_completion=False, derive_acks=False),
+    "front_droptail": dict(two_stage_arrivals=False, wired_queue_enabled=True,
+                           derive_acks=False),
+}
+#: Replicas of the v2 window that the scan's batching rule is held on.
+POOL_REPLICAS = 8
+#: Horizons of the scenario worlds held card against CPU.
+WIRED_V1_HORIZON, EXAMPLE_HORIZON = 0.5, 1.1
 
 
 def main() -> int:
@@ -337,6 +381,7 @@ def main() -> int:
     from fognetsimpp_tpu_torch.ops import arrival_kernels as ak
     from fognetsimpp_tpu_torch.ops import cell_kernels as ck
     from fognetsimpp_tpu_torch.ops import cuda_build
+    from fognetsimpp_tpu_torch.ops import pool_kernels as pk
     from fognetsimpp_tpu_torch.ops import queues as tq
     from fognetsimpp_tpu_torch.ops import ring_kernels as rk
     from fognetsimpp_tpu_torch.parallel.replicas import replicate_state, strict_vmap
@@ -348,7 +393,9 @@ def main() -> int:
         run_tp_chunked, run_tp_sharded, unstamp_tp_carry,
     )
     from fognetsimpp_tpu_torch.runtime.signals import summarize
-    from fognetsimpp_tpu_torch.scenarios import cell_sum_inputs, smoke, wireless
+    from fognetsimpp_tpu_torch.scenarios import (
+        cell_sum_inputs, example, smoke, wired_v1, wireless,
+    )
     from fognetsimpp_tpu_torch.spec import BugCompat, Policy
     from fognetsimpp_tpu_torch.state import state_to_numpy, tree_leaves, tree_map
 
@@ -766,9 +813,10 @@ def main() -> int:
         ak.reset_launches()
         rk.reset_launches()
         ck.reset_launches()
+        pk.reset_launches()
 
     def all_launches():
-        return {**ak.LAUNCHES, **rk.LAUNCHES, **ck.LAUNCHES}
+        return {**ak.LAUNCHES, **rk.LAUNCHES, **ck.LAUNCHES, **pk.LAUNCHES}
 
     def assert_same(card_state, cpu_state, what):
         paths = [p for p, _ in tree_leaves(cpu_state)]
@@ -845,7 +893,7 @@ def main() -> int:
         }, {k: v / n for k, v in by_name.items()}
 
     # ---- 4. smoke world --------------------------------------------------
-    kw = dict(horizon=0.5)
+    kw = dict(horizon=SMOKE_HORIZON)
     spec, card, wall, launches = timed_run(kw)
     n_leaves = assert_same(card, cpu_run(kw), "smoke")
     summ = summarize(card)
@@ -1425,7 +1473,7 @@ def main() -> int:
     policy_launches = {}
     for name in POLICIES:
         spec, st, net, b = policy_world(dev, name)
-        engine.run(spec, st, net, b)  # warm-up: same work, same shapes
+        engine.run(spec, st, net, b, n_ticks=REPLICA_WARM_TICKS)  # warm-up
         torch.cuda.synchronize()
         spec, st, net, b = policy_world(dev, name)
         torch.cuda.synchronize()
@@ -1896,6 +1944,232 @@ def main() -> int:
     tp_chunked_launches = launches
     del card, carry, fork
 
+    # ---- 24. the v1/v2 apps and the full front with DropTail, full width --
+    def v1v2_build(name):
+        return lambda device: smoke.build(
+            device=device, **dict(bench_world(5e-3), **V1V2_BENCH[name]))
+
+    def world_run(phase, build, need):
+        """A warm-up run of the first ticks, then the timed run (every
+        kernel input kept by a tap that refuses a CPU tensor), the same
+        world on the CPU, every leaf equal.  Returns the spec, the card's
+        final state, the kept calls, the launches, the wall, the CPU run's
+        seconds and the leaves compared."""
+        spec, st, net, b = build(dev)
+        engine.run(spec, st, net, b, n_ticks=REPLICA_WARM_TICKS)  # warm-up
+        torch.cuda.synchronize()
+        spec, st, net, b = build(dev)
+        calls = []
+
+        def tap(name, *args):
+            if not args[0].is_cuda:
+                raise SystemExit(f"{phase}: {name} took the CPU path")
+            calls.append((name, args))
+
+        torch.cuda.synchronize()
+        reset_launches()
+        cuda_build.TAPS.append(tap)
+        try:
+            t0 = time.perf_counter()
+            card, _ = engine.run(spec, st, net, b)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            cuda_build.TAPS.remove(tap)
+        launches = all_launches()
+        need_launches(phase, launches, need)
+        t0 = time.perf_counter()
+        spec_c, st_c, net_c, b_c = build("cpu")
+        cpu, _ = engine.run(spec_c, st_c, net_c, b_c)
+        cpu_s = time.perf_counter() - t0
+        n_leaves = assert_same(card, cpu, phase)
+        return spec, card, calls, launches, wall, cpu_s, n_leaves
+
+    def pool_bound(valid, v2):
+        """The least time for the scan on these rows: each valid row's
+        MIPS (and time) read once, the valid flags read and the takes
+        written once, against the operations the valid rows need; and the
+        chain of the pool's dependent operations at the SM clock."""
+        R, K = valid.shape
+        n_valid = int(valid.sum())
+        n_bytes = 2 * R * K + n_valid * (8 if v2 else 4) + R * 17
+        n_ops = n_valid * POOL_ROW_OPS[v2]
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = n_ops / CUDA_CORE_OPS_PER_S * 1e3
+        longest = int(valid.sum(dim=1).max())
+        clock = sm_clock_mhz()
+        return {
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_bytes": n_bytes, "bound_ops": n_ops, "valid_rows": n_valid,
+            "sm_clock_mhz": clock,
+            "chain_ms": longest * POOL_CHAIN_OPS[v2] * CYCLES_PER_ADD / (clock * 1e6) * 1e3,
+        }
+
+    def check_pool_scan(what, rows, v2, reps=(50, 5)):
+        """``local_pool_scan`` against its plain version on ``rows`` (R
+        worlds as rows, the layout the taps see), bit for bit: device and
+        wall times of both, launches a call, the bound."""
+        run_k = lambda: pk.local_pool_scan_rows(*rows, v2)  # noqa: E731
+        run_p = lambda: pk.local_pool_scan_plain(*rows, v2)  # noqa: E731
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")  # the wrapper may not sync
+        try:
+            got = run_k()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        want = run_p()
+        if not same_bits(got, want):
+            raise SystemExit(f"local_pool_scan ({what}) differs from its plain version")
+        before = pk.LAUNCHES["local_pool_scan"]
+        run_k()
+        launches = pk.LAUNCHES["local_pool_scan"] - before
+        r = {
+            "name": "local_pool_scan", "case": what, "R": rows[0].shape[0],
+            "K": rows[0].shape[1], "v2": v2, "equal": True,
+            "max_abs_err": max_abs_err(got, want),
+            # CUDA events: the profiler's trace of these calls came back
+            # empty six times running on the card
+            "ms": stream_ms(run_k, reps[0]),
+            "timed_by": "CUDA events behind a sleep kernel",
+            "launches_a_call": launches,
+            # the plain version reads its rows to the host once a call
+            "plain_ms": per_call_ms(run_p, reps[1]),
+            "wrapper_ms": per_call_ms(run_k, reps[0]),
+            "takes": int(got[0].sum()), "fired": int(got[2].sum()),
+            **pool_bound(rows[1], v2),
+        }
+        emit({"phase": "kernel", **{k: v for k, v in r.items() if not k.endswith("_ms")},
+              "device_us": r["ms"] * 1e3, "plain_wall_us": r["plain_ms"] * 1e3,
+              "wrapper_us": r["wrapper_ms"] * 1e3, "bound_us": r["bound_ms"] * 1e3,
+              "chain_us": r["chain_ms"] * 1e3})
+        return r
+
+    def first_call(calls, name):
+        """The first kept call of ``name`` whose window holds a row."""
+        for n, args in calls:
+            if n == name and bool(args[1 if name == "local_pool_scan" else 0].any()):
+                return args
+        raise SystemExit(f"no call of {name} held a row")
+
+    def pool_row(r, path, launches):
+        return {
+            "name": "local_pool_scan", "route": "cuda",
+            "source": SOURCES["local_pool_scan"],
+            "replaces": REPLACES["local_pool_scan"],
+            "replaces_note": "no TPU kernel: the jax.lax.scan of LOCAL_FIRST's "
+                             "sequential pool debit (v2 body at engine.py:1723)",
+            "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+            "library": "none: no PyTorch call computes a sequential pool debit",
+            "shape": {"R": r["R"], "K": r["K"], "valid_rows": r["valid_rows"]},
+            "shape_of": path, "bound_bytes": r["bound_bytes"],
+            "bound_ops": r["bound_ops"], "chain_ms": r["chain_ms"],
+            "wrapper_ms": r["wrapper_ms"], "launches_a_call": r["launches_a_call"],
+            "timed_by": r["timed_by"],
+        }
+
+    v1v2_launches = {}
+    for phase in V1V2_BENCH:
+        build = v1v2_build(phase)
+        need = ("fused_arrival_plan",) + (("local_pool_scan",) if phase != "front_droptail" else ())
+        spec, card, calls, launches, wall, cpu_s, n_leaves = world_run(phase, build, need)
+        if phase != "front_droptail" and launches["local_pool_scan"] != spec.n_ticks:
+            raise SystemExit(f"{phase}: local_pool_scan launched "
+                             f"{launches['local_pool_scan']} times in {spec.n_ticks} ticks")
+        summ = summarize(card)
+        spec_p, st_p, net_p, b_p = build(dev)
+        prof_row, by_name = tick_profile(spec_p, st_p, net_p, b_p,
+                                         static_cache(spec_p, st_p, net_p))
+        emit({
+            "phase": phase, "n_users": spec.n_users, "n_fogs": spec.n_fogs,
+            "window": spec.window, "task_rows": spec.task_capacity,
+            "ticks": spec.n_ticks, "leaves_equal": n_leaves,
+            "n_scheduled": summ["n_scheduled"], "n_local": int(card.metrics.n_local),
+            "n_rejected": int(card.metrics.n_rejected),
+            "n_published": summ["n_published"], "n_completed": summ["n_completed"],
+            "n_dropped": summ["n_dropped"], "n_lost": int(card.metrics.n_lost),
+            "n_link_drops": int(card.metrics.n_link_drops),
+            "n_deferred_max": summ["n_deferred_max"],
+            "wall_s": wall, "cpu_run_s": cpu_s,
+            # decisions: the broker's placements, local runs included
+            "task_offload_decisions_per_sec":
+                (summ["n_scheduled"] + int(card.metrics.n_local)) / wall,
+            "ms_per_tick": wall / spec.n_ticks * 1e3, "launches": launches,
+            **prof_row,
+            "pool_kernel_device_us_per_tick": sum(
+                v for k, v in by_name.items() if POOL_KERNEL in k),
+            "arrival_kernels_device_us_per_tick": sum(
+                v for k, v in by_name.items() if any(s in k for s in OUR_KERNELS)),
+        })
+        v1v2_launches[phase] = launches
+        if phase == "front_droptail":
+            continue
+        v2 = phase == "v2_bench"
+        args = first_call(calls, "local_pool_scan")
+        r = check_pool_scan(f"{phase}, first real window", args[:6], v2)
+        kernel_rows[("local_pool_scan", phase)] = pool_row(r, phase, 0)
+        if v2:
+            # the batching rule: 8 replicas of the window, their pools apart
+            mips, valid, t, pool0, fire_t0, refund0 = (x[0] for x in args[:6])
+            scale = torch.arange(1, POOL_REPLICAS + 1, device=dev, dtype=torch.float32)
+            before = pk.LAUNCHES["local_pool_scan"]
+            got = torch.func.vmap(
+                lambda p: pk.local_pool_scan(mips, valid, t, p, fire_t0, refund0, True)
+            )(pool0 * scale / POOL_REPLICAS)
+            if pk.LAUNCHES["local_pool_scan"] - before != 1:
+                raise SystemExit("local_pool_scan: 8 replicas took more than one launch")
+            rows = [x.expand(POOL_REPLICAS, *x.shape).contiguous() for x in (mips, valid, t)]
+            rows = rows + [pool0 * scale / POOL_REPLICAS,
+                           fire_t0.expand(POOL_REPLICAS).contiguous(),
+                           refund0.expand(POOL_REPLICAS).contiguous()]
+            if not same_bits(got, pk.local_pool_scan_plain(*rows, True)):
+                raise SystemExit("local_pool_scan: the batching rule differs from "
+                                 "its plain version on 8 replicas")
+            rr = check_pool_scan(f"{phase}, {POOL_REPLICAS} replicas", rows, True)
+            kernel_rows[("local_pool_scan", phase)]["replicas_8"] = {
+                k: rr[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "chain_ms",
+                                   "max_abs_err", "launches_a_call", "R", "K")}
+            # the arrival kernel on the first non-empty pool-arrival window
+            fa = first_call(calls, "fused_arrival_plan")
+            r = check_arrival_kernel("fused_arrival_plan", fa[:3], fa[3], (20, 10, 50, 10))
+            emit_kernel(r, "v2_bench, first non-empty pool-arrival window")
+            kernel_rows[("fused_arrival_plan", "v2_bench")] = kernel_row(
+                r, "v2_bench", "real")
+        del card, calls
+
+    # ---- 25. the scenario worlds: wired v1 and the v2 demo --------------
+    for phase, build, need in (
+        ("wired_v1", lambda d: wired_v1.build(device=d, horizon=WIRED_V1_HORIZON),
+         ("local_pool_scan", "fused_arrival_plan")),
+        ("example", lambda d: example.build(device=d, horizon=EXAMPLE_HORIZON),
+         ("local_pool_scan", "fused_arrival_plan", "cell_sum_ordered")),
+    ):
+        spec, st, net, b = build(dev)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        card, _ = engine.run(spec, st, net, b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = all_launches()
+        need_launches(phase, launches, need)
+        t0 = time.perf_counter()
+        spec_c, st_c, net_c, b_c = build("cpu")
+        n_leaves = assert_same(card, engine.run(spec_c, st_c, net_c, b_c)[0], phase)
+        cpu_s = time.perf_counter() - t0
+        m = card.metrics
+        emit({"phase": phase, "ticks": spec.n_ticks, "leaves_equal": n_leaves,
+              "n_published": int(m.n_published), "n_local": int(m.n_local),
+              "n_scheduled": int(m.n_scheduled), "n_completed": int(m.n_completed),
+              "n_rejected": int(m.n_rejected), "n_lost": int(m.n_lost),
+              "wall_s": wall, "ms_per_tick": wall / spec.n_ticks * 1e3,
+              "cpu_run_s": cpu_s, "launches": launches})
+        v1v2_launches[phase] = launches
+        del card
+
     # each row's launches: the main paths' calls at that row's shape
     by_path = {
         ("fused_arrival_plan", "bench"): {
@@ -1926,6 +2200,14 @@ def main() -> int:
         by_path[(name, "wireless")]["reconfigure"] = reconf_launches[name]
         by_path[(name, "config4")] = dict(
             kernel_rows[(name, "config4")]["launches_by_path"], dyn4=dyn4_launches[name])
+    # the v1/v2 paths: the scan's v1 and v2 rows, the v2 bench's windows
+    by_path[("local_pool_scan", "v1_bench")] = {
+        k: v1v2_launches[k]["local_pool_scan"] for k in ("v1_bench", "wired_v1")}
+    by_path[("local_pool_scan", "v2_bench")] = {
+        k: v1v2_launches[k]["local_pool_scan"] for k in ("v2_bench", "example")}
+    by_path[("fused_arrival_plan", "v2_bench")] = {
+        k: v1v2_launches[k]["fused_arrival_plan"]
+        for k in ("v1_bench", "v2_bench", "front_droptail", "wired_v1", "example")}
     for key, paths in by_path.items():
         kernel_rows[key]["launches"] = sum(paths.values())
         kernel_rows[key]["launches_by_path"] = paths

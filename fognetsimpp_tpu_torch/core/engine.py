@@ -32,18 +32,21 @@ from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..dynspec import (
-    DynSpec, apply_knobs, dyn_of, dyn_to_device, knob, promote_default, split_spec,
+    DynSpec, apply_knobs, div_knob, dyn_of, dyn_to_device, knob, promote_default,
+    split_spec,
 )
 from ..envelope import broker_dense_ok, check_slice
-from ..f32math import const, fma
+from ..f32math import const, fma, xla_sum
 from ..learn.bandits import arms_view, exp3_probs
 from ..learn.rewards import credit_batch
 from ..net.energy import step_energy
 from ..net.mobility import MobilityBounds, default_bounds, step_mobility
 from ..net.topology import LinkCache, NetParams, associate
+from ..ops.pool_kernels import local_pool_scan
 from ..ops.queues import NO_TASK, batched_enqueue, batched_pop, plan_arrivals
 from ..ops.scatter import add_drop, set_drop
 from ..ops.sched import at, scalar_winner, schedule_batch, task_uniform
@@ -61,6 +64,7 @@ _ST_NO_RESOURCE = int(Stage.NO_RESOURCE)
 _ST_DROPPED = int(Stage.DROPPED)
 _ST_REJECTED = int(Stage.REJECTED)
 _ST_LOST = int(Stage.LOST)
+_ST_LOCAL_RUN = int(Stage.LOCAL_RUN)
 
 _I32 = torch.int32
 _F32 = torch.float32
@@ -374,6 +378,45 @@ def _uplink_loss_p(spec, net: NetParams, cache: LinkCache, dv: DynSpec, U: int, 
     return p_eff
 
 
+def _link_warmup(spec, dv: DynSpec, k_f, k_i, t_create, t_arrive):
+    """The link warm-up of the v1/v2 example world (``link_up_s``): a
+    publish that would arrive before the link is up arrives at its drain
+    slot instead, ``link_up_s`` plus ``k * link_drain_s`` for send index
+    ``k``, or, past the first ``link_burst_n`` sends, the burst's end plus
+    ``(k - nb) * link_drain2_s`` (one fused multiply-add, as XLA compiles
+    it).  With ``link_buffer_frames`` the creations before link-up are
+    buffered up to that send index and the rest overflow.  Returns
+    ``(t_arrive, buffered, warm_lost)``, the last two None without the
+    buffer."""
+    dev = t_create.device
+    up = knob(dv.link_up_s, dev)
+    drain = knob(dv.link_drain_s, dev)
+    if spec.link_burst_n > 0:
+        nb = float(spec.link_burst_n - 1)
+        k_b, d2 = torch.broadcast_tensors(k_f - nb, knob(dv.link_drain2_s, dev))
+        pos = torch.where(
+            k_f <= nb, k_f * drain,
+            fma(k_b, d2, knob(dv.link_burst_base, dev).expand_as(k_b)),
+        )
+        drained = up + pos
+    else:
+        drained = fma(k_f, drain.expand_as(k_f), up.expand_as(k_f))
+    if spec.link_buffer_frames > 0:
+        pre = t_create < up
+        buffered = pre & (k_i < spec.link_buffer_frames)
+        return torch.where(buffered, drained, t_arrive), buffered, pre & ~buffered
+    return torch.where(t_arrive < up, drained, t_arrive), None, None
+
+
+def _droptail_p(spec, drop_p: torch.Tensor, U: int) -> torch.Tensor:
+    """(U,) tail-drop probability of a publish: its user's egress queue or
+    the broker's, ``1 - (1 - p_u)(1 - p_b)`` (one fused multiply-add)."""
+    p_u = drop_p[:U]
+    p_b = drop_p[spec.broker_index].expand(U)
+    one = const(1.0, drop_p.device).expand(U)
+    return fma(-(1.0 - p_u), 1.0 - p_b, one)
+
+
 # ----------------------------------------------------------------------
 # phases
 # ----------------------------------------------------------------------
@@ -454,7 +497,7 @@ def _phase_spawn(spec, state, net, cache, buf, t0, t1, dv: DynSpec, tp=None):
     t_create = torch.maximum(users.next_send, t0)
     if spec.send_stop_time != _INF:
         due = due & (t_create < knob(dv.send_stop_time, dev))
-    keys = split(state.key, 4)
+    keys = split(state.key, 5 if spec.wired_queue_enabled else 4)
     key, k_mips, k_jit, k_loss = keys[0], keys[1], keys[2], keys[3]
     if spec.fixed_mips_required is not None:
         mips_req = torch.full((U,), float(spec.fixed_mips_required), dtype=_F32, device=dev)
@@ -466,7 +509,14 @@ def _phase_spawn(spec, state, net, cache, buf, t0, t1, dv: DynSpec, tp=None):
             ),
             U,
         ).to(_F32)
-    t_arrive = t_create + cache.d2b[:U]
+    d_ub = cache.d2b[:U]
+    t_arrive = t_create + d_ub
+    buffered = warm_lost = None
+    if spec.link_up_s > 0:
+        t_arrive, buffered, warm_lost = _link_warmup(
+            spec, dv, users.send_count.to(_F32), users.send_count, t_create,
+            t_arrive,
+        )
     p_loss = _uplink_loss_p(spec, net, cache, dv, U, dev)
     if p_loss is None:
         lost = torch.zeros((U,), dtype=torch.bool, device=dev)
@@ -474,6 +524,20 @@ def _phase_spawn(spec, state, net, cache, buf, t0, t1, dv: DynSpec, tp=None):
         lost = (
             _tp_user_draw(tp, lambda s: uniform(k_loss, s), U) < p_loss
         ) & net.is_wireless[:U]
+        if buffered is not None:
+            # frames the pending queue kept deliver reliably at their slot
+            lost = lost & ~buffered
+        elif spec.link_up_s > 0:
+            lost = lost & (t_create + d_ub >= knob(dv.link_up_s, dev))
+    if spec.wired_queue_enabled:
+        # DropTail: a publish entering a full egress queue (its own or the
+        # broker's) is tail-dropped with last tick's overflow fraction
+        p_tail = _droptail_p(spec, state.nodes.link_drop_p, U)
+        lost = lost | (
+            _tp_user_draw(tp, lambda s: uniform(keys[4], s), U) < p_tail
+        )
+    if warm_lost is not None:
+        lost = lost | (warm_lost & net.is_wireless[:U])
     sel = due[:, None] & (
         torch.arange(S, dtype=_I32, device=dev)[None, :]
         == users.send_count[:, None]
@@ -534,7 +598,7 @@ def _phase_spawn_multi(spec, state, net, cache, buf, t0, t1, dv: DynSpec, tp=Non
     due2 = can[:, None] & (j >= 0) & (j < R) & (fire < t1)
     if spec.send_stop_time != _INF:
         due2 = due2 & (fire < knob(dv.send_stop_time, dev))
-    keys = split(state.key, 3)
+    keys = split(state.key, 4 if spec.wired_queue_enabled else 3)
     key, k_mips, k_loss = keys[0], keys[1], keys[2]
 
     def lane_select(draws, fill):
@@ -555,13 +619,29 @@ def _phase_spawn_multi(spec, state, net, cache, buf, t0, t1, dv: DynSpec, tp=Non
             U, R,
         ).to(_F32)
         mips2 = lane_select(draws, 0.0)
-    t_arrive = fire + cache.d2b[:U][:, None]
+    d_ub = cache.d2b[:U][:, None]
+    t_arrive = fire + d_ub
+    buffered2 = warm_lost2 = None
+    if spec.link_up_s > 0:
+        t_arrive, buffered2, warm_lost2 = _link_warmup(
+            spec, dv, k.to(_F32), k, fire, t_arrive,
+        )
     p_loss = _uplink_loss_p(spec, net, cache, dv, U, dev)
     if p_loss is None:
         lost2 = torch.zeros((U, S), dtype=torch.bool, device=dev)
     else:
         draws_l = _tp_user_draw(tp, lambda s: uniform(k_loss, s), U, R) < p_loss[:, None]
         lost2 = lane_select(draws_l, False) & net.is_wireless[:U, None]
+        if buffered2 is not None:
+            lost2 = lost2 & ~buffered2  # buffered frames deliver reliably
+        elif spec.link_up_s > 0:
+            lost2 = lost2 & (fire + d_ub >= knob(dv.link_up_s, dev))
+    if spec.wired_queue_enabled:
+        p_tail = _droptail_p(spec, state.nodes.link_drop_p, U)
+        draws_d = _tp_user_draw(tp, lambda s: uniform(keys[3], s), U, R)
+        lost2 = lost2 | (lane_select(draws_d, 1.0) < p_tail[:, None])
+    if warm_lost2 is not None:
+        lost2 = lost2 | (warm_lost2 & net.is_wireless[:U, None])
     st2 = tasks.stage.reshape(U, S)
     stage_new = torch.where(lost2, _i8(_ST_LOST, dev), _i8(_ST_PUB_INFLIGHT, dev))
     tasks = tasks.replace(
@@ -688,15 +768,79 @@ def _phase_broker_dense(spec, state, cache, buf, t1, tp=None):
     return state.replace(tasks=tasks, users=users, metrics=metrics, key=key), buf
 
 
+def _lexsort_time_slot(t_key: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``jnp.lexsort((idx, t_key))``: the order by time, ties by slot, as
+    two stable sorts.  ``+ 0.0`` folds -0.0 into +0.0: JAX's sort ties
+    them, and the card's radix sort would not."""
+    by_slot = torch.sort(idx, stable=True).indices
+    by_time = torch.sort((t_key + 0.0)[by_slot], stable=True).indices
+    return by_slot[by_time]
+
+
+def _local_first(spec, state, mips_g, valid, idx, t_ab_g):
+    """LOCAL_FIRST's local branch (``BrokerBaseApp.cc:196-224``, v2's
+    ``BrokerBaseApp2.cc:181-224``): the window in arrival order debits
+    the broker's own MIPS pool (:func:`..ops.pool_kernels.local_pool_scan`).
+    Under ``v2_local_broker`` the shared release timer is interleaved with
+    the accepts in event order: the first accept before its fire time
+    cancels it, and a timer still armed pops before a later arrival, its
+    refund (the first stored request that expired before the fire, chosen
+    on the state before this tick's decisions) visible to the accepts
+    after it.  Returns ``(local, broker, v2_resched)``, the last ``(the
+    after pass's next fire time, the refund already applied)`` or None."""
+    tasks, b = state.tasks, state.broker
+    T = spec.task_capacity
+    dev = mips_g.device
+    inf = const(_INF, dev)
+    t_key = torch.where(valid, t_ab_g, inf)
+    order = _lexsort_time_slot(t_key, idx)
+    mips_s, valid_s = mips_g[order], valid[order]
+    if not spec.v2_local_broker:
+        take_s, pool_after, _ = local_pool_scan(
+            mips_s, valid_s, mips_s, b.local_pool, b.local_pool, b.local_pool, False
+        )
+    else:
+        fire_t0 = b.release_timer_t
+        req_t = const(spec.required_time, dev)
+        open0 = (tasks.req_open > 0) & (tasks.t_at_broker + req_t < fire_t0)
+        key0 = torch.where(open0, tasks.t_at_broker, inf)
+        cand0 = open0 & (key0 == key0.amin())
+        sel0 = torch.where(cand0, torch.arange(T, dtype=_I32, device=dev), T).amin()
+        refund0 = torch.where(
+            sel0 < T, at(tasks.mips_req, torch.clamp(sel0, 0, T - 1)), 0.0
+        )
+        take_s, pool_after, fired = local_pool_scan(
+            mips_s, valid_s, t_key[order], b.local_pool, fire_t0, refund0, True
+        )
+    local = torch.zeros_like(valid).scatter(0, order, take_s)
+    b = b.replace(local_pool=pool_after)
+    if not spec.v2_local_broker:
+        return local, b, None
+    # the timer's disposition: a fire inside the scan leaves it armed at
+    # the old time for the after pass (its refund already applied), which
+    # then installs the last accept's reschedule; accepts alone install it
+    # here; neither leaves it as it was
+    any_local = local.any()
+    t_last = torch.where(local, t_ab_g, -_INF).amax()
+    resched = torch.where(any_local, t_last + req_t, inf)
+    b = b.replace(
+        release_timer_t=torch.where(any_local & ~fired, resched, b.release_timer_t)
+    )
+    return local, b, (torch.where(fired, resched, inf), fired)
+
+
 def _phase_broker(spec, state, cache, buf, t1):
     """The compacted broker: up to K matured publishes a tick (the
-    tick-keyed rotated window, the rest deferred) are decided one by one
-    by :func:`~..ops.sched.schedule_batch` against the broker's stale fog
-    view, and partitioned into scheduled and no-resource (the MIPS
-    guard's rejections belong to MAX_MIPS and LOCAL_FIRST, which never
-    come here).  With a learned policy the pick counts advance at the end
-    of the window and an EXP3-capable world records each pick's
-    probability for the credit phase."""
+    tick-keyed rotated window, the rest deferred).  LOCAL_FIRST first
+    runs what the broker's own pool covers (:func:`_local_first`); the
+    rest are decided one by one by :func:`~..ops.sched.schedule_batch`
+    against the broker's stale fog view and partitioned into scheduled,
+    rejected by the MIPS guard (MAX_MIPS and LOCAL_FIRST: a task whose
+    MIPS is not below the winner's advertised MIPS is never sent,
+    ``BrokerBaseApp.cc:244-252``) and no-resource.  With a learned policy
+    the pick counts advance at the end of the window and an EXP3-capable
+    world records each pick's probability for the credit phase.  Returns
+    ``(state, buf, v2_resched)`` (:func:`_local_first`)."""
     tasks, b = state.tasks, state.broker
     T, F, K = spec.task_capacity, spec.n_fogs, spec.window
     U, S = spec.n_users, spec.max_sends_per_user
@@ -719,6 +863,12 @@ def _phase_broker(spec, state, cache, buf, t1):
         ).to(_F32)
         users, metrics, buf, n_del = _fanout(users, metrics, buf, per_topic)
 
+    local_first = spec.policy == int(Policy.LOCAL_FIRST)
+    local = torch.zeros_like(valid)
+    v2_resched = None
+    if local_first:
+        local, b, v2_resched = _local_first(spec, state, mips_g, valid, idx, t_ab_g)
+
     keys = split(state.key, 2)
     key, k_sched = keys[0], keys[1]
     fog_alive = state.nodes.alive[U: U + F]
@@ -727,21 +877,27 @@ def _phase_broker(spec, state, cache, buf, t1):
         state.nodes.energy_capacity[U: U + F], const(1e-12, dev)
     )
     any_fog = reg_eff.any()
+    offl = valid & ~local
     rand_u = None
     if spec.policy in (int(Policy.RANDOM), int(Policy.DYNAMIC), int(Policy.EXP3)):
         # the task-id-keyed stream shared with the native DES
         rand_u = task_uniform(PRNGKey(spec.policy_seed, dev), idxc)
     choice, rr_new = schedule_batch(
-        spec.policy, valid, mips_g, b.view_busy, b.view_mips, reg_eff,
+        spec.policy, offl, mips_g, b.view_busy, b.view_mips, reg_eff,
         fog_alive, fog_efrac, 2.0 * cache.d2b[U: U + F], b.rr_next, k_sched,
-        spec.bug_compat.mips0_divisor,
+        spec.bug_compat.mips0_divisor, spec.bug_compat.v1_max_scan,
         policy_id=b.policy_id, order_t=t_ab_g, rand_u=rand_u,
         learn=arms_view(state.learn) if spec.learn_active else None,
     )
     choice_ok = choice >= 0
+    guard_fail = torch.zeros_like(valid)
+    if spec.policy in (int(Policy.MAX_MIPS), int(Policy.LOCAL_FIRST)) and F > 0:
+        win_mips = b.view_mips[torch.clamp(choice, 0, F - 1).long()]
+        guard_fail = choice_ok & ~(mips_g < win_mips)
     fog_node = U + torch.clamp(choice, 0, F - 1).long()
-    sched = valid & any_fog & choice_ok
-    no_res = valid & ~sched
+    sched = offl & any_fog & choice_ok & ~guard_fail
+    rejected = offl & any_fog & guard_fail
+    no_res = offl & (~any_fog | (~choice_ok & ~guard_fail))
 
     learn = state.learn
     if spec.learn_active:
@@ -762,35 +918,68 @@ def _phase_broker(spec, state, cache, buf, t1):
             )
 
     inf_t = torch.full((), _INF, dtype=_F32, device=dev)
-    tasks = tasks.replace(
-        stage=set_drop(
-            tasks.stage, idx,
-            torch.where(sched, _i8(_ST_TASK_INFLIGHT, dev), _i8(_ST_NO_RESOURCE, dev)),
+    new_stage = torch.where(
+        sched, _i8(_ST_TASK_INFLIGHT, dev),
+        torch.where(
+            local, _i8(_ST_LOCAL_RUN, dev),
+            torch.where(rejected, _i8(_ST_REJECTED, dev), _i8(_ST_NO_RESOURCE, dev)),
         ),
+    )
+    tasks = tasks.replace(
+        stage=set_drop(tasks.stage, idx, new_stage),
         fog=set_drop(tasks.fog, idx, torch.where(sched, choice, NO_TASK)),
         t_at_fog=set_drop(
             tasks.t_at_fog, idx, torch.where(sched, t_ab_g + cache.d2b[fog_node], inf_t)
         ),
     )
     if not spec.derive_acks:
+        # v1's local branch acks status-3 "processing" instead of the
+        # forwarded status-4 (BrokerBaseApp.cc:200-212)
+        a_bu = t_ab_g + cache.d2b[user_g]
         tasks = tasks.replace(
-            t_ack4_fwd=set_drop(tasks.t_ack4_fwd, idx, t_ab_g + cache.d2b[user_g]),
-            t_ack3=set_drop(tasks.t_ack3, idx, inf_t),
+            t_ack4_fwd=set_drop(tasks.t_ack4_fwd, idx, torch.where(~local, a_bu, inf_t)),
+            t_ack3=set_drop(tasks.t_ack3, idx, torch.where(local, a_bu, inf_t)),
         )
-    sums = _isum(torch.stack([sched, no_res, valid]), 1)
+    if local_first:
+        tasks = tasks.replace(
+            t_service_start=set_drop(
+                tasks.t_service_start, idx, torch.where(local, t_ab_g, inf_t)
+            ),
+        )
+        if spec.v2_local_broker:
+            # v2 stores a request for each local accept and each decided
+            # offload when fogs exist, guard refusals included
+            # (BrokerBaseApp2.cc:212,244); they complete at a release fire
+            store = local | (offl & any_fog)
+            tasks = tasks.replace(
+                req_open=set_drop(
+                    tasks.req_open, torch.where(store, idx, T),
+                    torch.ones((), dtype=torch.int8, device=dev),
+                ),
+            )
+        else:
+            tasks = tasks.replace(
+                t_complete=set_drop(
+                    tasks.t_complete, idx,
+                    torch.where(local, t_ab_g + const(spec.required_time, dev), inf_t),
+                ),
+            )
+    sums = _isum(torch.stack([sched, no_res, rejected, local, valid]), 1)
     metrics = metrics.replace(
         n_scheduled=metrics.n_scheduled + sums[0],
         n_no_resource=metrics.n_no_resource + sums[1],
+        n_rejected=metrics.n_rejected + sums[2],
+        n_local=metrics.n_local + sums[3],
     )
     buf = buf._replace(
-        tx_b=buf.tx_b + sums[0] + sums[2] + n_del,
-        rx_b=buf.rx_b + sums[2],
+        tx_b=buf.tx_b + sums[0] + sums[4] + n_del,
+        rx_b=buf.rx_b + sums[4],
         rx_u=add_drop(buf.rx_u, user_g, valid.to(_I32)),
     )
     return state.replace(
         tasks=tasks, users=users, broker=b.replace(rr_next=rr_new),
         metrics=metrics, key=key, learn=learn,
-    ), buf
+    ), buf, v2_resched
 
 
 def _phase_learn_credit(spec, state, t1, dv: DynSpec):
@@ -936,7 +1125,8 @@ def _phase_fog_arrivals(spec, state, cache, buf, t1, tp=None, exchange=None):
     """Tasks reaching their FIFO fog are assigned or queued
     (ComputeBrokerApp3.cc:269-320), through the two-stage front: R
     candidates per user, the saturated-fog fast drop on the candidate
-    list, then the K-window compaction and the shared tail.
+    list, then the K-window compaction and the shared tail; with
+    ``two_stage_arrivals`` off, through :func:`_fog_arrivals_front_full`.
 
     Under ``tp`` the candidates are the shard's users', the fast drop's
     per-fog sums are summed over the shards, and ``exchange`` (from
@@ -944,6 +1134,8 @@ def _phase_fog_arrivals(spec, state, cache, buf, t1, tp=None, exchange=None):
     into the window each shard's tail plans: ``exchange(state, valid,
     ids, fog, t, mips) -> ((ids, fog, t, mips) of the window, deferred)``.
     """
+    if not spec.two_stage_arrivals:
+        return _fog_arrivals_front_full(spec, state, cache, buf, t1)
     tasks, fogs = state.tasks, state.fogs
     T, F, K = spec.task_capacity, spec.n_fogs, spec.window
     U, S = spec.n_users, spec.max_sends_per_user
@@ -1018,6 +1210,57 @@ def _phase_fog_arrivals(spec, state, cache, buf, t1, tp=None, exchange=None):
         )
     return _fog_arrivals_tail(
         spec, state, cache, buf, tasks, fogs, *win, n_fast, n_fast_f, tp=tp
+    )
+
+
+#: Widest fog axis of the full front's dense fast drop (an (F, T)
+#: membership); wider worlds seat every arrival in the window.
+_FAST_DROP_MAX_F = 256
+
+
+def _fog_arrivals_front_full(spec, state, cache, buf, t1):
+    """The classic arrival front (``two_stage_arrivals`` off): the whole
+    table's matured arrivals, the saturated-fog fast drop decided densely
+    over it, then the K-window compaction of the rest and the shared tail.
+    JAX's (F, T) GEMV and (F, T) @ (T, 2) matmul are masked reductions
+    here (no TF32 setting reaches them); the per-fog MIPS sums are exact
+    (:func:`_mips_sum64`)."""
+    tasks, fogs = state.tasks, state.fogs
+    T, F, K = spec.task_capacity, spec.n_fogs, spec.window
+    U = spec.n_users
+    dev = t1.device
+    fog_alive = state.nodes.alive[U: U + F]
+    arr_full = (tasks.stage == _ST_TASK_INFLIGHT) & (tasks.t_at_fog <= t1)
+    n_fast = torch.zeros((), dtype=_I32, device=dev)
+    n_fast_f = torch.zeros((F,), dtype=_I32, device=dev)
+    if 0 < F <= _FAST_DROP_MAX_F:
+        fog_dst = torch.clamp(tasks.fog, 0, F - 1)
+        droppy = (
+            (fogs.q_len >= spec.queue_capacity)
+            & (fogs.current_task != NO_TASK)
+            & fog_alive
+        )
+        fast_drop = arr_full & droppy[fog_dst.long()]
+        tasks = tasks.replace(
+            stage=torch.where(fast_drop, _i8(_ST_DROPPED, dev), tasks.stage)
+        )
+        arr_full = arr_full & ~fast_drop
+        memb = _per_fog(fast_drop, fog_dst, F)  # (F, T)
+        n_fast_f = _isum(memb, 1)
+        svc_fast_f = _mips_sum64(memb, tasks.mips_req).float() / torch.clamp_min(
+            fogs.mips, const(1e-9, dev)
+        )
+        fogs = fogs.replace(
+            busy_time=fogs.busy_time + svc_fast_f,
+            q_drops=fogs.q_drops + n_fast_f,
+        )
+        n_fast = _isum(n_fast_f)
+    rot, state = _rot_and_defer(spec, state, arr_full, K)
+    idx, idxc, _ = _compact(arr_full, K, T, rot)
+    g = idxc.long()
+    return _fog_arrivals_tail(
+        spec, state, cache, buf, tasks, fogs, idx, tasks.fog[g],
+        tasks.t_at_fog[g], tasks.mips_req[g], n_fast, n_fast_f,
     )
 
 
@@ -1133,6 +1376,282 @@ def _fog_arrivals_tail(
 
 
 # ----------------------------------------------------------------------
+# the v1/v2 app generations: POOL fogs, the broker's own pool, adverts
+# ----------------------------------------------------------------------
+
+def _adv_periods(spec, tick: torch.Tensor) -> torch.Tensor:
+    """``floor(t / adv_interval)`` at ``t = tick * dt``, as XLA compiles
+    it: the division by a literal becomes a product with its float32
+    reciprocal, and the two constant factors fold into one, so the tick
+    (as float32) is multiplied once by ``float32(dt * (1 / adv_interval))``
+    (the dumped CPU program of ``floor(tick * dt / adv)``)."""
+    f32 = np.float32
+    rate = f32(spec.dt) * (f32(1.0) / f32(spec.adv_interval))
+    return torch.floor(tick.to(_F32) * const(float(rate), tick.device))
+
+
+def _phase_periodic_adverts(spec, state, cache):
+    """v1/v2 fogs re-advertise every ``adv_interval``
+    (ComputeBrokerApp2.cc:219): fired on the tick holding each multiple of
+    the interval, carrying the fog's current MIPS (in the POOL model the
+    remaining pool) and landing one fog-to-broker hop after the fire."""
+    F, U = spec.n_fogs, spec.n_users
+    k0 = _adv_periods(spec, state.tick)
+    fire = (_adv_periods(spec, state.tick + 1) > k0) & state.nodes.alive[U: U + F]
+    t_fire = (k0 + 1.0) * const(spec.adv_interval, k0.device)
+    pool = spec.fog_model == int(FogModel.POOL)
+    adv_mips = state.fogs.pool_avail if pool else state.fogs.mips
+    b = state.broker
+    return state.replace(broker=b.replace(
+        adv_val_mips=torch.where(fire, adv_mips, b.adv_val_mips),
+        adv_val_busy=torch.where(fire, state.fogs.busy_time, b.adv_val_busy),
+        adv_arrive_t=torch.where(fire, t_fire + cache.d2b[U: U + F], b.adv_arrive_t),
+    ))
+
+
+def _phase_pool_completions(spec, state, cache, buf, t1):
+    """POOL tasks whose requiredTime expired release their MIPS
+    (``releaseResource``, ComputeBrokerApp2.cc:222-245), all that expired
+    by ``t1`` (up to K a tick, the rest a later tick); v2 relays the
+    status-6 Puback to the client, v1's broker drops the fog's TaskAck
+    (BrokerBaseApp.cc:142-147), so ``app_gen == 1`` records no t_ack6.
+    The per-fog refunds are sums of integer MIPS below 2^24: exact."""
+    tasks = state.tasks
+    T, F, K = spec.task_capacity, spec.n_fogs, spec.window
+    U, S = spec.n_users, spec.max_sends_per_user
+    dev = t1.device
+    comp_full = (
+        (tasks.stage == _ST_RUNNING) & (tasks.fog >= 0) & (tasks.t_complete <= t1)
+    )
+    rot, state = _rot_and_defer(spec, state, comp_full, K)
+    idx, idxc, valid = _compact(comp_full, K, T, rot)
+    g = idxc.long()
+    fog_g = torch.clamp(tasks.fog[g], 0, F - 1)
+    mips_g = tasks.mips_req[g]
+    user_g = torch.div(g, S, rounding_mode="floor")
+    per_fog_v = _per_fog(valid, fog_g, F)
+    pool_avail = state.fogs.pool_avail + torch.where(
+        per_fog_v, mips_g[None, :], 0.0
+    ).sum(dim=1)
+    tasks = tasks.replace(stage=set_drop(tasks.stage, idx, _i8(_ST_DONE, dev)))
+    if spec.app_gen >= 2:
+        t_ack6 = tasks.t_complete[g] + cache.d2b[fog_g.long() + U] + cache.d2b[user_g]
+        tasks = tasks.replace(
+            t_ack6=set_drop(tasks.t_ack6, idx, torch.where(valid, t_ack6, _INF)),
+        )
+    n_comp = _isum(valid)
+    metrics = state.metrics.replace(n_completed=state.metrics.n_completed + n_comp)
+    buf = buf._replace(tx_f=buf.tx_f + _isum(per_fog_v, 1), rx_b=buf.rx_b + n_comp)
+    if spec.app_gen >= 2:
+        buf = buf._replace(
+            tx_b=buf.tx_b + n_comp, rx_u=add_drop(buf.rx_u, user_g, valid.to(_I32)),
+        )
+    return state.replace(
+        tasks=tasks, fogs=state.fogs.replace(pool_avail=pool_avail), metrics=metrics,
+    ), buf
+
+
+def _phase_pool_arrivals(spec, state, cache, buf, t1):
+    """POOL fogs accept or reject arriving tasks against their MIPS pool
+    (ComputeBrokerApp2.cc:258-310): accept iff the task's MIPS lies
+    strictly below the pool (:269), which it debits, expiring at ``now +
+    requiredTime``; a rejection's TaskAck is ignored by every broker.
+    Same-tick arrivals at one fog are checked in arrival order, rank r in
+    sub-phase r of ``spec.pool_phases``; deeper ranks stay in flight and
+    are ranked again next tick.  The ranks come from :func:`plan_arrivals`
+    (the arrival kernel on the card)."""
+    tasks = state.tasks
+    T, F, K = spec.task_capacity, spec.n_fogs, spec.window
+    U = spec.n_users
+    dev = t1.device
+    fog_alive = state.nodes.alive[U: U + F]
+    arr_full = (tasks.stage == _ST_TASK_INFLIGHT) & (tasks.t_at_fog <= t1)
+    rot, state = _rot_and_defer(spec, state, arr_full, K)
+    idx, idxc, valid = _compact(arr_full, K, T, rot)
+    g = idxc.long()
+    fog_g = tasks.fog[g]
+    fog_gc = torch.clamp(fog_g, 0, F - 1).long()
+    t_af_g = tasks.t_at_fog[g]
+    mips_g = tasks.mips_req[g]
+    dead_dst = valid & ~fog_alive[fog_gc]
+    arr = valid & ~dead_dst
+    per_fog_arr = _per_fog(arr, fog_g, F)
+    plan = plan_arrivals(
+        arr, fog_g, t_af_g, F, torch.ones((F,), dtype=torch.bool, device=dev),
+        per_fog=per_fog_arr,
+    )
+    pool = state.fogs.pool_avail
+    accept = torch.zeros_like(valid)
+    reject = torch.zeros_like(valid)
+    for r in range(spec.pool_phases):
+        at_r = plan.rank == r
+        sel_f = per_fog_arr & at_r[None, :]
+        # one row a fog at most: the sum is that row's MIPS
+        req_f = torch.where(sel_f, mips_g[None, :], 0.0).sum(dim=1)
+        has_f = sel_f.any(dim=1)
+        acc_f = has_f & (req_f < pool)  # strict <, ComputeBrokerApp2.cc:269
+        pool = pool - torch.where(acc_f, req_f, 0.0)
+        sel = arr & at_r
+        accept = accept | (sel & acc_f[fog_gc])
+        reject = reject | (sel & has_f[fog_gc] & ~acc_f[fog_gc])
+    inf_t = const(_INF, dev)
+    stage_k = torch.where(
+        accept, _i8(_ST_RUNNING, dev),
+        torch.where(
+            reject, _i8(_ST_REJECTED, dev),
+            torch.where(dead_dst, _i8(_ST_DROPPED, dev), tasks.stage[g]),
+        ),
+    )
+    tasks = tasks.replace(
+        stage=set_drop(tasks.stage, idx, stage_k),
+        t_service_start=set_drop(
+            tasks.t_service_start, idx, torch.where(accept, t_af_g, inf_t)
+        ),
+        t_complete=set_drop(
+            tasks.t_complete, idx,
+            torch.where(accept, t_af_g + const(spec.required_time, dev), inf_t),
+        ),
+    )
+    sums = _isum(torch.stack([reject, dead_dst, accept | reject]), 1)
+    metrics = state.metrics.replace(
+        n_rejected=state.metrics.n_rejected + sums[0],
+        n_dropped=state.metrics.n_dropped + sums[1],
+    )
+    # arrivals are fog rx; each decided arrival sends a TaskAck to the broker
+    buf = buf._replace(
+        tx_f=buf.tx_f + _isum(per_fog_arr & (accept | reject)[None, :], 1),
+        rx_f=buf.rx_f + _isum(per_fog_arr, 1),
+        rx_b=buf.rx_b + sums[2],
+    )
+    return state.replace(
+        tasks=tasks, fogs=state.fogs.replace(pool_avail=pool), metrics=metrics,
+    ), buf
+
+
+def _phase_local_completions(spec, state, cache, buf, t1):
+    """v1 broker-local tasks expire: status-6 straight to the client
+    (``releaseResource``, BrokerBaseApp.cc:369-394), the pool refunded
+    unless ``bug_compat.local_pool_leak`` (the reference never stores the
+    request, :208, so its pool only shrinks)."""
+    tasks = state.tasks
+    T, K, S = spec.task_capacity, spec.window, spec.max_sends_per_user
+    dev = t1.device
+    comp_full = (tasks.stage == _ST_LOCAL_RUN) & (tasks.t_complete <= t1)
+    rot, state = _rot_and_defer(spec, state, comp_full, K)
+    idx, idxc, valid = _compact(comp_full, K, T, rot)
+    g = idxc.long()
+    user_g = torch.div(g, S, rounding_mode="floor")
+    t_ack6 = tasks.t_complete[g] + cache.d2b[user_g]
+    tasks = tasks.replace(
+        stage=set_drop(tasks.stage, idx, _i8(_ST_DONE, dev)),
+        t_ack6=set_drop(tasks.t_ack6, idx, torch.where(valid, t_ack6, _INF)),
+    )
+    b = state.broker
+    if not spec.bug_compat.local_pool_leak:
+        # integer MIPS below 2^24: exact in any order
+        b = b.replace(
+            local_pool=b.local_pool + torch.where(valid, tasks.mips_req[g], 0.0).sum()
+        )
+    n_comp = _isum(valid)
+    metrics = state.metrics.replace(n_completed=state.metrics.n_completed + n_comp)
+    buf = buf._replace(
+        tx_b=buf.tx_b + n_comp, rx_u=add_drop(buf.rx_u, user_g, valid.to(_I32)),
+    )
+    return state.replace(tasks=tasks, broker=b, metrics=metrics), buf
+
+
+def _phase_v2_release(spec, state, cache, buf, t1, before_broker,
+                      resched_t=None, prerefunded=None):
+    """The v2 broker's shared-timer releaseResource (BrokerBaseApp2.cc:
+    284-312 through the self-message of :221-224).  One RELEASERESOURCE
+    self-message is pending at a time and each local accept reschedules
+    it, so only the last accept's expiry fires; a firing releases one
+    stored request, the first in decision order (ties by slot) whose
+    requiredTime passed before the fire: the pool gains its MIPS (an
+    offloaded request was stored without a debit, so its release inflates
+    the pool), a status-6 goes to the client, and a local task completes.
+
+    Called before the broker for a fire that precedes every pending
+    arrival, and after it for a fire this tick's decisions did not cancel
+    (``resched_t``: the timer that replaces a fire the broker's scan
+    already saw; ``prerefunded``: that scan applied the refund)."""
+    tasks, b = state.tasks, state.broker
+    T, S, U = spec.task_capacity, spec.max_sends_per_user, spec.n_users
+    dev = t1.device
+    inf = const(_INF, dev)
+    fire_t = b.release_timer_t
+    if before_broker:
+        tab2 = tasks.t_at_broker.reshape(U, S)
+        arr2 = (tasks.stage.reshape(U, S) == _ST_PUB_INFLIGHT) & (tab2 <= t1)
+        t_first = torch.where(arr2, tab2, inf).amin()
+        fire = (fire_t <= t1) & (fire_t <= t_first)
+    else:
+        fire = fire_t <= t1
+    expiry = tasks.t_at_broker + const(spec.required_time, dev)
+    open_m = (tasks.req_open > 0) & (expiry < fire_t)
+    key1 = torch.where(open_m, tasks.t_at_broker, inf)
+    cand = open_m & (key1 == key1.amin())
+    sel = torch.where(cand, torch.arange(T, dtype=_I32, device=dev), T).amin()
+    have = fire & (sel < T)
+    selc = torch.clamp(sel, 0, T - 1)
+    user_sel = torch.div(selc, S, rounding_mode="floor")
+    ack_t = fire_t + at(cache.d2b, user_sel)
+    was_local = at(tasks.stage, selc) == _ST_LOCAL_RUN
+    next_t = inf if resched_t is None else resched_t
+    refund = have if prerefunded is None else have & ~prerefunded
+    b = b.replace(
+        local_pool=b.local_pool + torch.where(refund, at(tasks.mips_req, selc), 0.0),
+        release_timer_t=torch.where(fire, next_t, fire_t),
+    )
+    scat = torch.where(have, sel, T).reshape(1)
+    scat_local = torch.where(have & was_local, sel, T).reshape(1)
+    # a duplicate status-6 for an offloaded request: the client keeps the
+    # first to land (mqttApp2.cc:279-291)
+    ack6 = at(tasks.t_ack6, selc)
+    tasks = tasks.replace(
+        req_open=set_drop(tasks.req_open, scat, torch.zeros((), dtype=torch.int8, device=dev)),
+        t_ack6=set_drop(tasks.t_ack6, scat, torch.minimum(ack6, ack_t).reshape(1)),
+        stage=set_drop(tasks.stage, scat_local, _i8(_ST_DONE, dev)),
+        t_complete=set_drop(tasks.t_complete, scat_local, fire_t.reshape(1)),
+    )
+    metrics = state.metrics.replace(
+        n_completed=state.metrics.n_completed + (have & was_local).to(_I32)
+    )
+    buf = buf._replace(
+        tx_b=buf.tx_b + have.to(_I32),
+        rx_u=add_drop(buf.rx_u, user_sel.reshape(1), have.to(_I32).reshape(1)),
+    )
+    return state.replace(tasks=tasks, broker=b, metrics=metrics), buf
+
+
+def _link_queues(spec, state, net, tx_all, dv: DynSpec):
+    """The wired links' DropTail queues (``wireless5.ini:72-73``): this
+    tick's egress bytes join each wired node's backlog, the link drains
+    ``link_drain_bytes`` a tick, and what passes ``link_queue_frames``
+    frames overflows; the overflow's share of the tick's bytes is next
+    tick's tail-drop probability, and the overflow in frames is counted.
+    Its float32 total is XLA's CPU reduction (:func:`..f32math.xla_sum`),
+    and the division by the frame size a product with its reciprocal."""
+    dev = tx_all.device
+    tb = float(spec.task_bytes)
+    add_bytes = tx_all.to(_F32) * const(tb, dev)
+    raw = state.nodes.link_backlog + add_bytes - knob(dv.link_drain_bytes, dev)
+    cap = const(float(spec.link_queue_frames * spec.task_bytes), dev)
+    wired = ~net.is_wireless
+    zero = const(0.0, dev)
+    backlog = torch.where(wired, torch.minimum(torch.clamp_min(raw, 0.0), cap), zero)
+    overflow = torch.where(wired, torch.clamp_min(raw - cap, 0.0), zero)
+    drop_p = torch.clamp(overflow / torch.clamp_min(add_bytes, 1.0), 0.0, 1.0)
+    n_drops = div_knob(xla_sum(overflow), tb).to(_I32)
+    return state.replace(
+        nodes=state.nodes.replace(link_backlog=backlog, link_drop_p=drop_p),
+        metrics=state.metrics.replace(
+            n_link_drops=state.metrics.n_link_drops + n_drops
+        ),
+    )
+
+
+# ----------------------------------------------------------------------
 # set-up, the tick and the runner
 # ----------------------------------------------------------------------
 
@@ -1221,21 +1740,59 @@ def make_step(spec: WorldSpec):
                 net, pos, state.nodes.alive, spec.broker_index, offered
             )
 
+        if spec.wired_queue_enabled:
+            # DropTail backpressure: last tick's egress backlog serialises
+            # ahead of new messages, both endpoints' backlogs on the
+            # shared node-to-broker delay (the reference's symmetric
+            # simplification); XLA contracts the node's own term into a
+            # multiply-add
+            backlog = state.nodes.link_backlog
+            inv_rate = knob(dv.link_inv_rate, dev)
+            qdelay_b = backlog[spec.broker_index] * inv_rate
+            cache = cache.replace(
+                d2b=fma(backlog, inv_rate.expand_as(backlog), cache.d2b) + qdelay_b
+            )
+
         if spec.connect_gating:
             state, buf = _phase_connect(spec, state, cache, buf, t0, t1)
         state = _phase_adverts(state, t1)
+        pool = spec.fog_model == int(FogModel.POOL)
+        if spec.adv_periodic and not pool:
+            state = _phase_periodic_adverts(spec, state, cache)
         if spec.max_sends_per_tick > 1:
             state, buf = _phase_spawn_multi(spec, state, net, cache, buf, t0, t1, dv)
         else:
             state, buf = _phase_spawn(spec, state, net, cache, buf, t0, t1, dv)
+        v2_local = spec.policy == int(Policy.LOCAL_FIRST) and spec.v2_local_broker
+        if v2_local:  # shared-timer fires that precede every arrival
+            state, buf = _phase_v2_release(spec, state, cache, buf, t1, True)
+        v2_resched = None
         if broker_dense_ok(spec):
             state, buf = _phase_broker_dense(spec, state, cache, buf, t1)
         else:
-            state, buf = _phase_broker(spec, state, cache, buf, t1)
-        if F > 0:
+            state, buf, v2_resched = _phase_broker(spec, state, cache, buf, t1)
+        if v2_local:  # fires this tick's decisions did not cancel
+            rs, pre = (None, None) if v2_resched is None else v2_resched
+            state, buf = _phase_v2_release(
+                spec, state, cache, buf, t1, False, resched_t=rs, prerefunded=pre
+            )
+        if F > 0 and pool:
+            if spec.adv_periodic:
+                # the periodic advert carries the pool at its fire time:
+                # the fog events up to the boundary settle first
+                t_fire = (_adv_periods(spec, state.tick) + 1.0) * const(spec.adv_interval, dev)
+                t_a = torch.minimum(t_fire, t1)
+                state, buf = _phase_pool_completions(spec, state, cache, buf, t_a)
+                state, buf = _phase_pool_arrivals(spec, state, cache, buf, t_a)
+                state = _phase_periodic_adverts(spec, state, cache)
+            state, buf = _phase_pool_completions(spec, state, cache, buf, t1)
+            state, buf = _phase_pool_arrivals(spec, state, cache, buf, t1)
+        elif F > 0:
             for _ in range(spec.completions_per_tick):
                 state, buf = _phase_completions(spec, state, cache, buf, t1)
             state, buf = _phase_fog_arrivals(spec, state, cache, buf, t1)
+        if spec.policy == int(Policy.LOCAL_FIRST) and not spec.v2_local_broker:
+            state, buf = _phase_local_completions(spec, state, cache, buf, t1)
         if spec.learn_active:
             # after the fog phases, so an ack landing this tick credits now
             state = _phase_learn_credit(spec, state, t1, dv)
@@ -1255,11 +1812,20 @@ def make_step(spec: WorldSpec):
                     nodes.assoc_sum[a1:],
                 ])
             )
+        state = state.replace(nodes=nodes)
+        if spec.wired_queue_enabled:
+            state = _link_queues(spec, state, net, tx_all, dv)
+            nodes = state.nodes
         if spec.energy_enabled:
-            # battery drain and harvest; a fog in service draws compute power
+            # battery drain and harvest; a fog in service (a POOL fog with
+            # any of its pool lent out) draws compute power
+            fog_busy = (
+                state.fogs.pool_avail < state.fogs.mips if pool
+                else state.fogs.current_task != NO_TASK
+            )
             computing = torch.cat([
                 torch.zeros((U,), dtype=torch.bool, device=dev),
-                state.fogs.current_task != NO_TASK,
+                fog_busy,
                 torch.zeros((spec.n_nodes - U - F,), dtype=torch.bool, device=dev),
             ])
             energy, alive = step_energy(

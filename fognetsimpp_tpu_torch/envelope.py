@@ -8,7 +8,7 @@ from __future__ import annotations
 
 from typing import Optional
 
-from .spec import FogModel, Policy, WorldSpec
+from .spec import Policy, WorldSpec
 
 
 def broker_dense_ok(spec: WorldSpec) -> bool:
@@ -27,18 +27,6 @@ def broker_dense_ok(spec: WorldSpec) -> bool:
 
 def slice_reject_reason(spec: WorldSpec, net=None) -> Optional[str]:
     """Why the port cannot run ``spec`` (and ``net``) yet; None = it can."""
-    if not spec.two_stage_arrivals:
-        return "the full arrival front (ROADMAP.md §1 item 7)"
-    if (
-        spec.fog_model != int(FogModel.FIFO)
-        or spec.policy == int(Policy.LOCAL_FIRST)
-        or spec.v2_local_broker or spec.adv_periodic or spec.app_gen != 3
-    ):
-        return "the v1/v2 apps, POOL fogs and LOCAL_FIRST (ROADMAP.md §1 item 10)"
-    if spec.link_up_s > 0:
-        return "the link warm-up of the v1/v2 example world (ROADMAP.md §1 item 10)"
-    if spec.wired_queue_enabled:
-        return "DropTail link queues (ROADMAP.md §1 item 25)"
     if spec.chaos:
         return "chaos worlds (ROADMAP.md §1 item 12)"
     if spec.hier_active:

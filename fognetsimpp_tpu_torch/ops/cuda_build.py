@@ -27,7 +27,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 #: The kernel sources, in link order.
-SOURCES = ("arrival_plan.cu", "ring_gather.cu", "cell_sum.cu")
+SOURCES = ("arrival_plan.cu", "ring_gather.cu", "cell_sum.cu", "pool_scan.cu")
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()

@@ -4,8 +4,9 @@
 :func:`schedule_batch` decides each task of a compacted window: a (K, F)
 score matrix and a row argmin for MIN_BUSY, MIN_LATENCY and ENERGY_AWARE,
 round-robin slots in event order, the task-id-keyed RANDOM stream, the
-bandit policies UCB, DUCB and EXP3 (:mod:`..learn.bandits`), and DYNAMIC
-over them by the device tensor ``policy_id``.  Every same-window arrival
+bandit policies UCB, DUCB and EXP3 (:mod:`..learn.bandits`), DYNAMIC
+over them by the device tensor ``policy_id``, and the one-winner MAX_MIPS
+scan of LOCAL_FIRST's offloads.  Every same-window arrival
 sees one snapshot of the broker's (stale) fog view, as the reference's
 broker between two advertisements does.  The federated broker domains
 (``fog_owner``, ``task_broker``) are ``ROADMAP.md`` §1 item 13.
@@ -124,6 +125,7 @@ def schedule_batch(
     rr_cursor: torch.Tensor,  # () i32
     key: torch.Tensor,  # PRNG key, for RANDOM without rand_u
     mips0_divisor: bool,  # static bug-compat switch
+    v1_max_scan: bool = True,  # static bug-compat switch (MAX_MIPS scan)
     policy_id: Optional[torch.Tensor] = None,  # () i32 (DYNAMIC)
     order_t: Optional[torch.Tensor] = None,  # (T,) f32 arrival times
     rand_u: Optional[torch.Tensor] = None,  # (T,) f32 per-task draws
@@ -136,9 +138,11 @@ def schedule_batch(
 
     MIN_BUSY reproduces ``BrokerBaseApp3.cc:267-281``: the first-wins
     tie-break of its strict ``<`` and, with ``mips0_divisor``, the bug of
-    dividing every estimate by ``brokers[0]``'s MIPS.  MAX_MIPS is the
-    dense broker's (:func:`scalar_winner`); LOCAL_FIRST is ``ROADMAP.md``
-    §1 item 10.
+    dividing every estimate by ``brokers[0]``'s MIPS.  MAX_MIPS and
+    LOCAL_FIRST's offload branch take one winner for the whole window,
+    the v1/v2 scan of :func:`scalar_winner` (``BrokerBaseApp.cc:228-240``);
+    the engine applies their per-task MIPS guard and LOCAL_FIRST's local
+    branch.
     """
     if fog_owner is not None or task_broker is not None or n_brokers != 1:
         raise NotImplementedError(
@@ -157,6 +161,13 @@ def schedule_batch(
 
     def decided(choice):
         return torch.where(mask, choice.to(_I32), none)
+
+    if policy in (int(Policy.MAX_MIPS), int(Policy.LOCAL_FIRST)):
+        winner = scalar_winner(
+            int(Policy.MAX_MIPS), view_busy, view_mips, registered, fog_alive,
+            fog_energy_frac, rtt_broker_fog, v1_max_scan,
+        )
+        return decided(winner.expand(T)), rr_cursor
 
     def from_scores(scores, avail_):
         scores = torch.where(avail_[None, :], scores, const(_BIG, dev))

@@ -15,6 +15,7 @@ import torch
 from fognetsimpp_tpu_torch.core import engine
 from fognetsimpp_tpu_torch.ops import arrival_kernels as ak
 from fognetsimpp_tpu_torch.ops import cell_kernels as ck
+from fognetsimpp_tpu_torch.ops import pool_kernels as pk
 from fognetsimpp_tpu_torch.ops import ring_kernels as rk
 from fognetsimpp_tpu_torch.parallel.taskshard import run_tp_sharded
 from fognetsimpp_tpu_torch.scenarios import smoke, wireless
@@ -644,4 +645,84 @@ def test_promoted_tick_and_operand_do_not_synchronise(cuda, name):
     cpu_spec, cpu_st, cpu_net, cpu_b = _compact_world("cpu", name)
     cpu = engine.run_chunked(spec, cpu_st, cpu_net, cpu_b, chunk_ticks=25)
     for a, c in zip(state_to_numpy(card), state_to_numpy(cpu)):
+        assert a.dtype == c.dtype and a.tobytes() == c.tobytes()
+
+
+# ----------------------------------------------------------------------
+# the local-pool scan and the v1/v2 worlds
+# ----------------------------------------------------------------------
+
+def _scan_rows(R, K, seed, pool=5000.0, fire=0.004):
+    """R sorted windows as rows: MIPS on a coarse grid, some rows invalid."""
+    rng = np.random.default_rng(seed)
+    mips = rng.choice(np.float32([100, 250, 400, 733]), (R, K)).astype(np.float32)
+    valid = rng.random((R, K)) < 0.8
+    t = np.sort(np.round(rng.random((R, K)) * 0.01, 3), axis=1).astype(np.float32)
+    pool0 = (pool * (1 + np.arange(R)) / R).astype(np.float32)
+    fire_t0 = np.full((R,), fire, np.float32)
+    fire_t0[::3] = np.inf
+    refund0 = np.full((R,), 333.0, np.float32)
+    return [torch.from_numpy(a) for a in (mips, valid, t, pool0, fire_t0, refund0)]
+
+
+@pytest.mark.parametrize("v2", [False, True])
+@pytest.mark.parametrize("R, K", [(1, 4096), (8, 4096), (3, 1), (5, 5000)])
+def test_pool_scan_kernel_equals_plain(cuda, R, K, v2):
+    cpu = _scan_rows(R, K, seed=R * 31 + K + v2)
+    got = pk.local_pool_scan_rows(*[a.to(cuda) for a in cpu], v2)
+    torch.cuda.synchronize()
+    want = pk.local_pool_scan_plain(*cpu, v2)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+
+
+def test_pool_scan_rule_makes_one_launch(cuda):
+    rows = [a.to(cuda) for a in _scan_rows(8, 4096, seed=7)]
+    pk.reset_launches()
+    got = torch.func.vmap(lambda *a: pk.local_pool_scan(*a, True))(*rows)
+    assert pk.LAUNCHES["local_pool_scan"] == 1
+    want = pk.local_pool_scan_plain(*[a.cpu() for a in rows], True)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_pool_scan_wrapper_does_not_synchronise_and_refuses_bad_inputs(cuda):
+    rows = [a.to(cuda) for a in _scan_rows(1, 4096, seed=3)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pk.local_pool_scan_rows(*rows, True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    with pytest.raises(TypeError):
+        pk.local_pool_scan_rows(rows[0].double(), *rows[1:], True)
+    with pytest.raises(ValueError):
+        pk.local_pool_scan_rows(rows[0][:, ::2], *rows[1:], True)
+
+
+V1V2_WORLDS = {
+    "v1_pool": dict(n_users=64, n_fogs=4, fog_model=1, app_gen=1, policy=5,
+                    broker_mips=3000.0, adv_periodic=True, adv_on_completion=False,
+                    horizon=0.1, send_interval=0.005, start_time_max=0.01),
+    "v2_hybrid": dict(n_users=64, n_fogs=4, fog_model=1, app_gen=2, policy=5,
+                      broker_mips=3000.0, v2_local_broker=True, adv_periodic=True,
+                      adv_on_completion=False, horizon=0.1, send_interval=0.004,
+                      start_time_max=0.01),
+    "front_droptail": dict(n_users=256, n_fogs=4, two_stage_arrivals=False,
+                           wired_queue_enabled=True, send_interval=1e-3,
+                           horizon=0.05, queue_capacity=16),
+}
+
+
+@pytest.mark.parametrize("name", sorted(V1V2_WORLDS))
+def test_v1v2_card_run_equals_cpu_run(cuda, name):
+    kw = V1V2_WORLDS[name]
+    runs = []
+    for device in (cuda, "cpu"):
+        spec, st, net, b = smoke.build(device=device, **kw)
+        pk.reset_launches()
+        runs.append(state_to_numpy(engine.run(spec, st, net, b)[0]))
+        if device == cuda and name != "front_droptail":
+            assert pk.LAUNCHES["local_pool_scan"] == spec.n_ticks
+    for a, c in zip(*runs):
         assert a.dtype == c.dtype and a.tobytes() == c.tobytes()

@@ -15,10 +15,15 @@ line of ``tests/test_parity.py`` that builds them:
   bug modes and ``:297`` RANDOM, each beside its port-against-JAX run in
   ``tests/test_torch_parity_worlds.py``, ``tests/test_torch_parity_bug_modes.py``
   and ``tests/test_torch_parity_random.py``;
-- ``:411`` fog 0 registering last (this file).
+- ``:411`` fog 0 registering last (this file);
+- ``:188`` the wired v1 world (``scenarios/wired_v1``: LOCAL_FIRST, POOL
+  fogs), ``:216`` v2 POOL fogs under MAX_MIPS and ``:252`` the v2 hybrid
+  broker with its shared release timer, in
+  ``tests/test_torch_des_wired_v1.py``, ``tests/test_torch_des_v2_pool.py``
+  and ``tests/test_torch_des_v2_hybrid.py``, each beside its
+  port-against-JAX run.
 
-The v1/v2 worlds (``:191``, ``:218``, ``:263``) wait for ``ROADMAP.md``
-§1 item 10.  The port runs 3,000-20,000 ticks of 0.1 ms a world.
+The port runs 3,000-20,000 ticks of 0.1-0.2 ms a world.
 """
 import jax
 import jax.numpy as jnp
@@ -30,9 +35,11 @@ from fognetsimpp_tpu import Stage
 from fognetsimpp_tpu.core import engine as jengine
 from fognetsimpp_tpu.native import bridge
 from fognetsimpp_tpu.scenarios import smoke as jsmoke
+from fognetsimpp_tpu.scenarios import wired_v1 as jwired_v1
 from fognetsimpp_tpu.spec import BugCompat
 from fognetsimpp_tpu_torch.core import engine as tengine
 from fognetsimpp_tpu_torch.scenarios import smoke as tsmoke
+from fognetsimpp_tpu_torch.scenarios import wired_v1 as twired_v1
 from fognetsimpp_tpu_torch.state import state_to_numpy
 
 
@@ -82,6 +89,17 @@ WORLDS = {
         horizon=0.3, send_interval=0.02, dt=1e-4, n_users=2, n_fogs=3,
         fog_mips=(2000.0, 3000.0, 2500.0), start_time_max=0.001),
         acc_set={0: 6e-3}),
+    "v1_local_first": dict(wired_v1=True, build=dict(  # :188
+        horizon=1.5, dt=2e-4)),
+    "v2_pool": dict(build=dict(  # :216, POOL fogs, MAX_MIPS
+        horizon=1.5, send_interval=0.05, dt=2e-4, n_users=2, n_fogs=2,
+        fog_mips=(1000.0, 2000.0), start_time_max=0.02, app_gen=2,
+        fog_model=1, policy=6, adv_on_completion=False, adv_periodic=True)),
+    "v2_hybrid": dict(build=dict(  # :252, LOCAL_FIRST with v2_local_broker
+        horizon=1.0, send_interval=0.004, dt=1e-4, n_users=2, n_fogs=2,
+        fog_mips=(1024.0, 2048.0), app_gen=2, fog_model=1, policy=5,
+        broker_mips=2048.0, v2_local_broker=True, adv_on_completion=False,
+        adv_periodic=True, send_stop_time=0.5, max_sends_per_user=130)),
 }
 
 
@@ -110,15 +128,29 @@ def _edit(name, spec, state, net, xp):
 
 def jax_world(name):
     """World ``name`` built and edited by the JAX package."""
-    spec, state, net, _ = jsmoke.build(**WORLDS[name]["build"])
+    build = jwired_v1.build if WORLDS[name].get("wired_v1") else jsmoke.build
+    spec, state, net, _ = build(**WORLDS[name]["build"])
     return _edit(name, spec, state, net, jnp)
 
 
 def port_run(name):
     """The port's final state of world ``name`` on the CPU."""
-    spec, state, net, bounds = tsmoke.build(device="cpu", **WORLDS[name]["build"])
+    build = twired_v1.build if WORLDS[name].get("wired_v1") else tsmoke.build
+    spec, state, net, bounds = build(device="cpu", **WORLDS[name]["build"])
     spec, state, net = _edit(name, spec, state, net, torch)
     return tengine.run(spec, state, net, bounds)[0]
+
+
+def assert_port_matches_jax(name, port_final):
+    """The port's final state of world ``name`` equals JAX ``run``'s on
+    every leaf (dtype, shape and bits)."""
+    spec, state, net = jax_world(name)
+    ref = [np.asarray(x) for x in jax.tree_util.tree_leaves(jengine.run(spec, state, net)[0])]
+    got = state_to_numpy(port_final)
+    assert len(got) == len(ref)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes(), (
+            f"{name}: leaf {i} differs")
 
 
 def replay(name, port_final):
@@ -201,6 +233,48 @@ def check_energy_aware(spec, final, des, used):
         spec.n_users: spec.n_users + spec.n_fogs
     ]
     np.testing.assert_allclose(eng_e, des["fog_energy"], rtol=0.01)
+
+
+def check_v1_local_first(spec, final, des, used):
+    """``test_parity_v1_local_first``."""
+    np.testing.assert_array_equal(np.asarray(final.tasks.stage)[used], des["stage"])
+    local3 = _eng(final, used, "t_ack3")
+    both3 = np.isfinite(local3) & np.isfinite(des["t_ack3"])
+    assert both3.sum() >= 8  # the ~9 pool-funded local tasks
+    np.testing.assert_allclose(local3[both3], des["t_ack3"][both3], rtol=1e-5)
+    ack6 = _eng(final, used, "t_ack6")
+    both6 = np.isfinite(ack6) & np.isfinite(des["t_ack6"])
+    assert (np.isfinite(ack6) == np.isfinite(des["t_ack6"])).all()
+    np.testing.assert_allclose(ack6[both6], des["t_ack6"][both6], rtol=1e-5)
+    np.testing.assert_array_equal(np.asarray(final.tasks.fog)[used], des["fog"])
+    tc = _eng(final, used, "t_complete")
+    done = np.isfinite(tc) & np.isfinite(des["t_complete"])
+    rel = np.abs(tc[done] - des["t_complete"][done]) / des["t_complete"][done]
+    assert rel.max() < 0.01
+
+
+def check_v2_pool(spec, final, des, used):
+    """``test_parity_v2_pool``."""
+    np.testing.assert_array_equal(np.asarray(final.tasks.fog)[used], des["fog"])
+    np.testing.assert_array_equal(np.asarray(final.tasks.stage)[used], des["stage"])
+    ack6 = _eng(final, used, "t_ack6")
+    both = np.isfinite(ack6) & np.isfinite(des["t_ack6"])
+    assert both.sum() >= 40
+    t0 = _eng(final, used, "t_create")[both]
+    lat_e = ack6[both] - t0
+    lat_d = des["t_ack6"][both] - t0
+    rel = np.abs(lat_e - lat_d) / np.maximum(lat_d, 1e-9)
+    assert rel.max() < 1e-3
+
+
+def check_v2_hybrid(spec, final, des, used):
+    """``test_parity_v2_hybrid_broker``."""
+    np.testing.assert_array_equal(np.asarray(final.tasks.stage)[used], des["stage"])
+    np.testing.assert_array_equal(np.asarray(final.tasks.fog)[used], des["fog"])
+    stage = np.asarray(final.tasks.stage)[used]
+    assert (stage == int(Stage.LOCAL_RUN)).sum() > 0  # still leaked
+    assert (np.asarray(final.tasks.fog)[used] >= 0).sum() > 5
+    _ack6_close(final, des, used, 10)
 
 
 # ----------------------------------------------------------------------

@@ -1,0 +1,27 @@
+"""The C++-DES parity gate pointed at the port: ``tests/test_parity.py``'s
+wired v1 world (``scenarios/wired_v1``: the v1 LOCAL_FIRST broker
+with its leaking pool, POOL fogs, TaskAck-dropped completions) (``:188``, 7,500 ticks of 0.2 ms): the port's ``run`` on
+the CPU against JAX ``run`` on every leaf, then its final state replayed
+through the native simulator with that file's assertions and tolerances;
+built, replayed and checked by ``tests/test_torch_des.py``.
+"""
+import pytest
+
+from tests import test_torch_des as des
+from tests.test_torch_des import one_torch_thread  # noqa: F401 (a fixture)
+
+NAME = "v1_local_first"
+
+
+@pytest.fixture(scope="module")
+def port_final():
+    return des.port_run(NAME)
+
+
+def test_v1_local_first_world_matches_jax_every_leaf(port_final):
+    des.assert_port_matches_jax(NAME, port_final)
+
+
+def test_v1_local_first_world_holds_to_the_des(port_final):
+    spec, final, d, used, _ = des.replay(NAME, port_final)
+    des.check_v1_local_first(spec, final, d, used)

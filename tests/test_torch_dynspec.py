@@ -410,8 +410,9 @@ TICK_MODULES = [
     "learn/rewards.py", "learn/bandits.py", "ops/sched.py", "ops/queues.py",
     "parallel/taskshard.py", "parallel/shards.py",
 ]
-#: The gate reads the tick may make of a promoted field on the spec.
-GATES = {("send_stop_time", "!="), ("uplink_loss_prob", ">")}
+#: The gate reads the tick may make of a promoted field on the spec
+#: (``dynspec._GATED_POSITIVE`` and the finite stop time).
+GATES = {("send_stop_time", "!="), ("uplink_loss_prob", ">"), ("link_up_s", ">")}
 
 
 def _spec_reads(tree):

@@ -2,7 +2,8 @@
 
 ``fognetsimpp_tpu_torch.scenarios.smoke.build`` from a seed must give the
 JAX ``smoke.build`` world bit for bit (positions included); the numpy
-carry-across must round-trip; specs outside the slice must raise.
+carry-across must round-trip; specs outside the slice must raise, and
+the specs the slice admitted since must run as JAX runs them.
 """
 import dataclasses
 
@@ -133,16 +134,13 @@ def test_entry_points_need_a_device_when_cuda_is_absent():
 @pytest.mark.parametrize(
     "kw, item",
     [
-        (dict(n_brokers=2), "item 13"),
-        (dict(fog_model=int(FogModel.POOL), app_gen=2), "item 10"),
-        (dict(two_stage_arrivals=False), "item 7"),
-        (dict(link_up_s=1.0), "item 10"),
-        (dict(wired_queue_enabled=True), "item 25"),
-        (dict(telemetry=True, telemetry_hist=True), "item 14"),
-        (dict(policy=int(Policy.LOCAL_FIRST), broker_mips=2048.0), "item 10"),
-        (dict(chaos=True, chaos_mtbf_s=1.0, chaos_mttr_s=0.1), "item 12"),
-        (dict(telemetry=True), "item 14"),
-        (dict(record_tick_series=True), "item 15"),
+        pytest.param(dict(n_brokers=2), "item 13", id="kw0-item 13"),
+        pytest.param(dict(telemetry=True, telemetry_hist=True), "item 14",
+                     id="kw5-item 14"),
+        pytest.param(dict(chaos=True, chaos_mtbf_s=1.0, chaos_mttr_s=0.1), "item 12",
+                     id="kw7-item 12"),
+        pytest.param(dict(telemetry=True), "item 14", id="kw8-item 14"),
+        pytest.param(dict(record_tick_series=True), "item 15", id="kw9-item 15"),
     ],
 )
 def test_specs_outside_the_slice_raise(kw, item):
@@ -153,6 +151,39 @@ def test_specs_outside_the_slice_raise(kw, item):
         max_sends_per_user=5, **kw,
     ).validate()
     assert item in envelope.slice_reject_reason(spec)
+
+
+@pytest.mark.parametrize(
+    "kw, item",
+    [
+        (dict(fog_model=int(FogModel.POOL), app_gen=2), "item 10"),
+        (dict(two_stage_arrivals=False), "item 7"),
+        (dict(link_up_s=1.0), "item 10"),
+        (dict(wired_queue_enabled=True), "item 25"),
+        (dict(policy=int(Policy.LOCAL_FIRST), broker_mips=2048.0), "item 10"),
+    ],
+)
+def test_specs_once_outside_the_slice_run_and_match_jax(kw, item):
+    """The specs the slice refused until items 7, 10 and 25 were ported
+    are admitted, and the same spec runs to JAX ``run``'s final state,
+    every leaf (dtype, shape and bits)."""
+    spec = TWorldSpec(
+        n_users=2, n_fogs=2, send_interval=0.05, horizon=0.05,
+        max_sends_per_user=5, **kw,
+    ).validate()
+    assert envelope.slice_reject_reason(spec) is None, item
+    world = dict(horizon=0.05, **kw)
+    spec_t, st_t, net_t, b_t = tsmoke.build(device="cpu", **world)
+    final_t, _ = tengine.run(spec_t, st_t, net_t, b_t)
+    spec_j, st_j, net_j, b_j = jsmoke.build(**world)
+    final_j, _ = jengine.run(spec_j, st_j, net_j, b_j)
+    ref = [np.asarray(x) for x in jax.tree_util.tree_leaves(final_j)]
+    got = state_to_numpy(final_t)
+    assert len(got) == len(ref)
+    for (path, _), a, b in zip(tree_leaves(final_t), got, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape, path
+        assert a.tobytes() == b.tobytes(), path
+    assert int(final_t.metrics.n_published) > 0
 
 
 def test_link_cache_and_pair_delay_match_jax():
