@@ -151,13 +151,19 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    arrival front with DropTail link queues: each timed after a warm-up
    run of its first ticks, card against CPU every leaf, a short profile; ``local_pool_scan``
    against its plain version bit for bit on the first window of the v1
-   and the v2 run that holds a row, and on 8 replicas of the v2 window in
-   one launch (the batching rule), its device time, one launch a tick and
-   its bound; ``fused_arrival_plan`` against its plain version on the
-   first non-empty pool-arrival window of the v2 run;
+   and the v2 run that holds a row, on 8 replicas of the v2 window in
+   one launch (the batching rule) and on 128, on dense windows (every
+   valid row taken, v1 and v2) and on a v2 window whose timer fires in
+   its middle (``scenarios/pool_scan_inputs``): its device time, an
+   empty launch timed the same way (the floor), one launch a tick and its
+   bound (bytes, operations, and the chain over the takes and the fire);
+   ``fused_arrival_plan`` against its plain version on the first
+   non-empty pool-arrival window of the v2 run;
 25. wired_v1 (``scenarios/wired_v1``, 0.5 s of 1 ms) and example
    (``scenarios/example``, 1.1 s of 1 ms: past the 1.0414 s link-up and
-   into the drain), card against CPU every leaf.
+   into the drain), card against CPU every leaf, and ``local_pool_scan``
+   against its plain version on each run's first window that holds a
+   row.
    Every phase from 18 on resets the wrapper counts before its path and
    fails if a kernel of the path was launched no time;
 
@@ -198,14 +204,12 @@ CELL_KERNELS = (
 MAX_CELL_LAUNCHES = 4
 #: Cycles of one dependent float32 add, the unit of a cell's chain.
 CYCLES_PER_ADD = 4
-#: Cycles of the sleep kernel that holds the stream while the host queues
-#: the calls ``stream_ms`` times (about 25 ms at the H100's boost clock).
-SLEEP_CYCLES = 50_000_000
 
 #: Name fragment of the local-pool scan's one launch in a device trace.
 POOL_KERNEL = "local_pool_scan_kernel"
-#: Dependent float32 operations on the pool's chain a row: v1 compares
-#: and subtracts; v2 also compares with the fire time and adds the refund.
+#: Dependent float32 operations on the pool's chain an event (a take or
+#: the timer's fire): v1 compares and subtracts; v2 also compares with the
+#: fire time and adds the refund.
 POOL_CHAIN_OPS = {False: 2, True: 4}
 #: Bytes and operations a valid row of the scan needs: its MIPS (and
 #: time, v2) read, and the chain's operations plus the take's select.
@@ -349,18 +353,16 @@ LEARNED_NRC = 16
 WHATIF_CELLS = 8
 #: ``tp_chunked``: the retune at tick 10 of the tp_window world's 20.
 TP_RETUNE = {"uplink_loss_prob": 0.03, "send_stop_time": 0.06}
-#: The bench world's v1/v2 and front phases: spec overrides of each.
-V1V2_BENCH = {
-    "v1_bench": dict(app_gen=1, fog_model=1, policy=5, broker_mips=50_000.0,
-                     adv_periodic=True, adv_on_completion=False, derive_acks=False),
-    "v2_bench": dict(app_gen=2, fog_model=1, policy=5, broker_mips=50_000.0,
-                     v2_local_broker=True, adv_periodic=True,
-                     adv_on_completion=False, derive_acks=False),
-    "front_droptail": dict(two_stage_arrivals=False, wired_queue_enabled=True,
-                           derive_acks=False),
-}
-#: Replicas of the v2 window that the scan's batching rule is held on.
-POOL_REPLICAS = 8
+#: The bench world's front phase: its spec overrides (the v1/v2 phases'
+#: are ``scenarios.pool_scan_inputs.V1V2``).
+FRONT_DROPTAIL = dict(two_stage_arrivals=False, wired_queue_enabled=True,
+                      derive_acks=False)
+#: Replicas of the v2 window that the scan's batching rule is held on, and
+#: the larger batch the scan is also timed on.
+POOL_REPLICAS, POOL_REPLICAS_WIDE = 8, 128
+#: Rows of the scan's synthetic windows (``pool_scan_inputs.rows``): the
+#: bench world's window.
+POOL_SYNTH_K = 4096
 #: Horizons of the scenario worlds held card against CPU.
 WIRED_V1_HORIZON, EXAMPLE_HORIZON = 0.5, 1.1
 
@@ -394,10 +396,14 @@ def main() -> int:
     )
     from fognetsimpp_tpu_torch.runtime.signals import summarize
     from fognetsimpp_tpu_torch.scenarios import (
-        cell_sum_inputs, example, smoke, wired_v1, wireless,
+        cell_sum_inputs, example, pool_scan_inputs, smoke, wired_v1, wireless,
     )
     from fognetsimpp_tpu_torch.spec import BugCompat, Policy
     from fognetsimpp_tpu_torch.state import state_to_numpy, tree_leaves, tree_map
+    # device ms by CUDA events behind a sleep kernel: the replica paths'
+    # kernel rows (the profiler's trace of a call dropped launches there)
+    # and the scan's
+    from fognetsimpp_tpu_torch.tools.ab import stream_ms
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -464,28 +470,6 @@ def main() -> int:
             torch.cuda.synchronize()
             runs.append(a.elapsed_time(b) / reps)
         return statistics.median(runs)
-
-    def stream_ms(fn, reps, runs=5):
-        """Device ms a call of ``fn``, its launches back to back: the calls
-        are queued behind a sleep kernel that holds the stream while the
-        host launches them, so the CUDA events around them time the card's
-        work and not the host's (median of ``runs``).  For the replica paths'
-        kernel rows, where the profiler's trace of a call came back with
-        some of its launches missing on the card."""
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(runs):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(SLEEP_CYCLES)
-            a.record()
-            for _ in range(reps):
-                fn()
-            b.record()
-            torch.cuda.synchronize()
-            times.append(a.elapsed_time(b) / reps)
-        return statistics.median(times)
 
     def max_abs_err(got, want):
         err = 0.0
@@ -1945,9 +1929,11 @@ def main() -> int:
     del card, carry, fork
 
     # ---- 24. the v1/v2 apps and the full front with DropTail, full width --
+    v1v2_bench = {**pool_scan_inputs.V1V2, "front_droptail": FRONT_DROPTAIL}
+
     def v1v2_build(name):
         return lambda device: smoke.build(
-            device=device, **dict(bench_world(5e-3), **V1V2_BENCH[name]))
+            device=device, **dict(bench_world(5e-3), **v1v2_bench[name]))
 
     def world_run(phase, build, need):
         """A warm-up run of the first ticks, then the timed run (every
@@ -1985,31 +1971,40 @@ def main() -> int:
         n_leaves = assert_same(card, cpu, phase)
         return spec, card, calls, launches, wall, cpu_s, n_leaves
 
-    def pool_bound(valid, v2):
+    def pool_bound(rows, got, v2):
         """The least time for the scan on these rows: each valid row's
         MIPS (and time) read once, the valid flags read and the takes
-        written once, against the operations the valid rows need; and the
-        chain of the pool's dependent operations at the SM clock."""
+        written once; the operations the valid rows need; and the chain of
+        the pool's dependent operations over the events that change it
+        (each world's takes and fire, the longest world) at the SM clock.
+        The bound is the largest of the three.  The chain is the
+        operations' own limit (their dependence, not their rate), so
+        ``bound_by`` names it "operations"; ``ops_ms`` and ``chain_ms``
+        tell the two apart."""
+        valid = rows[1]
         R, K = valid.shape
         n_valid = int(valid.sum())
         n_bytes = 2 * R * K + n_valid * (8 if v2 else 4) + R * 17
         n_ops = n_valid * POOL_ROW_OPS[v2]
+        events = int((got[0].sum(dim=1) + got[2]).max()) if R else 0
+        clock = sm_clock_mhz()
         t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
         t_ops = n_ops / CUDA_CORE_OPS_PER_S * 1e3
-        longest = int(valid.sum(dim=1).max())
-        clock = sm_clock_mhz()
+        t_chain = events * POOL_CHAIN_OPS[v2] * CYCLES_PER_ADD / (clock * 1e6) * 1e3
         return {
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_ms": max(t_bytes, t_ops, t_chain),
+            "bound_by": "bytes" if t_bytes >= max(t_ops, t_chain) else "operations",
             "bound_bytes": n_bytes, "bound_ops": n_ops, "valid_rows": n_valid,
-            "sm_clock_mhz": clock,
-            "chain_ms": longest * POOL_CHAIN_OPS[v2] * CYCLES_PER_ADD / (clock * 1e6) * 1e3,
+            "bytes_ms": t_bytes, "ops_ms": t_ops, "chain_ms": t_chain,
+            "chain_events": events, "sm_clock_mhz": clock,
         }
 
-    def check_pool_scan(what, rows, v2, reps=(50, 5)):
+    def check_pool_scan(what, rows, v2, reps=(50, 5), plain_once=False):
         """``local_pool_scan`` against its plain version on ``rows`` (R
         worlds as rows, the layout the taps see), bit for bit: device and
-        wall times of both, launches a call, the bound."""
+        wall times of both, an empty launch timed the same way (the
+        floor), launches a call, the bound.  ``plain_once`` times the
+        plain version by one call (it takes seconds on a wide batch)."""
         run_k = lambda: pk.local_pool_scan_rows(*rows, v2)  # noqa: E731
         run_p = lambda: pk.local_pool_scan_plain(*rows, v2)  # noqa: E731
         torch.cuda.synchronize()
@@ -2032,19 +2027,30 @@ def main() -> int:
             # CUDA events: the profiler's trace of these calls came back
             # empty six times running on the card
             "ms": stream_ms(run_k, reps[0]),
+            "launch_floor_ms": stream_ms(lambda: torch.cuda._sleep(0), reps[0]),
             "timed_by": "CUDA events behind a sleep kernel",
             "launches_a_call": launches,
             # the plain version reads its rows to the host once a call
-            "plain_ms": per_call_ms(run_p, reps[1]),
+            "plain_ms": (stream_ms(run_p, 1, runs=1) if plain_once
+                         else per_call_ms(run_p, reps[1])),
             "wrapper_ms": per_call_ms(run_k, reps[0]),
             "takes": int(got[0].sum()), "fired": int(got[2].sum()),
-            **pool_bound(rows[1], v2),
+            **pool_bound(rows, got, v2),
         }
         emit({"phase": "kernel", **{k: v for k, v in r.items() if not k.endswith("_ms")},
               "device_us": r["ms"] * 1e3, "plain_wall_us": r["plain_ms"] * 1e3,
               "wrapper_us": r["wrapper_ms"] * 1e3, "bound_us": r["bound_ms"] * 1e3,
-              "chain_us": r["chain_ms"] * 1e3})
+              "bytes_us": r["bytes_ms"] * 1e3, "ops_us": r["ops_ms"] * 1e3,
+              "chain_us": r["chain_ms"] * 1e3,
+              "launch_floor_us": r["launch_floor_ms"] * 1e3})
         return r
+
+    def pool_case(r):
+        """A scan row's numbers on one more window."""
+        return {k: r[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "ops_ms", "chain_ms",
+            "chain_events", "launch_floor_ms", "max_abs_err", "launches_a_call",
+            "R", "K", "valid_rows", "takes", "fired")}
 
     def first_call(calls, name):
         """The first kept call of ``name`` whose window holds a row."""
@@ -2064,15 +2070,18 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
             "library": "none: no PyTorch call computes a sequential pool debit",
-            "shape": {"R": r["R"], "K": r["K"], "valid_rows": r["valid_rows"]},
+            "shape": {"R": r["R"], "K": r["K"], "valid_rows": r["valid_rows"],
+                      "takes": r["takes"], "fired": r["fired"]},
             "shape_of": path, "bound_bytes": r["bound_bytes"],
-            "bound_ops": r["bound_ops"], "chain_ms": r["chain_ms"],
+            "bound_ops": r["bound_ops"], "bytes_ms": r["bytes_ms"], "ops_ms": r["ops_ms"],
+            "chain_ms": r["chain_ms"], "chain_events": r["chain_events"],
+            "launch_floor_ms": r["launch_floor_ms"],
             "wrapper_ms": r["wrapper_ms"], "launches_a_call": r["launches_a_call"],
             "timed_by": r["timed_by"],
         }
 
     v1v2_launches = {}
-    for phase in V1V2_BENCH:
+    for phase in v1v2_bench:
         build = v1v2_build(phase)
         need = ("fused_arrival_plan",) + (("local_pool_scan",) if phase != "front_droptail" else ())
         spec, card, calls, launches, wall, cpu_s, n_leaves = world_run(phase, build, need)
@@ -2121,17 +2130,25 @@ def main() -> int:
             )(pool0 * scale / POOL_REPLICAS)
             if pk.LAUNCHES["local_pool_scan"] - before != 1:
                 raise SystemExit("local_pool_scan: 8 replicas took more than one launch")
-            rows = [x.expand(POOL_REPLICAS, *x.shape).contiguous() for x in (mips, valid, t)]
-            rows = rows + [pool0 * scale / POOL_REPLICAS,
-                           fire_t0.expand(POOL_REPLICAS).contiguous(),
-                           refund0.expand(POOL_REPLICAS).contiguous()]
+            rows = pool_scan_inputs.replicas(args[:6], POOL_REPLICAS)
             if not same_bits(got, pk.local_pool_scan_plain(*rows, True)):
                 raise SystemExit("local_pool_scan: the batching rule differs from "
                                  "its plain version on 8 replicas")
             rr = check_pool_scan(f"{phase}, {POOL_REPLICAS} replicas", rows, True)
-            kernel_rows[("local_pool_scan", phase)]["replicas_8"] = {
-                k: rr[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "chain_ms",
-                                   "max_abs_err", "launches_a_call", "R", "K")}
+            kernel_rows[("local_pool_scan", phase)]["replicas_8"] = pool_case(rr)
+            rows = pool_scan_inputs.replicas(args[:6], POOL_REPLICAS_WIDE)
+            rr = check_pool_scan(f"{phase}, {POOL_REPLICAS_WIDE} replicas", rows, True,
+                                 plain_once=True)
+            kernel_rows[("local_pool_scan", phase)]["replicas_128"] = pool_case(rr)
+            # the kernel's other paths: dense windows (every group walked
+            # row by row) and a timer that fires in the middle of the window
+            for kind, path_v2, key in (("dense", False, ("v1_bench", "dense")),
+                                       ("dense", True, ("v2_bench", "dense")),
+                                       ("timer_fire", True, ("v2_bench", "timer_fire"))):
+                rows = [torch.from_numpy(np.asarray(a)).to(dev) for a in
+                        pool_scan_inputs.rows(kind, 1, POOL_SYNTH_K, seed=len(kind))]
+                rr = check_pool_scan(f"{kind}, K = {POOL_SYNTH_K}", rows, path_v2)
+                kernel_rows[("local_pool_scan", key[0])][key[1]] = pool_case(rr)
             # the arrival kernel on the first non-empty pool-arrival window
             fa = first_call(calls, "fused_arrival_plan")
             r = check_arrival_kernel("fused_arrival_plan", fa[:3], fa[3], (20, 10, 50, 10))
@@ -2148,18 +2165,33 @@ def main() -> int:
          ("local_pool_scan", "fused_arrival_plan", "cell_sum_ordered")),
     ):
         spec, st, net, b = build(dev)
+        calls = []
+
+        def keep(name, *args):  # every scan window, read after the run
+            if name == "local_pool_scan":
+                calls.append((name, args))
+
         torch.cuda.synchronize()
         reset_launches()
-        t0 = time.perf_counter()
-        card, _ = engine.run(spec, st, net, b)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        cuda_build.TAPS.append(keep)
+        try:
+            t0 = time.perf_counter()
+            card, _ = engine.run(spec, st, net, b)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            cuda_build.TAPS.remove(keep)
         launches = all_launches()
         need_launches(phase, launches, need)
         t0 = time.perf_counter()
         spec_c, st_c, net_c, b_c = build("cpu")
         n_leaves = assert_same(card, engine.run(spec_c, st_c, net_c, b_c)[0], phase)
         cpu_s = time.perf_counter() - t0
+        args = first_call(calls, "local_pool_scan")
+        r = check_pool_scan(f"{phase}, first real window", args[:6], bool(args[6]))
+        kernel_rows[("local_pool_scan", "v2_bench" if args[6] else "v1_bench")][
+            f"{phase}_window"] = pool_case(r)
+        del calls
         m = card.metrics
         emit({"phase": phase, "ticks": spec.n_ticks, "leaves_equal": n_leaves,
               "n_published": int(m.n_published), "n_local": int(m.n_local),

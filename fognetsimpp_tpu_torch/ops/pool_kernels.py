@@ -14,13 +14,14 @@ adds and subtracts has no elementwise or reduction form, and a loop of
 tensor ops over the rows would be thousands of launches a tick.
 
 On a CUDA tensor the wrapper launches ``csrc/pool_scan.cu`` on the
-current stream (built on first use by :mod:`.cuda_build`): one block a
-world, whose thread 0 walks the rows with single-rounded adds.  It never
-waits for the card and raises if the launch fails; on a CPU tensor it
-runs :func:`local_pool_scan_plain`.  Each call on the card adds one to
+current stream (built on first use by :mod:`.cuda_build`): one warp a
+world, which steps only the rows that can change the pool (a warp ballot
+finds them) with single-rounded adds.  It never waits for the card and
+raises if the launch fails; on a CPU tensor it runs
+:func:`local_pool_scan_plain`.  Each call on the card adds one to
 :data:`LAUNCHES`.  The wrapper is a ``torch.library`` custom operator
 whose batching rule scans a replica batch (``vmap``) in one launch, one
-block a replica.
+warp a replica.
 """
 from __future__ import annotations
 

@@ -14,13 +14,13 @@ with ``--sweep`` the shapes around the tiers' crossover
 (``cell_sum_inputs.sweep_cases``); and the plain version's result on each.
 Each run is a process of its own with ROOT first on the import path, so it
 builds and launches that tree's kernel; the arms take turns, A B B A in
-each of two rounds, so that a drift of the card during the call falls on
-both.  A run checks each result bit for bit against the plain version's
+each of two rounds (``tools/ab.py``), so that a drift of the card during
+the call falls on both.  A run checks each result bit for bit against the plain version's
 and times each case: the device time of a call (each kernel's mean over
 the launches ``torch.profiler`` traced, summed over the call's kernels)
 and the time of a call between two CUDA events around back-to-back calls.
-It prints one JSON line a run, then the medians by arm and case, the
-card's name and power limit (``nvidia-smi``) and its SM clock.  Needs a
+It prints one JSON line a run, then the medians by arm and case, B's
+over A's, the card's name and power limit (``nvidia-smi``) and its SM clock.  Needs a
 CUDA card.
 """
 from __future__ import annotations
@@ -28,14 +28,13 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import statistics
-import subprocess
 import sys
 import tempfile
 
 import numpy as np
 
-ROUNDS = 2
+from . import ab
+
 #: Calls timed a run, by case: a kernel that reads all entries a cell
 #: takes milliseconds at 128 replicas.
 REPS = {"128 replicas": 5}
@@ -102,24 +101,10 @@ print(json.dumps(res))
 """
 
 
-def _smi(query: str) -> str:
-    return subprocess.run(
-        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-
-
 def run_arm(arm: str, data: str, names: list, reps: dict) -> dict:
     root, _, tier = arm.partition("@")
-    env = dict(os.environ, PYTHONPATH=os.path.abspath(root))
-    out = subprocess.run(
-        [sys.executable, "-c", _CHILD, data, json.dumps(names), json.dumps(reps),
-         json.dumps(FORCE[tier] if tier else None)],
-        cwd=os.path.abspath(root), env=env, capture_output=True, text=True,
-    )
-    if out.returncode != 0:
-        raise SystemExit(f"run of {arm} failed:\n{out.stderr[-4000:]}")
-    return json.loads(out.stdout.strip().splitlines()[-1])
+    return ab.run_child(root, _CHILD, [data, json.dumps(names), json.dumps(reps),
+                                       json.dumps(FORCE[tier] if tier else None)], arm)
 
 
 def main() -> int:
@@ -157,23 +142,16 @@ def main() -> int:
         np.savez(data, **arrays)
         print(json.dumps({"cases": {nm: {"N": int(c.shape[0]), "A": int(A)}
                                     for nm, c, _, A in cases},
-                          "nvidia_smi": _smi("name,power.limit")}), flush=True)
-        for rnd in range(ROUNDS):
-            for arm in (a, b, b, a):
-                r = run_arm(arm, data, names, reps)
-                for nm in names:
-                    if not r[nm]["equal"]:
-                        raise SystemExit(f"{arm}: {nm} differs from the plain version")
-                    by_arm[arm][nm].append(r[nm]["device_us"])
-                print(json.dumps({"arm": arm, "round": rnd,
-                                  "clocks_sm": _smi("clocks.sm"), **r}), flush=True)
-    med = {t: {nm: statistics.median(v) for nm, v in d.items()} for t, d in by_arm.items()}
+                          "nvidia_smi": ab.smi("name,power.limit")}), flush=True)
+        for arm, rnd, r in ab.in_turns((a, b), lambda arm: run_arm(arm, data, names, reps)):
+            for nm in names:
+                if not r[nm]["equal"]:
+                    raise SystemExit(f"{arm}: {nm} differs from the plain version")
+                by_arm[arm][nm].append(r[nm]["device_us"])
+            print(json.dumps({"arm": arm, "round": rnd,
+                              "clocks_sm": ab.smi("clocks.sm"), **r}), flush=True)
     print(json.dumps({
-        "median_device_us": med,
-        "spread_device_us": {t: {nm: [min(v), max(v)] for nm, v in d.items()}
-                             for t, d in by_arm.items()},
-        "b_over_a": {nm: med[b][nm] / med[a][nm] for nm in names},
-        "nvidia_smi": _smi("name,power.limit"),
+        **ab.summary(by_arm, "device_us"), "nvidia_smi": ab.smi("name,power.limit"),
     }), flush=True)
     return 0
 

@@ -7,11 +7,11 @@ Each ROOT is a checkout that holds ``fognetsimpp_tpu_torch`` (for example
 this tree and a ``git archive`` of its parent).  Each run is a process of
 its own with ROOT first on the import path, so it runs that tree's engine
 and builds that tree's kernels.  The trees take turns, A B B A in each
-of two rounds, so that a drift of the host during the call falls on
-both.  A run builds the world on the card, runs it once as a warm-up,
-then times ``engine.run`` three times; it prints one JSON line with the
-tree, each rep's ms per tick and the device events of one profiled tick
-after the timed reps.  The world is ``chip_smoke.py``'s bench world at
+of two rounds (``tools/ab.py``), so that a drift of the host during the
+call falls on both.  A run builds the world on the card, runs it once as
+a warm-up, then times ``engine.run`` three times; it prints one JSON line
+with the tree, each rep's ms per tick and the device events of one
+profiled tick after the timed reps, then the medians and spreads.  The world is ``chip_smoke.py``'s bench world at
 dt 5 ms (10,000 users x 32 fogs, K = 4096, derive_acks, 20 ticks).
 Needs a CUDA card.
 """
@@ -19,18 +19,12 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
-import statistics
-import subprocess
 import sys
 
-BENCH5 = dict(
-    n_users=10_000, n_fogs=32, fog_mips=[1000.0, 2000.0, 3000.0, 4000.0],
-    send_interval=0.0025, horizon=0.1, dt=5e-3, max_sends_per_user=44,
-    max_sends_per_tick=2, queue_capacity=128, start_time_max=0.025,
-    derive_acks=True, arrival_window=4096,
-)
-ROUNDS, REPS = 2, 3
+from ..scenarios.pool_scan_inputs import BENCH5
+from . import ab
+
+REPS = 3
 
 #: What a run executes, with the tree's root first on ``sys.path``.
 _CHILD = r"""
@@ -63,30 +57,18 @@ print(json.dumps({"ms_per_tick": ms, "device_events_one_tick": events,
 
 
 def run_tree(root: str) -> dict:
-    env = dict(os.environ, PYTHONPATH=os.path.abspath(root))
-    out = subprocess.run(
-        [sys.executable, "-c", _CHILD, json.dumps(BENCH5), str(REPS)],
-        cwd=os.path.abspath(root), env=env, capture_output=True, text=True,
-    )
-    if out.returncode != 0:
-        raise SystemExit(f"run in {root} failed:\n{out.stderr[-4000:]}")
-    return json.loads(out.stdout.strip().splitlines()[-1])
+    return ab.run_child(root, _CHILD, [json.dumps(BENCH5), str(REPS)], root)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("roots", nargs=2, help="the two trees, A then B")
-    a, b = ap.parse_args().roots
-    by_tree = {a: [], b: []}
-    for rnd in range(ROUNDS):
-        for root in (a, b, b, a):
-            r = run_tree(root)
-            by_tree[root] += r["ms_per_tick"]
-            print(json.dumps({"tree": root, "round": rnd, **r}), flush=True)
-    print(json.dumps({
-        "median_ms_per_tick": {t: statistics.median(v) for t, v in by_tree.items()},
-        "spread": {t: [min(v), max(v)] for t, v in by_tree.items()},
-    }), flush=True)
+    roots = ap.parse_args().roots
+    by_tree = {root: {"ms_per_tick": []} for root in roots}
+    for root, rnd, r in ab.in_turns(roots, run_tree):
+        by_tree[root]["ms_per_tick"] += r["ms_per_tick"]
+        print(json.dumps({"tree": root, "round": rnd, **r}), flush=True)
+    print(json.dumps(ab.summary(by_tree, "ms")), flush=True)
     return 0
 
 

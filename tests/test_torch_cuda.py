@@ -22,6 +22,8 @@ from fognetsimpp_tpu_torch.scenarios import smoke, wireless
 from fognetsimpp_tpu_torch.spec import Policy
 from fognetsimpp_tpu_torch.state import state_to_numpy
 from fognetsimpp_tpu_torch.scenarios.cell_sum_inputs import large_cells, replicas
+from fognetsimpp_tpu_torch.scenarios.pool_scan_inputs import KINDS as SCAN_KINDS
+from fognetsimpp_tpu_torch.scenarios.pool_scan_inputs import rows as scan_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -652,28 +654,33 @@ def test_promoted_tick_and_operand_do_not_synchronise(cuda, name):
 # the local-pool scan and the v1/v2 worlds
 # ----------------------------------------------------------------------
 
-def _scan_rows(R, K, seed, pool=5000.0, fire=0.004):
-    """R sorted windows as rows: MIPS on a coarse grid, some rows invalid."""
-    rng = np.random.default_rng(seed)
-    mips = rng.choice(np.float32([100, 250, 400, 733]), (R, K)).astype(np.float32)
-    valid = rng.random((R, K)) < 0.8
-    t = np.sort(np.round(rng.random((R, K)) * 0.01, 3), axis=1).astype(np.float32)
-    pool0 = (pool * (1 + np.arange(R)) / R).astype(np.float32)
-    fire_t0 = np.full((R,), fire, np.float32)
-    fire_t0[::3] = np.inf
-    refund0 = np.full((R,), 333.0, np.float32)
-    return [torch.from_numpy(a) for a in (mips, valid, t, pool0, fire_t0, refund0)]
+def _scan_rows(R, K, seed, kind="uniform"):
+    """R sorted windows as rows (``scenarios.pool_scan_inputs.rows``)."""
+    return [torch.from_numpy(np.asarray(a)) for a in scan_rows(kind, R, K, seed)]
+
+
+#: (kind, R, K): the uniform windows at the lengths around a warp's 32
+#: rows, past one stage (512) and far past it, and 128 worlds; every kind
+#: at 128 worlds; the dense window past many stages.
+_SCAN_CASES = (
+    [("uniform", R, K) for R, K in ((1, 4096), (8, 4096), (3, 1), (5, 5000), (1, 1),
+                                    (1, 31), (1, 33), (1, 70000), (128, 4096))]
+    + [(kind, 128, 4096) for kind in SCAN_KINDS[1:]]
+    + [("dense", 1, 70000), ("timer_fire", 1, 70000)]
+)
 
 
 @pytest.mark.parametrize("v2", [False, True])
-@pytest.mark.parametrize("R, K", [(1, 4096), (8, 4096), (3, 1), (5, 5000)])
-def test_pool_scan_kernel_equals_plain(cuda, R, K, v2):
-    cpu = _scan_rows(R, K, seed=R * 31 + K + v2)
+@pytest.mark.parametrize("kind, R, K", _SCAN_CASES)
+def test_pool_scan_kernel_equals_plain(cuda, kind, R, K, v2):
+    cpu = _scan_rows(R, K, seed=R * 31 + K + v2 + 7 * SCAN_KINDS.index(kind), kind=kind)
     got = pk.local_pool_scan_rows(*[a.to(cuda) for a in cpu], v2)
     torch.cuda.synchronize()
     want = pk.local_pool_scan_plain(*cpu, v2)
     for g, w in zip(got, want):
-        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+        # bit for bit: -0.0 and +0.0 differ here
+        g = g.cpu()
+        assert g.dtype == w.dtype and g.numpy().tobytes() == w.numpy().tobytes()
 
 
 def test_pool_scan_rule_makes_one_launch(cuda):

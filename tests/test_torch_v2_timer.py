@@ -206,7 +206,9 @@ def _jax_scan(m, v, t, pool0, fire_t0, refund0, v2):
 
 def _scan_case(kind, seed, K=257):
     """A window sorted by time: MIPS on a coarse grid (ties), some rows
-    invalid, times with repeats; ``kind`` picks the pool and the timer."""
+    invalid, times with repeats; ``kind`` picks the pool and the timer,
+    or the window's length (``k1``, ``k33``)."""
+    K = {"k1": 1, "k33": 33}.get(kind, K)
     rng = np.random.default_rng(seed)
     m = rng.choice(np.float32([100, 250, 400, 400, 733]), K).astype(np.float32)
     v = rng.random(K) < 0.8
@@ -220,11 +222,24 @@ def _scan_case(kind, seed, K=257):
         fire = t[K // 2]
     elif kind == "tiny_pool":
         pool0 = np.float32(99.5)
+    elif kind == "neg_zero_pool":
+        pool0 = np.float32(-0.0)
+    elif kind == "ties":  # the pool equals the first valid row's MIPS
+        pool0 = m[v][0]
+    elif kind == "fire_first_row":  # the timer is due at the first row
+        fire = t[0]
+    elif kind == "take_before_fire":  # the first take disarms it
+        fire = t[-1]
+    elif kind == "all_invalid":
+        v[:] = False
     return m, v, t, pool0, fire, refund
 
 
 @pytest.mark.parametrize("v2", [False, True])
-@pytest.mark.parametrize("kind", ["exhausted", "no_timer", "fire_at_a_row", "tiny_pool"])
+@pytest.mark.parametrize("kind", [
+    "exhausted", "no_timer", "fire_at_a_row", "tiny_pool", "neg_zero_pool", "ties",
+    "fire_first_row", "take_before_fire", "all_invalid", "k1", "k33",
+])
 def test_local_pool_scan_plain_matches_lax_scan(kind, v2):
     m, v, t, pool0, fire, refund = _scan_case(kind, seed=len(kind) * 7 + v2)
     want = _jax_scan(jnp.asarray(m), jnp.asarray(v), jnp.asarray(t),
@@ -243,6 +258,17 @@ def test_local_pool_scan_plain_matches_lax_scan(kind, v2):
         assert not take.any()
     if kind == "tiny_pool" and v2:  # only the timer's refund funds a take
         assert bool(got[2]) and take.any()
+    if kind == "neg_zero_pool":  # v1 keeps -0.0; v2 folds it into +0.0, then fires
+        assert np.signbit(got[1].numpy()) != v2 and bool(got[2]) == v2
+    if kind == "ties":  # the tie is refused, smaller rows after it are taken
+        assert not take[np.argmax(v)] and take.any()
+    if kind == "fire_first_row" and v2:
+        assert bool(got[2])
+    if kind == "take_before_fire":
+        assert take[np.argmax(v)] and not bool(got[2])
+    if kind == "all_invalid":
+        assert not take.any() and not bool(got[2])
+    assert take.shape == (m.shape[0],)
 
 
 # ----------------------------------------------------------------------
