@@ -164,6 +164,35 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    into the drain), card against CPU every leaf, and ``local_pool_scan``
    against its plain version on each run's first window that holds a
    row.
+26. chaos: the bench world (dt 5 ms, 20 ticks) with
+   ``bench.py::chaos_measurement``'s knobs (REOFFLOAD, 8 retries, the RTT
+   wave and its bursts, fog 0 scripted down from 30 to 60 ms) and random
+   churn (MTBF 50 ms, MTTR 20 ms), not static, under MIN_BUSY (the dense
+   broker), EXP3 (the compacted broker and the learner's crash penalty)
+   and MIN_BUSY in LOSE mode: each timed after a warm-up run, card
+   against CPU every leaf, the fault counters (crashes, recoveries and
+   the mode's bounces or losses above 0), a short profile, and
+   ``fused_arrival_plan`` against its plain version on the run's first
+   window that holds a row;
+27. chaos_replicas: 16 replicas of the MIN_BUSY chaos world through
+   ``run_replicated`` (512 fogs end to end), each on its own chaos key,
+   as phases 15-17 run theirs, replicas 0 and 15 against single-world
+   card runs of their states;
+28. hier and hier_domain_down: ``bench.py::hier_measurement``'s layout at
+   the bench world's width, 4 brokers (domain 0: the 8 slow fogs and
+   every user; domains 1-3: 24 fast fogs), THRESHOLD 0.5, 2 hops, 5 ms
+   between brokers, under RANDOM (the compacted broker's per-domain slot
+   tables), then its twin with domain 0's fogs down over 10-90 % of the
+   horizon under MIN_BUSY (the dense broker's winner a domain, chaos
+   REOFFLOAD): each as phase 26, migrations above 0, hop exhaustions
+   printed;
+29. tp_aps: ``benchmarks.py::config4``'s world at one replica and full
+   width made TP-eligible (linear MAC, no energy model, static; 10,000
+   users, 64 APs, its 100 ticks of 5 ms) under ``run_tp_sharded`` at four shards
+   against ``engine.run`` on the card, every leaf (the APs'
+   ``assoc_sum`` too), the ring and arrival kernels' launches a tick,
+   and each held against its plain version on the run's first real
+   exchange and window.
    Every phase from 18 on resets the wrapper counts before its path and
    fails if a kernel of the path was launched no time;
 
@@ -365,6 +394,62 @@ POOL_REPLICAS, POOL_REPLICAS_WIDE = 8, 128
 POOL_SYNTH_K = 4096
 #: Horizons of the scenario worlds held card against CPU.
 WIRED_V1_HORIZON, EXAMPLE_HORIZON = 0.5, 1.1
+
+#: ``chaos``: ``bench.py::chaos_measurement``'s knobs on the bench world
+#: (dt 5 ms, 20 ticks): REOFFLOAD with 8 retries, the RTT wave and bursts,
+#: fog 0 scripted down from 30 to 60 ms, and random churn fast enough to
+#: crash and recover fogs within the 0.1 s horizon.  Chaos moves fog
+#: liveness, so the world is not static, and the ack columns are written
+#: in the tick (``derive_acks`` off).
+CHAOS_BENCH = dict(
+    chaos=True, chaos_mode=1, chaos_max_retries=8, chaos_rtt_amp=0.5,
+    chaos_rtt_period_s=0.5, chaos_rtt_burst_prob=0.02, chaos_rtt_burst_mult=4.0,
+    chaos_script=((0, 0.03, 0.06),), chaos_mtbf_s=0.05, chaos_mttr_s=0.02,
+    assume_static=False, derive_acks=False,
+)
+#: The chaos rows: MIN_BUSY (dense broker), EXP3 (compacted broker and the
+#: learner's crash penalty) and MIN_BUSY in LOSE mode.
+CHAOS_ROWS = {
+    "min_busy": {}, "exp3": {"policy": "EXP3"}, "lose_min_busy": {"chaos_mode": 0},
+}
+#: ``chaos_replicas``: replicas of the MIN_BUSY chaos world (512 fogs end
+#: to end: ``fused_arrival_plan``).
+CHAOS_R = 16
+#: ``hier``: ``bench.py::hier_measurement``'s layout at the bench world's
+#: width, 4 brokers: domain 0 holds the 8 slow fogs (3,000 MIPS) and every
+#: user, domains 1-3 the 24 fast ones (80,000 MIPS), by bench.py's split.
+HIER_BROKERS, HIER_SLOW = 4, 32 // 4
+HIER_FOG_OWNER = [0] * HIER_SLOW + [
+    1 + (i * (HIER_BROKERS - 1)) // (32 - HIER_SLOW) for i in range(32 - HIER_SLOW)
+]
+HIER_BENCH = dict(
+    fog_mips=tuple([3000.0] * HIER_SLOW + [80000.0] * (32 - HIER_SLOW)),
+    n_brokers=HIER_BROKERS, hier_policy=1, hier_threshold=0.5, hier_max_hops=2,
+    hier_rtt_s=5e-3,
+)
+#: The federated world runs RANDOM on the compacted broker (per-domain
+#: slot tables): MIN_BUSY's stale view sends a 20-tick run's publishes to
+#: one fog of domain 0's eight, whose load (1/8) then never passes the
+#: threshold.  The domain-down twin runs MIN_BUSY on the dense broker
+#: (one winner a domain): domain 0's fogs down over 10-90 % of the
+#: horizon, REOFFLOAD, not static.
+HIER_UP = dict(policy="RANDOM")
+HIER_DOWN = dict(
+    chaos=True, chaos_mode=1, chaos_max_retries=8, assume_static=False,
+    derive_acks=False, chaos_script=tuple((f, 0.01, 0.09) for f in range(HIER_SLOW)),
+)
+#: ``tp_aps``: ``benchmarks.py::config4``'s world at one replica and full
+#: width, made TP-eligible (linear MAC, no energy model, static), its 100
+#: ticks, without config 4's arrival window: the TP tick's no-window
+#: exchange is the ring all-gather (a windowed spec merges top-K windows
+#: instead).  The linear MAC charges 1.5 ms a station of the cell (about
+#: 156 here), so connecting takes 0.2-0.5 s and the first task reaches a
+#: fog at tick 63 (the port's CPU run): 50 ticks would plan no arrival.
+TP_APS = dict(
+    numb_users=10_000, horizon=0.5, dt=5e-3, policy="ENERGY_AWARE",
+    send_interval=0.05, queue_capacity=64, extra_aps=59, mac_model="linear",
+    energy_enabled=False, assume_static=True,
+)
 
 
 def main() -> int:
@@ -1536,9 +1621,10 @@ def main() -> int:
     emit({"phase": "replicas_small", "worlds": small_rows})
 
     def replica_phase(phase, spec, batch, net, b, extra=None, dyn_rows=None,
-                      singles=None):
+                      singles=None, runner=run_batched):
         """One replica batch at full width: a warm-up run, a timed run
-        (through ``run_batched``, every kernel input kept by a tap that
+        (through ``runner``, ``run_batched`` or an entry point with its
+        arguments and return, every kernel input kept by a tap that
         also refuses a CPU tensor), replicas 0, 1 and R - 1 against
         single-world card runs of their states (every leaf, and the same
         wrapper calls a tick), and a short profile of the batched tick.
@@ -1549,8 +1635,8 @@ def main() -> int:
         non-empty real input."""
         R = batch.t.shape[0]
         with strict_vmap():  # warm-up: every shape of the run, its first ticks
-            run_batched(spec, batch, net, b, n_ticks=REPLICA_WARM_TICKS,
-                        dyn_rows=dyn_rows)
+            runner(spec, batch, net, b, n_ticks=REPLICA_WARM_TICKS,
+                   dyn_rows=dyn_rows)
         torch.cuda.synchronize()
         kept = {"fused_arrival_plan": [], "pairwise_rank": [], "cell_sum_ordered": []}
 
@@ -1565,7 +1651,7 @@ def main() -> int:
         try:
             with strict_vmap():
                 t0 = time.perf_counter()
-                final, _ = run_batched(spec, batch, net, b, dyn_rows=dyn_rows)
+                final, _ = runner(spec, batch, net, b, dyn_rows=dyn_rows)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
         finally:
@@ -2202,6 +2288,193 @@ def main() -> int:
         v1v2_launches[phase] = launches
         del card
 
+    # ---- 26. chaos: the bench world under faults --------------------------
+    def chaos_build(row):
+        kw = dict(bench_world(5e-3), **CHAOS_BENCH)
+        over = dict(CHAOS_ROWS[row])
+        if "policy" in over:
+            over["policy"] = int(Policy[over["policy"]])
+        return lambda device: smoke.build(device=device, **dict(kw, **over))
+
+    def world_kernel(phase, calls, row_key):
+        """``fused_arrival_plan`` against its plain version on the first
+        window of the run that holds a row; its numbers go on ``row_key``'s
+        row of the kernels line under ``phase``."""
+        fa = first_call(calls, "fused_arrival_plan")
+        r = check_arrival_kernel("fused_arrival_plan", fa[:3], fa[3], (20, 10, 50, 10))
+        emit_kernel(r, f"{phase}, first non-empty window")
+        kernel_rows[row_key][f"{phase}_window"] = real_window(r)
+
+    fault_launches = {}
+    for row in CHAOS_ROWS:
+        phase = f"chaos {row}"
+        build = chaos_build(row)
+        spec, card, calls, launches, wall, cpu_s, n_leaves = world_run(
+            phase, build, ("fused_arrival_plan",))
+        ch, m = card.chaos, card.metrics
+        counts = {k: int(getattr(ch, k)) for k in (
+            "n_crashes", "n_recovers", "n_reoffloaded", "n_lost_crash",
+            "n_retry_exhausted")}
+        made = "n_reoffloaded" if spec.chaos_mode == 1 else "n_lost_crash"
+        if min(counts["n_crashes"], counts["n_recovers"], counts[made]) <= 0:
+            raise SystemExit(f"{phase}: the faults did not fire ({counts})")
+        if spec.learn_active and float(card.learn.reward_cnt.sum()) <= 0:
+            raise SystemExit(f"{phase}: no crashed pick was resolved")
+        world_kernel(phase, calls, ("fused_arrival_plan", "bench"))
+        spec_p, st_p, net_p, b_p = build(dev)
+        prof_row, by_name = tick_profile(spec_p, st_p, net_p, b_p, None)
+        emit({
+            "phase": "chaos", "row": row, "policy": Policy(spec.policy).name,
+            "mode": "reoffload" if spec.chaos_mode == 1 else "lose",
+            "n_users": spec.n_users, "n_fogs": spec.n_fogs, "window": spec.window,
+            "ticks": spec.n_ticks, "leaves_equal": n_leaves, **counts,
+            "n_scheduled": int(m.n_scheduled), "n_published": int(m.n_published),
+            "n_completed": int(m.n_completed), "wall_s": wall, "cpu_run_s": cpu_s,
+            "task_offload_decisions_per_sec": int(m.n_scheduled) / wall,
+            "ms_per_tick": wall / spec.n_ticks * 1e3, "launches": launches,
+            **prof_row,
+            "arrival_kernels_device_us_per_tick": sum(
+                v for k, v in by_name.items() if any(s in k for s in OUR_KERNELS)),
+        })
+        fault_launches[phase] = launches["fused_arrival_plan"]
+        del card, calls
+
+    # ---- 27. chaos_replicas: a chaos batch, each replica its own schedule -
+    from fognetsimpp_tpu_torch.parallel.replicas import run_replicated
+
+    def replicated(spec, batch, net, b, n_ticks=None, dyn_rows=None):
+        return run_replicated(spec, batch, net, b, n_ticks=n_ticks, dyn_rows=dyn_rows), None
+
+    spec, st, net, b = chaos_build("min_busy")(dev)
+    batch = replicate_state(spec, st, CHAOS_R, seed=0)
+    if len({tuple(k.tolist()) for k in batch.chaos.key}) != CHAOS_R:
+        raise SystemExit("chaos_replicas: two replicas share a chaos key")
+    row, first, launches = replica_phase(
+        "chaos_replicas", spec, batch, net, b, singles={0: None, CHAOS_R - 1: None},
+        runner=replicated)
+    emit(row)
+    flattened_kernel_rows("chaos_replicas", first, launches, row["flattened_fogs"])
+    del batch, first
+
+    # ---- 28. hier: the federated bench world, and its domain-down twin ---
+    from fognetsimpp_tpu_torch.hier import stamp_ownership
+
+    def hier_build(extra):
+        kw = dict(bench_world(5e-3), **HIER_BENCH, **extra)
+        if "policy" in kw:
+            kw["policy"] = int(Policy[kw["policy"]])
+
+        def build(device):
+            spec, st, net, b = smoke.build(device=device, **kw)
+            st = stamp_ownership(spec, st, user_broker=[0] * spec.n_users,
+                                 fog_broker=HIER_FOG_OWNER)
+            return spec, st, net, b
+
+        return build
+
+    for phase, extra in (("hier", HIER_UP), ("hier_domain_down", HIER_DOWN)):
+        build = hier_build(extra)
+        spec, card, calls, launches, wall, cpu_s, n_leaves = world_run(
+            phase, build, ("fused_arrival_plan",))
+        h, m = card.hier, card.metrics
+        if int(h.n_migrated) <= 0:
+            raise SystemExit(f"{phase}: no task migrated")
+        world_kernel(phase, calls, ("fused_arrival_plan", "bench"))
+        spec_p, st_p, net_p, b_p = build(dev)
+        prof_row, by_name = tick_profile(
+            spec_p, st_p, net_p, b_p,
+            static_cache(spec_p, st_p, net_p) if spec.assume_static else None)
+        emit({
+            "phase": phase, "policy": Policy(spec.policy).name,
+            "n_users": spec.n_users, "n_fogs": spec.n_fogs,
+            "n_brokers": spec.n_brokers, "ticks": spec.n_ticks,
+            "leaves_equal": n_leaves, "n_migrated": int(h.n_migrated),
+            "n_hop_exhausted": int(h.n_hop_exhausted),
+            "mig_out": h.mig_out.tolist(), "mig_in": h.mig_in.tolist(),
+            "n_crashes": int(card.chaos.n_crashes),
+            "n_reoffloaded": int(card.chaos.n_reoffloaded),
+            "n_scheduled": int(m.n_scheduled), "n_completed": int(m.n_completed),
+            "wall_s": wall, "cpu_run_s": cpu_s,
+            "task_offload_decisions_per_sec": int(m.n_scheduled) / wall,
+            "ms_per_tick": wall / spec.n_ticks * 1e3, "launches": launches,
+            **prof_row,
+            "arrival_kernels_device_us_per_tick": sum(
+                v for k, v in by_name.items() if any(s in k for s in OUR_KERNELS)),
+        })
+        fault_launches[phase] = launches["fused_arrival_plan"]
+        del card, calls
+
+    # ---- 29. tp_aps: access points under the task-sharded tick -----------
+    from fognetsimpp_tpu_torch.parallel import shards as tshards
+
+    aps_kw = dict(TP_APS, policy=int(Policy[TP_APS["policy"]]))
+    spec, st, net, b = wireless.wireless5(device=dev, **aps_kw)
+    ref, _ = engine.run(spec, st, net, b)
+    run_tp_sharded(spec, st, net, b, n_shards=TP_SHARDS, n_ticks=REPLICA_WARM_TICKS)
+    torch.cuda.synchronize()
+    plans, blocks, ring = [], [], tshards.ring_all_gather
+
+    def keep_plan(name, *args):
+        if name == "fused_arrival_plan":
+            if not args[0].is_cuda:
+                raise SystemExit(f"tp_aps: {name} took the CPU path")
+            plans.append((name, args))
+
+    def keep_ring(bl):
+        if not blocks:
+            blocks.append([x.clone() for x in bl])
+        return ring(bl)
+
+    reset_launches()
+    cuda_build.TAPS.append(keep_plan)
+    tshards.ring_all_gather = keep_ring
+    try:
+        t0 = time.perf_counter()
+        _, got = run_tp_sharded(spec, st, net, b, n_shards=TP_SHARDS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        tshards.ring_all_gather = ring
+        cuda_build.TAPS.remove(keep_plan)
+    launches = all_launches()
+    need_launches("tp_aps", launches, ("ring_all_gather", "fused_arrival_plan"))
+    n_leaves = assert_same(got, ref, "tp_aps (TP against engine.run)")
+    a0, a1 = spec.ap_slice
+    n_assoc = int(got.nodes.assoc_sum[a0:a1].sum())
+    if n_assoc <= 0:
+        raise SystemExit("tp_aps: no association was counted on the APs")
+    want = rk.ring_all_gather_plain(blocks[0])
+    got_ring = rk.ring_all_gather(blocks[0])
+    if not all(torch.equal(g, w) for g, w in zip(got_ring, want)):
+        raise SystemExit("tp_aps: ring_all_gather differs from its plain version")
+    n, (K, C) = len(blocks[0]), blocks[0][0].shape
+    ring_bytes = (n * n + n) * K * C * 4
+    # CUDA events behind a sleep kernel: the profiler's trace of a lone
+    # small launch can hold no event of it
+    kernel_rows[("ring_all_gather", "tp")]["tp_aps_window"] = {
+        "n": n, "K": K, "C": C, "timed_by": "CUDA events behind a sleep kernel",
+        "ms": stream_ms(lambda: rk.ring_all_gather(blocks[0]), 50),
+        "plain_ms": stream_ms(lambda: rk.ring_all_gather_plain(blocks[0]), 50),
+        "bound_ms": ring_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "max_abs_err": max_abs_err(got_ring, want),
+    }
+    fa = first_call(plans, "fused_arrival_plan")
+    r = check_arrival_kernel("fused_arrival_plan", fa[:3], fa[3], (20, 10, 50, 10))
+    emit_kernel(r, "tp_aps, first non-empty window")
+    kernel_rows[("fused_arrival_plan", "tp_aps")] = kernel_row(r, "tp_aps", "real")
+    emit({
+        "phase": "tp_aps", "n_users": spec.n_users, "n_aps": spec.n_aps,
+        "n_fogs": spec.n_fogs, "n_shards": TP_SHARDS, "ticks": spec.n_ticks,
+        "leaves_equal": n_leaves, "assoc_sum_aps": n_assoc,
+        "n_scheduled": int(got.metrics.n_scheduled), "wall_s": wall,
+        "task_offload_decisions_per_sec": int(got.metrics.n_scheduled) / wall,
+        "ms_per_tick": wall / spec.n_ticks * 1e3, "launches": launches,
+        "launches_per_tick": {k: v / spec.n_ticks for k, v in launches.items()},
+        "ring_window": {"n": n, "K": K, "C": C},
+    })
+    tp_aps_launches = launches
+    del ref, got, blocks, plans
+
     # each row's launches: the main paths' calls at that row's shape
     by_path = {
         ("fused_arrival_plan", "bench"): {
@@ -2240,6 +2513,11 @@ def main() -> int:
     by_path[("fused_arrival_plan", "v2_bench")] = {
         k: v1v2_launches[k]["fused_arrival_plan"]
         for k in ("v1_bench", "v2_bench", "front_droptail", "wired_v1", "example")}
+    # the fault planes at the bench world's shape, and tp_aps
+    by_path[("fused_arrival_plan", "bench")].update(fault_launches)
+    by_path[("fused_arrival_plan", "tp_aps")] = {
+        "tp_aps": tp_aps_launches["fused_arrival_plan"]}
+    by_path[("ring_all_gather", "tp")]["tp_aps"] = tp_aps_launches["ring_all_gather"]
     for key, paths in by_path.items():
         kernel_rows[key]["launches"] = sum(paths.values())
         kernel_rows[key]["launches_by_path"] = paths

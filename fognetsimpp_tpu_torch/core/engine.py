@@ -2,13 +2,16 @@
 
 Counterpart of ``fognetsimpp_tpu/core/engine.py`` for the per-phase
 (unfused) tick: mobility and association (every tick unless the world is
-static) -> connect -> adverts -> spawn (``_phase_spawn`` at one send per
-tick, ``_phase_spawn_multi`` above, both with the 802.11 uplink loss) ->
-broker (dense for the task-independent policies, ``broker_dense_ok``;
-compacted for the rest) -> ``completions_per_tick`` completion passes ->
-fog arrivals (two-stage candidate front, K-window compaction, shared
-tail) -> the bandit learners' reward credit (learned policies only) ->
-per-node message counters -> energy and lifecycle.  The JAX package's
+static) -> chaos (the RTT factor on the broker->fog delays, the fog
+lifecycle and the sweep of crashed fogs' tasks) -> connect -> adverts ->
+spawn (``_phase_spawn`` at one send per tick, ``_phase_spawn_multi``
+above, both with the 802.11 uplink loss) -> broker-to-broker migration
+(federated worlds) -> broker (dense for the task-independent policies,
+``broker_dense_ok``; compacted for the rest; a winner or a candidate set
+a broker domain when federated) -> ``completions_per_tick`` completion
+passes -> fog arrivals (two-stage candidate front, K-window compaction,
+shared tail) -> the bandit learners' reward credit (learned policies
+only) -> per-node message counters -> energy and lifecycle.  The JAX package's
 fused slot-window front-end is bit-identical to this tick
 (``tests/test_fused.py``) and is not ported.  :func:`run` replaces the
 ``lax.scan`` with a Python loop and hoists the static link cache out of
@@ -36,13 +39,15 @@ import numpy as np
 import torch
 
 from ..dynspec import (
-    DynSpec, apply_knobs, div_knob, dyn_of, dyn_to_device, knob, promote_default,
-    split_spec,
+    DynSpec, apply_knobs, div_knob, dyn_of, dyn_to_device, int_knob, knob,
+    promote_default, split_spec,
 )
+from ..chaos.faults import rtt_factor, step_lifecycle
 from ..envelope import broker_dense_ok, check_slice
-from ..f32math import const, fma, xla_sum
+from ..f32math import const, fma, kept_tensor, xla_sum
+from ..hier.federation import hier_reject_reason
 from ..learn.bandits import arms_view, exp3_probs
-from ..learn.rewards import credit_batch
+from ..learn.rewards import credit_batch, penalize_counts
 from ..net.energy import step_energy
 from ..net.mobility import MobilityBounds, default_bounds, step_mobility
 from ..net.topology import LinkCache, NetParams, associate
@@ -51,7 +56,9 @@ from ..ops.queues import NO_TASK, batched_enqueue, batched_pop, plan_arrivals
 from ..ops.scatter import add_drop, set_drop
 from ..ops.sched import at, scalar_winner, schedule_batch, task_uniform
 from ..random import PRNGKey, randint, split, uniform
-from ..spec import STATIC_MAC_ERR, FogModel, Policy, Stage, WorldSpec
+from ..spec import (
+    STATIC_MAC_ERR, ChaosMode, FogModel, HierPolicy, Policy, Stage, WorldSpec,
+)
 from ..state import WorldState
 
 _ST_UNUSED = int(Stage.UNUSED)
@@ -65,6 +72,7 @@ _ST_DROPPED = int(Stage.DROPPED)
 _ST_REJECTED = int(Stage.REJECTED)
 _ST_LOST = int(Stage.LOST)
 _ST_LOCAL_RUN = int(Stage.LOCAL_RUN)
+_ST_HOP_EXHAUSTED = int(Stage.HOP_EXHAUSTED)
 
 _I32 = torch.int32
 _F32 = torch.float32
@@ -164,13 +172,7 @@ def tp_reject_reason(spec: WorldSpec) -> Optional[str]:
             "run_chunked)"
         )
     if spec.hier_active:
-        return (
-            "[TP-HIER] the TP runner does not carry the multi-broker "
-            "hierarchy yet (per-domain decide masks and the migrate phase "
-            "need cross-shard load summaries); run "
-            f"n_brokers={spec.n_brokers} worlds on single-device "
-            "run/run_jit/run_chunked"
-        )
+        return hier_reject_reason(spec)
     if spec.fog_model != int(FogModel.FIFO):
         return (
             "[TP-POOL] TP tick covers FIFO fogs only (POOL pools are "
@@ -258,6 +260,24 @@ def _per_fog(mask: torch.Tensor, fog: torch.Tensor, n_fogs: int) -> torch.Tensor
     """(F, K) membership: row f marks masked rows bound for fog f."""
     fid = torch.arange(n_fogs, dtype=_I32, device=fog.device)
     return (fog[None, :] == fid[:, None]) & mask[None, :]
+
+
+def _candidates(spec: WorldSpec, b, fog_alive: torch.Tensor) -> torch.Tensor:
+    """The fogs a broker may pick: the registered ones, and under chaos
+    only those up (the reference never evicts a dead fog, so a world
+    without chaos keeps its view as it is)."""
+    return b.registered & fog_alive if spec.chaos else b.registered
+
+
+def _owned(spec: WorldSpec, hier) -> torch.Tensor:
+    """(B, F) bool: row b marks the fogs broker b owns."""
+    bid = torch.arange(spec.n_brokers, dtype=_I32, device=hier.fog_broker.device)
+    return hier.fog_broker[None, :] == bid[:, None]
+
+
+def _task_brokers(spec: WorldSpec, task_broker: torch.Tensor) -> torch.Tensor:
+    """Owning brokers clamped into [0, B), as gather indices."""
+    return torch.clamp(task_broker, 0, spec.n_brokers - 1).long()
 
 
 def _svc_time(mips_req: torch.Tensor, fog_mips: torch.Tensor) -> torch.Tensor:
@@ -714,15 +734,28 @@ def _phase_broker_dense(spec, state, cache, buf, t1, tp=None):
     key = split(state.key, 2)[0]
 
     fog_alive = state.nodes.alive[U: U + F]
-    reg_eff = b.registered
+    reg_eff = _candidates(spec, b, fog_alive)
     fog_efrac = state.nodes.energy[U: U + F] / torch.clamp_min(
         state.nodes.energy_capacity[U: U + F], const(1e-12, dev)
     )
-    any_fog = reg_eff.any()
-    choice_s = scalar_winner(
-        spec.policy, b.view_busy, b.view_mips, reg_eff, fog_alive,
-        fog_efrac, 2.0 * cache.d2b[U: U + F], spec.bug_compat.v1_max_scan,
-    )
+    rtt_bf = 2.0 * cache.d2b[U: U + F]
+
+    def winner(reg):
+        return scalar_winner(
+            spec.policy, b.view_busy, b.view_mips, reg, fog_alive,
+            fog_efrac, rtt_bf, spec.bug_compat.v1_max_scan,
+        )
+
+    if spec.hier_active:
+        # one winner a broker domain, over its own fogs; each task takes
+        # its own broker's (two (B,)-table gathers over the (U, S) view)
+        reg_b = reg_eff[None, :] & _owned(spec, state.hier)
+        tb2 = _task_brokers(spec, state.hier.task_broker).reshape(U, S)
+        choice_s = torch.func.vmap(winner)(reg_b)[tb2]
+        any_fog = reg_b.any(dim=1)[tb2]
+    else:
+        any_fog = reg_eff.any()
+        choice_s = winner(reg_eff)
     choice_ok = choice_s >= 0
     if spec.policy == int(Policy.MAX_MIPS) and F > 0:
         win_mips = at(b.view_mips, torch.clamp(choice_s, 0, F - 1))
@@ -872,11 +905,23 @@ def _phase_broker(spec, state, cache, buf, t1):
     keys = split(state.key, 2)
     key, k_sched = keys[0], keys[1]
     fog_alive = state.nodes.alive[U: U + F]
-    reg_eff = b.registered
+    reg_eff = _candidates(spec, b, fog_alive)
     fog_efrac = state.nodes.energy[U: U + F] / torch.clamp_min(
         state.nodes.energy_capacity[U: U + F], const(1e-12, dev)
     )
-    any_fog = reg_eff.any()
+    hier_kw = {}
+    if spec.hier_active:
+        # each task of the window is decided by its own broker, over that
+        # broker's fogs (ops/sched.py); "no resource" is judged a domain
+        tb_g = _task_brokers(spec, state.hier.task_broker[g])
+        hier_kw = dict(
+            fog_owner=state.hier.fog_broker, task_broker=tb_g,
+            n_brokers=spec.n_brokers,
+        )
+        owned = _owned(spec, state.hier)
+        any_fog = (reg_eff[None, :] & owned).any(dim=1)[tb_g]
+    else:
+        any_fog = reg_eff.any()
     offl = valid & ~local
     rand_u = None
     if spec.policy in (int(Policy.RANDOM), int(Policy.DYNAMIC), int(Policy.EXP3)):
@@ -888,6 +933,7 @@ def _phase_broker(spec, state, cache, buf, t1):
         spec.bug_compat.mips0_divisor, spec.bug_compat.v1_max_scan,
         policy_id=b.policy_id, order_t=t_ab_g, rand_u=rand_u,
         learn=arms_view(state.learn) if spec.learn_active else None,
+        **hier_kw,
     )
     choice_ok = choice >= 0
     guard_fail = torch.zeros_like(valid)
@@ -908,9 +954,16 @@ def _phase_broker(spec, state, cache, buf, t1):
         if spec.policy == int(Policy.EXP3) or (
             spec.policy == int(Policy.DYNAMIC) and spec.learn_in_dynamic
         ):
-            p_vec = exp3_probs(learn.logw, b.registered & fog_alive, learn.explore)
-            # p at each row's chosen fog: one nonzero a column, so exact
-            p_row = torch.where(picked, p_vec[:, None], 0.0).sum(dim=0)
+            if spec.hier_active:
+                # the pick's probability within its own broker's softmax
+                p_bf = torch.func.vmap(
+                    lambda av: exp3_probs(learn.logw, av, learn.explore)
+                )((b.registered & fog_alive)[None, :] & owned)
+                p_row = p_bf[tb_g, torch.clamp(choice, 0, F - 1).long()]
+            else:
+                p_vec = exp3_probs(learn.logw, b.registered & fog_alive, learn.explore)
+                # p at each row's chosen fog: one nonzero a column, so exact
+                p_row = torch.where(picked, p_vec[:, None], 0.0).sum(dim=0)
             if spec.policy == int(Policy.DYNAMIC):
                 p_row = torch.where(b.policy_id == int(Policy.EXP3), p_row, 1.0)
             learn = learn.replace(
@@ -1002,7 +1055,20 @@ def _phase_learn_credit(spec, state, t1, dv: DynSpec):
     idx, idxc, valid = _compact(due, K, T, rot)
     g = idxc.long()
     fog_g = tasks.fog[g]
-    lat = torch.where(valid, tasks.t_ack6[g] - tasks.t_create[g], 0.0)
+    # the latency is counted from the publish, save for a task the chaos
+    # phase bounced back (retry > 0) or the federation migrated (hops >
+    # 0): its t_at_broker was restamped, and the pick that served it is
+    # charged only its own leg
+    lat0 = tasks.t_ack6[g] - tasks.t_create[g]
+    if spec.chaos:
+        lat0 = torch.where(
+            state.chaos.retry[g] > 0, tasks.t_ack6[g] - tasks.t_at_broker[g], lat0
+        )
+    if spec.hier_active:
+        lat0 = torch.where(
+            state.hier.hops[g] > 0, tasks.t_ack6[g] - tasks.t_at_broker[g], lat0
+        )
+    lat = torch.where(valid, lat0, 0.0)
     memb = _per_fog(valid, fog_g, F)
     learn = credit_batch(
         learn, valid, memb, lat, learn.pick_p[g], F,
@@ -1012,6 +1078,236 @@ def _phase_learn_credit(spec, state, t1, dv: DynSpec):
         credited=set_drop(learn.credited, idx, torch.ones((), dtype=torch.int8, device=t1.device))
     )
     return state.replace(learn=learn)
+
+
+def _phase_chaos(spec, state, cache, buf, t0, t1, dv: DynSpec):
+    """Fault injection, first of the protocol phases (so an edge inside
+    ``[t0, t1)`` is in ``nodes.alive`` before any dispatch of the tick):
+
+    * advance the outage schedules (:func:`..chaos.faults.step_lifecycle`)
+      and write the fogs' up mask into ``nodes.alive``;
+    * sweep the in-flight tasks off the fogs that crashed: LOSE drops them
+      into LOST (``n_lost_crash``); REOFFLOAD bounces them back to the
+      broker as publishes arriving at ``crash time + d(fog, broker)``,
+      within a per-task retry budget, and loses the rest
+      (``n_retry_exhausted``).  A crashed fog reboots clean; a recovered
+      one puts a fresh advertisement in flight;
+    * resolve each swept pick of a learned policy once, as a zero-reward
+      penalty (:func:`..learn.rewards.penalize_counts`).
+
+    The per-task reads of the per-fog edges are gathers on the device."""
+    U, F, T = spec.n_users, spec.n_fogs, spec.task_capacity
+    dev = t1.device
+    tasks = state.tasks
+    alive = state.nodes.alive
+    ch, up_new, crashed, recovered, crash_t, recover_t = step_lifecycle(
+        spec, state.chaos, alive[U: U + F], t0, t1, dv
+    )
+    nodes = state.nodes.replace(alive=torch.cat([alive[:U], up_new, alive[U + F:]]))
+
+    st = tasks.stage
+    fog_c = torch.clamp(tasks.fog, 0, F - 1).long()
+    live = (st == _ST_TASK_INFLIGHT) | (st == _ST_QUEUED) | (st == _ST_RUNNING)
+    swept = (tasks.fog >= 0) & live & crashed[fog_c]
+
+    learn = state.learn
+    if spec.learn_active:
+        # booked on the picked arm before the fog column is cleared; the
+        # float32 counts are small integers, exact in any order
+        cnt_f = add_drop(
+            torch.zeros((F,), dtype=_F32, device=dev),
+            torch.where(swept, fog_c, F), torch.ones((), dtype=_F32, device=dev),
+        )
+        learn = penalize_counts(learn, cnt_f)
+
+    inf = const(_INF, dev)
+    reoffload = spec.chaos_mode == int(ChaosMode.REOFFLOAD)
+    if reoffload:
+        retry_new = ch.retry + swept.to(torch.int8)
+        exhausted = swept & (retry_new.to(_I32) > int_knob(dv.chaos_max_retries))
+        bounce = swept & ~exhausted
+        terminal = exhausted
+        # back to the broker: the fog->broker hop stands for the orphan
+        # notice's round trip
+        t_back = crash_t[fog_c] + cache.d2b[U + fog_c]
+        tasks = tasks.replace(
+            stage=torch.where(
+                bounce, _i8(_ST_PUB_INFLIGHT, dev),
+                torch.where(exhausted, _i8(_ST_LOST, dev), st),
+            ),
+            t_at_broker=torch.where(bounce, t_back, tasks.t_at_broker),
+            fog=torch.where(bounce, NO_TASK, tasks.fog),
+            t_at_fog=torch.where(bounce, inf, tasks.t_at_fog),
+            t_q_enter=torch.where(bounce, inf, tasks.t_q_enter),
+            t_service_start=torch.where(bounce, inf, tasks.t_service_start),
+            t_complete=torch.where(swept, inf, tasks.t_complete),
+        )
+        ch = ch.replace(retry=retry_new)
+    else:
+        bounce = exhausted = torch.zeros_like(swept)
+        terminal = swept
+        # LOSE keeps the fog column: which arm the task died on
+        tasks = tasks.replace(
+            stage=torch.where(swept, _i8(_ST_LOST, dev), st),
+            t_complete=torch.where(swept, inf, tasks.t_complete),
+        )
+    if spec.learn_active:
+        # terminal rows resolve here, once; bounced rows at their ack
+        learn = learn.replace(
+            credited=torch.maximum(learn.credited, terminal.to(torch.int8))
+        )
+
+    fogs = state.fogs
+    fogs = fogs.replace(
+        current_task=torch.where(crashed, NO_TASK, fogs.current_task),
+        busy_until=torch.where(crashed, inf, fogs.busy_until),
+        busy_time=torch.where(crashed, 0.0, fogs.busy_time),
+        free_since=torch.where(recovered, recover_t, fogs.free_since),
+        queue=torch.where(crashed[:, None], NO_TASK, fogs.queue),
+        q_head=torch.where(crashed, 0, fogs.q_head),
+        q_len=torch.where(crashed, 0, fogs.q_len),
+        pool_avail=torch.where(crashed, fogs.mips, fogs.pool_avail),
+    )
+    b = state.broker
+    adv_mips = fogs.pool_avail if spec.fog_model == int(FogModel.POOL) else fogs.mips
+    b = b.replace(
+        adv_val_mips=torch.where(recovered, adv_mips, b.adv_val_mips),
+        adv_val_busy=torch.where(recovered, 0.0, b.adv_val_busy),
+        adv_arrive_t=torch.where(
+            recovered, recover_t + cache.d2b[U: U + F], b.adv_arrive_t
+        ),
+    )
+    sums = _isum(torch.stack([bounce, exhausted, swept]), 1)
+    if reoffload:
+        ch = ch.replace(
+            n_reoffloaded=ch.n_reoffloaded + sums[0],
+            n_retry_exhausted=ch.n_retry_exhausted + sums[1],
+        )
+    else:
+        ch = ch.replace(n_lost_crash=ch.n_lost_crash + sums[2])
+    # a bounce is one orphan notice at the broker; a recovery one advert
+    buf = buf._replace(rx_b=buf.rx_b + sums[0], tx_f=buf.tx_f + recovered.to(_I32))
+    return state.replace(
+        nodes=nodes, tasks=tasks, fogs=fogs, broker=b, learn=learn, chaos=ch
+    ), buf
+
+
+def _chaos_rtt(spec, state, cache, t0, dv: DynSpec) -> LinkCache:
+    """The tick's delay cache with its broker->fog rows degraded by
+    :func:`..chaos.faults.rtt_factor`."""
+    U, F = spec.n_users, spec.n_fogs
+    fac = rtt_factor(spec, state.chaos, state.tick, t0, dv)
+    d2b = cache.d2b
+    return cache.replace(
+        d2b=torch.cat([d2b[:U], d2b[U: U + F] * fac, d2b[U + F:]])
+    )
+
+
+def _hier_migrate_on(spec: WorldSpec) -> bool:
+    """The migrate phase runs in a federated world whose policy is not
+    NEVER (NEVER keeps the domain-masked decisions, nothing moves)."""
+    return spec.hier_active and spec.hier_policy != int(HierPolicy.NEVER)
+
+
+def _hier_rtt(dv: DynSpec, dev) -> torch.Tensor:
+    """The (B, B) inter-broker RTT matrix on ``dev``: the operand as
+    given, host values copied at the first tick and kept."""
+    if isinstance(dv.hier_rtt, torch.Tensor):
+        return dv.hier_rtt
+    rows = np.asarray(dv.hier_rtt, np.float32)
+    return kept_tensor(tuple(rows.ravel().tolist()), _F32, dev).reshape(rows.shape)
+
+
+def _phase_broker_migrate(spec, state, buf, t1, dv: DynSpec):
+    """Broker-to-broker migration of the federated hierarchy, after the
+    spawn and before the decide phase, so a publish maturing at a
+    saturated or dead domain this tick can leave before its broker
+    decides it:
+
+    * each broker's view of a peer's busy fraction refreshes only when
+      their RTT has elapsed since the last read (a stale view, as the
+      fogs' adverts are);
+    * a broker fires (THRESHOLD: its live busy fraction above
+      ``hier_threshold``; LEAST_LOADED: a peer looks less loaded; a dead
+      domain, no usable fog, always) and sends every matured publish it
+      holds to the least-loaded peer by its view (ties to the lowest id),
+      ``t_at_broker`` one hop later;
+    * a matured publish in a dead domain that cannot move (hop budget
+      spent, or no live peer) becomes HOP_EXHAUSTED.
+
+    No draws: the destinations are argmins."""
+    U, F, T, B = spec.n_users, spec.n_fogs, spec.task_capacity, spec.n_brokers
+    S = spec.max_sends_per_user
+    dev = t1.device
+    hier, tasks, b = state.hier, state.tasks, state.broker
+    owned = _owned(spec, hier)
+    usable = _candidates(spec, b, state.nodes.alive[U: U + F])
+    if spec.fog_model == int(FogModel.POOL):
+        busy = state.fogs.pool_avail < state.fogs.mips
+    else:
+        busy = state.fogs.current_task != NO_TASK
+    up_b = owned & usable[None, :]
+    n_up = _isum(up_b, 1)
+    n_busy = _isum(up_b & busy[None, :], 1)
+    dead = n_up == 0
+    # a dead domain's load is +inf: it repels its peers
+    load = torch.where(
+        dead, _INF, n_busy.to(_F32) / torch.clamp_min(n_up.to(_F32), 1.0)
+    )
+
+    rtt = _hier_rtt(dv, dev)
+    due = t1 >= hier.peer_t
+    peer_load = torch.where(due, load[None, :], hier.peer_load)
+    peer_t = torch.where(due, t1 + rtt, hier.peer_t)
+
+    has_fog = owned.any(dim=1)
+    eye = kept_tensor(tuple(np.eye(B, dtype=bool).ravel().tolist()), torch.bool, dev)
+    eye = eye.reshape(B, B)
+    score = torch.where(~eye & has_fog[None, :], peer_load, _INF)
+    dest = torch.argmin(score, dim=1)  # ties to the lowest broker id
+    best = score.amin(dim=1)
+    has_dest = torch.isfinite(best)
+    if spec.hier_policy == int(HierPolicy.THRESHOLD):
+        fire = dead | (load > knob(dv.hier_threshold, dev))
+    else:  # LEAST_LOADED
+        fire = dead | (best < load)
+
+    st2 = tasks.stage.reshape(U, S)
+    tab2 = tasks.t_at_broker.reshape(U, S)
+    matured2 = (st2 == _ST_PUB_INFLIGHT) & (tab2 <= t1)
+    tb = _task_brokers(spec, hier.task_broker)
+    tb2 = tb.reshape(U, S)
+    hops_ok2 = (hier.hops.to(_I32) < int_knob(dv.hier_max_hops)).reshape(U, S)
+    can_go2 = has_dest[tb2] & hops_ok2
+    mig2 = matured2 & fire[tb2] & can_go2
+    # exhaustion is a dead domain's only: the task can neither be served
+    # where it is nor move
+    exhaust2 = matured2 & dead[tb2] & ~can_go2
+    dst2 = dest[tb2]
+    tasks = tasks.replace(
+        stage=torch.where(exhaust2, _i8(_ST_HOP_EXHAUSTED, dev), st2).reshape(T),
+        t_at_broker=torch.where(mig2, tab2 + rtt[tb2, dst2], tab2).reshape(T),
+    )
+    mig = mig2.reshape(T)
+    dst = dst2.reshape(T)
+    bid = kept_tensor(tuple(range(B)), torch.int64, dev)
+    out_b = _isum((tb[None, :] == bid[:, None]) & mig[None, :], 1)
+    in_b = _isum((dst[None, :] == bid[:, None]) & mig[None, :], 1)
+    sums = _isum(torch.stack([mig2, exhaust2]), (1, 2))
+    hier = hier.replace(
+        task_broker=torch.where(mig, dst.to(_I32), hier.task_broker),
+        hops=hier.hops + mig.to(torch.int8),
+        peer_load=peer_load,
+        peer_t=peer_t,
+        mig_out=hier.mig_out + out_b,
+        mig_in=hier.mig_in + in_b,
+        n_migrated=hier.n_migrated + sums[0],
+        n_hop_exhausted=hier.n_hop_exhausted + sums[1],
+    )
+    # a migration is one task forward over the federation link, both ends
+    # on the one broker node
+    buf = buf._replace(tx_b=buf.tx_b + sums[0], rx_b=buf.rx_b + sums[0])
+    return state.replace(tasks=tasks, hier=hier), buf
 
 
 def _phase_completions(spec, state, cache, buf, t1, tp=None):
@@ -1753,6 +2049,13 @@ def make_step(spec: WorldSpec):
                 d2b=fma(backlog, inv_rate.expand_as(backlog), cache.d2b) + qdelay_b
             )
 
+        if spec.chaos:
+            # the degraded broker->fog delays, then the lifecycle, so this
+            # tick's edges are in nodes.alive before any dispatch
+            if spec.chaos_rtt_amp > 0 or spec.chaos_rtt_burst_prob > 0:
+                cache = _chaos_rtt(spec, state, cache, t0, dv)
+            state, buf = _phase_chaos(spec, state, cache, buf, t0, t1, dv)
+
         if spec.connect_gating:
             state, buf = _phase_connect(spec, state, cache, buf, t0, t1)
         state = _phase_adverts(state, t1)
@@ -1763,6 +2066,10 @@ def make_step(spec: WorldSpec):
             state, buf = _phase_spawn_multi(spec, state, net, cache, buf, t0, t1, dv)
         else:
             state, buf = _phase_spawn(spec, state, net, cache, buf, t0, t1, dv)
+        if _hier_migrate_on(spec):
+            # matured publishes leave a saturated or dead domain before
+            # its broker decides them
+            state, buf = _phase_broker_migrate(spec, state, buf, t1, dv)
         v2_local = spec.policy == int(Policy.LOCAL_FIRST) and spec.v2_local_broker
         if v2_local:  # shared-timer fires that precede every arrival
             state, buf = _phase_v2_release(spec, state, cache, buf, t1, True)
@@ -1864,6 +2171,9 @@ def _finalize_derived_acks(
     qe2 = t.t_q_enter.reshape(U, S)
     ss2 = t.t_service_start.reshape(U, S)
     decided = (st2 != _ST_UNUSED) & (st2 != _ST_PUB_INFLIGHT) & (st2 != _ST_LOST)
+    if spec.n_brokers > 1:
+        # a hop-exhausted task never reached a decide phase: no ack
+        decided = decided & (st2 != _ST_HOP_EXHAUSTED)
     queued = torch.isfinite(qe2)
     assigned = torch.isfinite(ss2) & ~queued
     done = st2 == _ST_DONE
@@ -1896,10 +2206,18 @@ def _runner_setup(spec: WorldSpec, net: NetParams, dev, bounds, n_ticks):
     return bounds, spec.n_ticks if n_ticks is None else n_ticks
 
 
-def _static_cache(spec: WorldSpec, net: NetParams, state: WorldState) -> LinkCache:
+def _static_cache(
+    spec: WorldSpec, net: NetParams, state: WorldState, fused: bool = True
+) -> LinkCache:
     """One association for the whole run: positions and liveness are
-    constant, so no mobility or association runs a tick."""
-    return associate(net, state.nodes.pos, state.nodes.alive, spec.broker_index)
+    constant, so no mobility or association runs a tick.  ``fused``: as
+    the reference's jitted runners (``run_jit``, ``run_chunked``, the
+    replica batch) compute it, inside their program; ``False``: as JAX
+    ``run`` does, op by op before its scan, no multiply-add contracted
+    (:func:`..net.topology.associate`)."""
+    return associate(
+        net, state.nodes.pos, state.nodes.alive, spec.broker_index, fused=fused
+    )
 
 
 def run(
@@ -1918,14 +2236,22 @@ def run(
     their shape key (``dynspec.split_spec``); ``None`` takes the spec's
     own values as host constants.
     """
+    return _run(spec, state, net, bounds, n_ticks, dyn, fused_cache=False), None
+
+
+def _run(spec, state, net, bounds, n_ticks, dyn, fused_cache: bool) -> WorldState:
+    """:func:`run`'s loop, the static cache built as :func:`_static_cache`
+    with ``fused_cache``."""
     bounds, n = _runner_setup(spec, net, state.t.device, bounds, n_ticks)
     step = make_step(spec)
-    static_cache = _static_cache(spec, net, state) if spec.assume_static else None
+    static_cache = (
+        _static_cache(spec, net, state, fused_cache) if spec.assume_static else None
+    )
     for _ in range(n):
         state = step(state, net, bounds, static_cache, dyn)
     if spec.derive_acks:
         state = _finalize_derived_acks(spec, state, static_cache)
-    return state, None
+    return state
 
 
 def batched_tick(
@@ -2043,7 +2369,7 @@ def run_chunked(
     done = 0
     while done < total:
         n = min(chunk, total - done)
-        state, _ = run(run_spec, state, net, bounds, n_ticks=n, dyn=dyn)
+        state = _run(run_spec, state, net, bounds, n, dyn, fused_cache=True)
         done += n
         if callback is not None:
             callback(state, done)
@@ -2067,5 +2393,5 @@ def run_jit(
         promote = promote_default()
     if promote:
         key_spec, dyn = _promoted(spec, state.t.device)
-        return run(key_spec, state, net, bounds, dyn=dyn)[0]
-    return run(spec, state, net, bounds)[0]
+        return _run(key_spec, state, net, bounds, None, dyn, fused_cache=True)
+    return _run(spec, state, net, bounds, None, None, fused_cache=True)

@@ -330,6 +330,12 @@ def knob(x, device) -> torch.Tensor:
     return const(float(x), device)
 
 
+def int_knob(x):
+    """An integer knob as a comparison operand: an operand tensor as
+    given, a host value as a Python int."""
+    return x if isinstance(x, torch.Tensor) else int(x)
+
+
 def div_knob(num: torch.Tensor, x) -> torch.Tensor:
     """``num / x`` as the reference computes it: a host constant divides
     as a product with its float32 reciprocal (XLA's rewrite of a division

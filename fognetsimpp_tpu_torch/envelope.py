@@ -27,10 +27,6 @@ def broker_dense_ok(spec: WorldSpec) -> bool:
 
 def slice_reject_reason(spec: WorldSpec, net=None) -> Optional[str]:
     """Why the port cannot run ``spec`` (and ``net``) yet; None = it can."""
-    if spec.chaos:
-        return "chaos worlds (ROADMAP.md §1 item 12)"
-    if spec.hier_active:
-        return "federated multi-broker worlds (ROADMAP.md §1 item 13)"
     if spec.telemetry or spec.telemetry_hist or spec.journey_active:
         return "the telemetry planes (ROADMAP.md §1 item 14)"
     if spec.record_tick_series or spec.record_trails:
@@ -47,17 +43,6 @@ def check_slice(spec: WorldSpec, net=None) -> None:
     why = slice_reject_reason(spec, net)
     if why is not None:
         raise NotImplementedError(f"not ported yet: {why}")
-
-
-def check_replicas(spec: WorldSpec) -> None:
-    """The replica axis's envelope (:mod:`.parallel.replicas`): the
-    single-device slice, with one shape key for every replica."""
-    if spec.chaos:
-        raise NotImplementedError(
-            "not ported yet: per-replica chaos schedules "
-            "(fold_replica_chaos_keys; ROADMAP.md §1 item 12)"
-        )
-    check_slice(spec)
 
 
 def check_one_card(mesh) -> None:
@@ -80,10 +65,5 @@ def check_tp_slice(spec: WorldSpec, net=None) -> None:
         raise NotImplementedError(
             "not ported yet: telemetry, the latency histogram and journeys "
             "under the task-sharded tick (ROADMAP.md §1 items 14 and 23)"
-        )
-    if spec.n_aps > 0 or (net is not None and net.ap_nodes.shape[0] > 0):
-        raise NotImplementedError(
-            "not ported yet: access points under the task-sharded tick "
-            "(ROADMAP.md §1 item 26)"
         )
     check_slice(spec, net)

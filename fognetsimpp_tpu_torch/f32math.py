@@ -131,11 +131,25 @@ def _poly(x: torch.Tensor, x2: torch.Tensor, cos_tab: torch.Tensor, odd: torch.T
     return torch.where(odd, cos_p, sin_p)
 
 
+_TABLES: dict = {}
+
+
+def kept_tensor(values: tuple, dtype: torch.dtype, device) -> torch.Tensor:
+    """``values`` as a tensor on ``device``, copied there at the first call
+    and kept: a copy from the host waits for the card, so later calls (the
+    tick's) read the kept tensor."""
+    key = (values, dtype, torch.device(device))
+    t = _TABLES.get(key)
+    if t is None:
+        t = _TABLES[key] = torch.tensor(values, dtype=dtype, device=device)
+    return t
+
+
 def _reduce_large(xi: torch.Tensor):
     """``reduce_large`` for |x| >= 120: (x mod pi/2 in [-pi/4, pi/4],
     quadrant), from the float's bits ``xi`` (uint32 in int64) and 4/pi in
     fixed point, in int64 ops that never overflow."""
-    tab = torch.tensor(_INV_PIO4, dtype=torch.int64, device=xi.device)
+    tab = kept_tensor(_INV_PIO4, torch.int64, xi.device)
     k = (xi >> 26) & 15
     shift = (xi >> 23) & 7
     m = ((xi & 0xFFFFFF) | 0x800000) << shift  # < 2^31
@@ -169,7 +183,7 @@ def _sincosf(y: torch.Tensor, cos: bool) -> torch.Tensor:
     n = torch.where(big, n_l, n_f.long() & 3)
     q = torch.where(big, sgn_q, n)
     r = torch.where(big, r_l, r_f)
-    sign = torch.tensor(_SIGN, dtype=torch.float64, device=y.device)[q]
+    sign = kept_tensor(_SIGN, torch.float64, y.device)[q]
     cos_tab = torch.where((q & 2) != 0, -1.0, 1.0).double()
     odd = ((n ^ 1) if cos else n) & 1 != 0
     out = _poly(r * sign, r * r, cos_tab, odd)

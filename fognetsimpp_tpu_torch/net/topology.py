@@ -12,7 +12,8 @@ builders run once a scenario (:func:`bianchi_fixed_point`,
 
 Two habits keep :func:`associate` bit-exact with XLA on the CPU: the
 ``a * b + c`` that XLA contracts into one fused multiply-add use
-:func:`~..f32math.fma`, and the float32 sum of each cell's offered load
+:func:`~..f32math.fma` (``fused=False`` rounds each step instead, as the
+reference's un-jitted calls do), and the float32 sum of each cell's offered load
 adds in index order (:func:`~..ops.cell_kernels.cell_sum_ordered`, a
 CUDA kernel on the card), as XLA's scatter-add does.
 """
@@ -100,9 +101,14 @@ def _interp(tab: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return fma(tab[i0 + 1], fr, tab[i0] * (1.0 - fr))
 
 
+def _mul_add(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` rounded twice: the product, then the sum."""
+    return a * b + c
+
+
 def associate(
     net: NetParams, pos: torch.Tensor, alive: torch.Tensor, broker: int,
-    offered_rate: Optional[torch.Tensor] = None,
+    offered_rate: Optional[torch.Tensor] = None, fused: bool = True,
 ) -> LinkCache:
     """Association and access delays for the current positions.
 
@@ -113,7 +119,14 @@ def associate(
     iterations; without ``offered_rate``, by the cell's occupancy; with
     empty tables the access delay is linear in the occupancy and nothing
     is lost.
+
+    ``fused``: the arithmetic of the reference's compiled programs (the
+    tick, and the static cache of its jitted runners), where XLA
+    contracts ``a * b + c``; ``False`` that of an op-by-op call (the
+    static cache JAX ``run`` and the task-sharded runner build before
+    their loop), every product rounded apart.
     """
+    mad = fma if fused else _mul_add
     N = pos.shape[0]
     A = net.ap_nodes.shape[0]
     dev = pos.device
@@ -133,7 +146,7 @@ def associate(
     ap_ok = alive[ap_idx]
     diff = pos[:, None, :] - ap_pos[None, :, :]  # (N, A, 2)
     dx, dy = diff[..., 0], diff[..., 1]
-    d2 = fma(dy, dy, dx * dx)
+    d2 = mad(dy, dy, dx * dx)
     d2 = torch.where(ap_ok[None, :], d2, float("inf"))
     nearest = torch.argmin(d2, dim=1).to(_I32)  # first minimum
     # a correctly rounded square root, as XLA's (torch's float32 sqrt on
@@ -154,7 +167,7 @@ def associate(
         net.node_attach,
     ).to(_I32)
     w_c = net.w_contention
-    base = fma(net.w_prop, ndist, net.w_base.expand_as(ndist))
+    base = mad(net.w_prop, ndist, net.w_base.expand_as(ndist))
     if net.mac_delay_tab.shape[0] > 0:
         tab, loss_tab = net.mac_delay_tab, net.mac_loss_tab
         tab_n = tab.shape[0]
@@ -179,7 +192,7 @@ def associate(
         acc = base + mac_d
     else:
         n_here = n_assoc[assoc_c].to(_F32)
-        acc = fma(w_c.expand_as(n_here), n_here, base)
+        acc = mad(w_c.expand_as(n_here), n_here, base)
         mac_loss = torch.zeros((N,), dtype=_F32, device=dev)
     acc = torch.where(on_air, acc, net.node_acc)
     return LinkCache(

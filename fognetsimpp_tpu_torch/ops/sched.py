@@ -8,8 +8,10 @@ bandit policies UCB, DUCB and EXP3 (:mod:`..learn.bandits`), DYNAMIC
 over them by the device tensor ``policy_id``, and the one-winner MAX_MIPS
 scan of LOCAL_FIRST's offloads.  Every same-window arrival
 sees one snapshot of the broker's (stale) fog view, as the reference's
-broker between two advertisements does.  The federated broker domains
-(``fog_owner``, ``task_broker``) are ``ROADMAP.md`` §1 item 13.
+broker between two advertisements does.  Given the federated broker
+domains (``fog_owner``, ``task_broker``, :mod:`..hier`), each task is
+decided over its own broker's fogs only: per-domain ``brokers[0]``
+anchors, one-winner scans, RANDOM slot tables and bandit slices.
 """
 from __future__ import annotations
 
@@ -17,13 +19,12 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..f32math import const, fma
+from ..f32math import const, fma, xla_cumsum
 from ..learn.bandits import (
     BanditArms, ducb_scores, exp3_probs, exp3_sample, ucb_scores,
 )
 from ..random import _bits_to_f32, threefry2x32
 from ..spec import Policy
-from .scatter import set_drop
 
 _BIG = 3.4e38
 _I32 = torch.int32
@@ -31,9 +32,10 @@ _M32 = 0xFFFFFFFF
 
 
 def at(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
-    """``x[i]`` for a 0-d index tensor ``i``, without reading ``i`` on the
-    host (``x[i]`` would turn it into a Python int and wait for the card)."""
-    return x.index_select(0, i.reshape(1).long()).reshape(())
+    """``x[i]`` for an index tensor ``i`` of any shape (0-d included)
+    along axis 0, without reading ``i`` on the host (``x[i]`` with a 0-d
+    ``i`` would turn it into a Python int and wait for the card)."""
+    return x.index_select(0, i.reshape(-1).long()).reshape(i.shape)
 
 
 def task_uniform(base_key: torch.Tensor, task_ids: torch.Tensor) -> torch.Tensor:
@@ -104,12 +106,15 @@ def _safe_div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _slot_table(ok: torch.Tensor) -> torch.Tensor:
-    """(F,) the fog index of each rank among the ``ok`` fogs."""
-    F = ok.shape[0]
-    rank = torch.cumsum(ok.to(_I32), dim=0).to(_I32) - 1
-    fids = torch.arange(F, dtype=_I32, device=ok.device)
-    return set_drop(torch.zeros((F,), dtype=_I32, device=ok.device),
-                    torch.where(ok, rank, F), fids)
+    """(..., F) the fog index of each rank among the ``ok`` fogs of each
+    row (zeros past the last)."""
+    F = ok.shape[-1]
+    rank = torch.cumsum(ok.to(_I32), dim=-1).to(_I32) - 1
+    fids = torch.arange(F, dtype=torch.int64, device=ok.device).expand(ok.shape)
+    # ranks are distinct within a row; the spare column F takes the rest
+    table = torch.zeros(ok.shape[:-1] + (F + 1,), dtype=torch.int64, device=ok.device)
+    table = table.scatter(-1, torch.where(ok, rank, F).long(), fids)
+    return table[..., :F].to(_I32)
 
 
 def schedule_batch(
@@ -144,10 +149,6 @@ def schedule_batch(
     the engine applies their per-task MIPS guard and LOCAL_FIRST's local
     branch.
     """
-    if fog_owner is not None or task_broker is not None or n_brokers != 1:
-        raise NotImplementedError(
-            "not ported yet: federated broker domains (ROADMAP.md §1 item 13)"
-        )
     T = mask.shape[0]
     F = view_busy.shape[0]
     dev = mask.device
@@ -155,35 +156,76 @@ def schedule_batch(
         return torch.full((T,), -1, dtype=_I32, device=dev), rr_cursor
     avail = registered  # the reference never evicts dead fogs
     first_reg = torch.argmax(avail.to(torch.uint8)).to(_I32)
-    divisor = at(view_mips, first_reg).expand(F) if mips0_divisor else view_mips
-    est = _safe_div(mips_req[:, None], divisor[None, :])
+    hier = fog_owner is not None
+    if hier:
+        # each task sees its own broker's fogs: (B, F) ownership, the
+        # domain's brokers[0] (its first registered fog) and (T, F)
+        # membership rows
+        B = int(n_brokers)
+        owned = fog_owner[None, :] == torch.arange(B, dtype=_I32, device=dev)[:, None]
+        tb = torch.clamp(task_broker, 0, B - 1).long()
+        avail_b = avail[None, :] & owned
+        first_reg_b = torch.argmax(avail_b.to(torch.uint8), dim=1).to(_I32)
+        first_reg_t = first_reg_b[tb]
+        allowed = owned[tb]
+    if hier and mips0_divisor:
+        # the mips0 quirk a domain: every candidate of a task divides by
+        # the MIPS of its own domain's anchor
+        est = _safe_div(mips_req[:, None], view_mips[first_reg_t.long()][:, None])
+    else:
+        divisor = at(view_mips, first_reg).expand(F) if mips0_divisor else view_mips
+        est = _safe_div(mips_req[:, None], divisor[None, :])
     none = torch.full((T,), -1, dtype=_I32, device=dev)
 
     def decided(choice):
         return torch.where(mask, choice.to(_I32), none)
 
+    def per_domain(winner_of, ok_bf):
+        """Each task takes its own domain's winner (``winner_of`` maps a
+        domain's (F,) usable mask to its () winner), -1 where its domain
+        has no usable fog."""
+        win_b = torch.func.vmap(winner_of)(ok_bf)
+        return torch.where(ok_bf.any(dim=1)[tb], win_b[tb], -1)
+
     if policy in (int(Policy.MAX_MIPS), int(Policy.LOCAL_FIRST)):
-        winner = scalar_winner(
-            int(Policy.MAX_MIPS), view_busy, view_mips, registered, fog_alive,
-            fog_energy_frac, rtt_broker_fog, v1_max_scan,
-        )
-        return decided(winner.expand(T)), rr_cursor
+        def scan_winner(av):
+            return scalar_winner(
+                int(Policy.MAX_MIPS), view_busy, view_mips, av, fog_alive,
+                fog_energy_frac, rtt_broker_fog, v1_max_scan,
+            )
+
+        if hier:
+            return decided(per_domain(scan_winner, avail_b)), rr_cursor
+        return decided(scan_winner(registered).expand(T)), rr_cursor
 
     def from_scores(scores, avail_):
-        scores = torch.where(avail_[None, :], scores, const(_BIG, dev))
+        if hier:
+            # fogs outside the task's domain score _BIG, and "no fog" and
+            # the all-big anchor are the task's own domain's
+            scores = torch.where(avail_[None, :] & allowed, scores, const(_BIG, dev))
+            anchor = first_reg_t
+            any_fog = (avail_[None, :] & owned).any(dim=1)[tb]
+        else:
+            scores = torch.where(avail_[None, :], scores, const(_BIG, dev))
+            anchor, any_fog = first_reg, avail_.any()
         scores = torch.nan_to_num(scores, posinf=_BIG)
         choice = torch.argmin(scores, dim=1).to(_I32)
         # an all-inf row (before any advert): the strict-< scan keeps its
         # initial winner, brokers[0], the first registered fog
         all_big = (scores >= _BIG).all(dim=1)
-        choice = torch.where(all_big, first_reg, choice)
-        choice = torch.where(avail_.any(), choice, -1)
+        choice = torch.where(all_big, anchor, choice)
+        choice = torch.where(any_fog, choice, -1)
         return decided(choice), rr_cursor
 
     def b_min_busy():
         return from_scores(view_busy[None, :] + est, avail)
 
     def b_round_robin():
+        if hier:
+            raise ValueError(
+                "ROUND_ROBIN does not federate (single shared cursor); "
+                "WorldSpec.validate() should have rejected this spec"
+            )
         # the k-th masked task gets fog (rr + k) % n among the available,
         # k in event order (arrival time, ties by index) given order_t
         if order_t is None:
@@ -219,28 +261,54 @@ def schedule_batch(
 
     def b_random():
         ok = avail & fog_alive
-        n_ok = ok.sum(dtype=_I32)
+        if hier:
+            # the task-id-keyed draw indexes its own domain's slot table
+            ok_bf = ok[None, :] & owned
+            n_ok = ok_bf.sum(dim=1, dtype=_I32)[tb]
+        else:
+            n_ok = ok.sum(dtype=_I32)
         # floor(u * n) in float32, as the native DES computes it
         slot = (units() * n_ok.to(torch.float32)).to(_I32)
         slot = torch.minimum(torch.clamp_min(slot, 0), torch.clamp_min(n_ok - 1, 0))
-        choice = _slot_table(ok)[slot.long()]
+        if hier:
+            choice = _slot_table(ok_bf)[tb, slot.long()]
+        else:
+            choice = _slot_table(ok)[slot.long()]
         return decided(torch.where(n_ok > 0, choice, -1)), rr_cursor
 
     ok_b = avail & fog_alive  # a dead fog never acks, so bandits skip it
 
-    def winner_from_index(scores):
-        win = torch.argmax(torch.where(ok_b, scores, const(-_BIG, dev))).to(_I32)
-        return decided(torch.where(ok_b.any(), win, -1).expand(T)), rr_cursor
+    def index_winner(score_fn):
+        def winner_of(av):
+            scores = score_fn(learn, av)
+            win = torch.argmax(torch.where(av, scores, const(-_BIG, dev))).to(_I32)
+            return torch.where(av.any(), win, -1)
+
+        if hier:
+            # one bandit a broker over its own arms (its own exploration
+            # total), on the one shared (F,) statistics table
+            return decided(per_domain(winner_of, ok_b[None, :] & owned)), rr_cursor
+        return decided(winner_of(ok_b).expand(T)), rr_cursor
 
     def b_ucb():
-        return winner_from_index(ucb_scores(learn, ok_b))
+        return index_winner(ucb_scores)
 
     def b_ducb():
-        return winner_from_index(ducb_scores(learn, ok_b))
+        return index_winner(ducb_scores)
 
     def b_exp3():
-        p = exp3_probs(learn.logw, ok_b, learn.explore)
-        return decided(exp3_sample(p, units())), rr_cursor
+        if not hier:
+            p = exp3_probs(learn.logw, ok_b, learn.explore)
+            return decided(exp3_sample(p, units())), rr_cursor
+        # each task samples from its own broker's softmax over its arms
+        p_b = torch.func.vmap(lambda av: exp3_probs(learn.logw, av, learn.explore))(
+            ok_b[None, :] & owned
+        )
+        cdf = xla_cumsum(p_b)[tb]  # (T, F)
+        total = cdf[:, -1]
+        target = torch.clamp(units(), const(1e-7, dev), const(1.0, dev)) * total
+        arm = torch.argmax((cdf >= target[:, None]).to(torch.uint8), dim=1)
+        return decided(torch.where(total > 0, arm.to(_I32), -1)), rr_cursor
 
     branches = {
         int(Policy.MIN_BUSY): b_min_busy,
@@ -253,6 +321,11 @@ def schedule_batch(
         int(Policy.EXP3): b_exp3,
     }
     if policy == int(Policy.DYNAMIC):
+        if hier:
+            raise ValueError(
+                "Policy.DYNAMIC does not federate (n_brokers > 1); "
+                "WorldSpec.validate() should have rejected this spec"
+            )
         if policy_id is None:
             raise ValueError("Policy.DYNAMIC needs a policy_id tensor")
         # every branch is computed and the one policy_id names is kept:

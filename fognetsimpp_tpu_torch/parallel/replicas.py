@@ -6,10 +6,9 @@ one spec, ``NetParams`` and ``MobilityBounds`` advance together, one
 Replicas differ in PRNG key, hence in task sizes and, with a start-time
 window, in app start times; a sweep (:mod:`.sweep`) also gives each its
 own publish interval, policy id, exploration rate or row of promoted
-knobs (``dyn_rows``, :func:`..dynspec.dyn_rows`).
-
-Chaos worlds (their per-replica fault schedules) are ``ROADMAP.md`` §1
-item 12: they raise.
+knobs (``dyn_rows``, :func:`..dynspec.dyn_rows`).  In a chaos world each
+replica also draws its own fault schedule, keyed on its replica id
+(:func:`fold_replica_chaos_keys`).
 """
 from __future__ import annotations
 
@@ -22,7 +21,8 @@ import torch
 
 from ..core.engine import run_batched
 from ..dynspec import DynSpec, dyn_to_device
-from ..envelope import check_replicas
+from ..chaos.faults import refold_chaos_state
+from ..envelope import check_slice
 from ..net.mobility import MobilityBounds
 from ..net.topology import NetParams
 from ..random import PRNGKey, fold_in, split, uniform
@@ -49,6 +49,15 @@ def broadcast_state(state: WorldState, n: int) -> WorldState:
     return tree_map(lambda x: x.expand((n,) + tuple(x.shape)).clone(), state)
 
 
+def fold_replica_chaos_keys(chaos_key: torch.Tensor, n_replicas: int) -> torch.Tensor:
+    """(R, 2) per-replica chaos keys ``fold_in(chaos_key, r)``: replica
+    r's schedule depends on its own id only, the same whether 8 or 800
+    replicas run around it, and ``chaos.outage_timeline`` replays it
+    with the folded key."""
+    ids = torch.arange(int(n_replicas), dtype=torch.int64, device=chaos_key.device)
+    return fold_in(chaos_key, ids)
+
+
 def replicate_state(
     spec: WorldSpec,
     state: WorldState,
@@ -61,12 +70,18 @@ def replicate_state(
 
     When ``resample_starts`` and the spec declares a start-time window,
     replica r redraws its user app start times from ``fold_in(key_r, 1)``,
-    and without the connect handshake its first publish with them.
+    and without the connect handshake its first publish with them.  A
+    chaos world's replica r is re-keyed onto ``fold_in(chaos_key, r)``
+    (:func:`fold_replica_chaos_keys`), its first crash gaps and RTT
+    phases drawn again from it (:func:`..chaos.faults.refold_chaos_state`).
     """
-    check_replicas(spec)
+    check_slice(spec)
     R = int(n_replicas)
     keys = split(PRNGKey(seed, state.t.device), R)
     batch = broadcast_state(state, R).replace(key=keys)
+    if spec.chaos:
+        ck = fold_replica_chaos_keys(state.chaos.key, R)
+        batch = batch.replace(chaos=refold_chaos_state(spec, state.chaos, ck))
     if resample_starts and spec.start_time_max > spec.start_time_min:
         starts = torch.func.vmap(
             lambda k: uniform(
@@ -99,7 +114,7 @@ def run_replicated(
     device), so each replica runs its own promoted knob values; ``spec``
     is then the grid's shared shape key.  ``None`` runs every replica on
     the spec's own values as host constants."""
-    check_replicas(spec)
+    check_slice(spec)
     if dyn_rows is not None and not isinstance(dyn_rows.learn_discount, torch.Tensor):
         dyn_rows = dyn_to_device(dyn_rows, batch.t.device)
     return run_batched(spec, batch, net, bounds, n_ticks=n_ticks, dyn_rows=dyn_rows)[0]

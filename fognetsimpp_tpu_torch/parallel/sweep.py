@@ -14,8 +14,8 @@ Any promoted knob (:data:`..dynspec.DYN_FIELDS`) is data as well:
 their cell's DynSpec row, and :func:`sweep_dyn_from` forks a live state
 onto such a grid (the what-if).
 
-``mesh=`` (replicas across cards) is ``ROADMAP.md`` §1 item 27 and chaos
-worlds item 12: they raise.
+``mesh=`` (replicas across cards) is ``ROADMAP.md`` §1 item 27: it
+raises.
 """
 from __future__ import annotations
 
@@ -26,11 +26,15 @@ from typing import Callable, Dict, Iterator, List, Mapping, Optional, Sequence, 
 import numpy as np
 import torch
 
+from ..chaos.faults import init_chaos_state, refold_chaos_state
 from ..dynspec import DYN_FIELDS, dyn_of, dyn_rows, shape_key
 from ..envelope import check_one_card
 from ..spec import ARGMIN_FAMILY, LEARNED_POLICIES, Policy, WorldSpec
 from ..state import WorldState, tree_map
-from .replicas import broadcast_state, replica_counters, replicate_state, run_replicated
+from .replicas import (
+    broadcast_state, fold_replica_chaos_keys, replica_counters, replicate_state,
+    run_replicated,
+)
 
 
 def _tile(batch: WorldState, n: int) -> WorldState:
@@ -215,6 +219,13 @@ def _knob_grid(knobs: Mapping[str, Sequence], what: str) -> List[Dict]:
     ]
 
 
+def _cell_chaos(spec: WorldSpec, state: WorldState, n_rep: int):
+    """A grid cell's ``n_rep`` chaos rows: ``spec``'s t=0 schedule on the
+    world key of ``state``, re-keyed a replica (:func:`.replicate_state`)."""
+    ch0 = init_chaos_state(spec, state.key)
+    return refold_chaos_state(spec, ch0, fold_replica_chaos_keys(ch0.key, n_rep))
+
+
 def dyn_batch(
     build: Callable[..., tuple],
     knobs: Mapping[str, Sequence],
@@ -231,11 +242,6 @@ def dyn_batch(
     if not grid:
         return grid, None, None, None, None, None
     spec0, state, net, bounds = build(**{**build_kwargs, **grid[0]})
-    if spec0.chaos:
-        raise NotImplementedError(
-            "not ported yet: per-cell chaos schedules in sweep_dyn "
-            "(refold_chaos_state; ROADMAP.md §1 item 12)"
-        )
     cells = [dataclasses.replace(spec0, **cell).validate() for cell in grid]
     key0 = shape_key(cells[0])
     for cell, sp in zip(grid, cells):
@@ -247,6 +253,13 @@ def dyn_batch(
             )
     nrc = int(n_replicas_per_cell)
     batch = _tile(replicate_state(spec0, state, nrc, seed=seed), len(cells))
+    if spec0.chaos:
+        # the t=0 schedule (the first crash gap) is drawn from the cell's
+        # MTBF: each cell's rows start where replicate_state of a direct
+        # build of its spec would, keyed on the built world's key
+        batch = batch.replace(chaos=tree_map(
+            lambda *xs: torch.cat(xs), *[_cell_chaos(sp, state, nrc) for sp in cells]
+        ))
     rows = dyn_rows([dyn_of(sp) for sp in cells], state.t.device, nrc)
     return grid, key0, batch, net, bounds, rows
 

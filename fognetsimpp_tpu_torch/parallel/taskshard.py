@@ -20,7 +20,9 @@ shard), with the collectives at the places the JAX tick has them:
   distributed top-K merge (:meth:`ShardGroup.ring_topk_merge`); every
   shard runs the reference assignment and FIFO tail on the assembled
   window, and task writes land on the owning shard only;
-- counters: one end-of-tick ``psum``.
+- counters: one end-of-tick ``psum``; a static access-point world adds
+  the hoisted cache's per-AP association counts to every shard's copy of
+  the AP rows (its uplink loss is the cut ``mac_loss_p``).
 
 The shards run as threads of one process on one device
 (:mod:`.shards`), the way ``shard_map`` runs one body per device.  Every
@@ -373,6 +375,16 @@ def _tp_tick(
         tx_count=state.nodes.tx_count + torch.cat([buf_p.tx_u, buf_r.tx_f, tx_b[None], rest]),
         rx_count=state.nodes.rx_count + torch.cat([buf_p.rx_u, buf_r.rx_f, rx_b[None], rest]),
     )
+    if spec.n_aps > 0:
+        # the hoisted cache's per-AP counts are global: every shard adds
+        # them into its replicated AP rows
+        a0, a1 = spec.ap_slice
+        nodes = nodes.replace(
+            assoc_sum=torch.cat([
+                nodes.assoc_sum[:a0], nodes.assoc_sum[a0:a1] + cache.n_assoc,
+                nodes.assoc_sum[a1:],
+            ])
+        )
     return state.replace(
         nodes=nodes, metrics=Metrics(**vals), t=t1, tick=state.tick + 1
     )
@@ -479,7 +491,10 @@ def run_tp_shards(
         run_spec, dv = spec, dyn_of(spec)
     n = int(n_shards)
     ticks = spec.n_ticks if n_ticks is None else n_ticks
-    cache = associate(net, state.nodes.pos, state.nodes.alive, spec.broker_index)
+    # the run's one association, op by op as the reference builds it
+    cache = associate(
+        net, state.nodes.pos, state.nodes.alive, spec.broker_index, fused=False
+    )
     group = ShardGroup(n, state.t.device)
     U_loc, S = spec.n_users // n, spec.max_sends_per_user
 

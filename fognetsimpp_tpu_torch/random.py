@@ -7,7 +7,8 @@ module re-implements the functions the slice needs:
 
 * :func:`PRNGKey`, :func:`split`, :func:`fold_in` — the key algebra
   (``jax/_src/prng.py``: ``threefry_seed``, ``_threefry_split_foldlike``,
-  ``threefry_fold_in``);
+  ``threefry_fold_in``), :func:`fold_in` also over a tensor of data and
+  a batch of keys (the vmapped fold);
 * :func:`random_bits`, :func:`uniform`, :func:`randint` — the samplers
   (``jax/_src/random.py``: ``_uniform``, ``_randint``).
 
@@ -39,8 +40,8 @@ def threefry2x32(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The threefry2x32 block cipher on uint32 words held in int64.
 
-    ``k1``/``k2`` are 0-d key words, ``x1``/``x2`` the counter words
-    (any shape, broadcast together); returns the two output words.
+    ``k1``/``k2`` are the key words, ``x1``/``x2`` the counter words
+    (all four broadcast together); returns the two output words.
     Same 20 rounds and key injections as
     ``jax._src.prng._threefry2x32_lowering``.
     """
@@ -83,17 +84,33 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([b1, b2], dim=1)
 
 
-def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
-    """``jax.random.fold_in(key, data)`` for a 32-bit ``data``."""
-    d = torch.tensor([0, int(data) & _M32], dtype=torch.int64, device=key.device)
-    b1, b2 = threefry2x32(key[0], key[1], d[:1], d[1:])
-    return torch.cat([b1, b2])
+def fold_in(key: torch.Tensor, data: Union[int, torch.Tensor]) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)``.
+
+    ``data`` is a Python int or an integer tensor of 32-bit values (its
+    low 32 bits are folded, as ``jnp.uint32`` wraps them); ``key`` is one
+    key ``(2,)`` or a batch ``(..., 2)`` that broadcasts against ``data``.
+    Returns keys of shape ``broadcast(key[..., 0], data) + (2,)``: the
+    vmapped fold of each key with each datum, in one threefry pass.  An
+    int goes in as a device fill, never a copy from the host, so the fold
+    does not wait for the card.
+    """
+    if isinstance(data, torch.Tensor):
+        d = data.to(torch.int64) & _M32
+    else:
+        d = torch.full((), int(data) & _M32, dtype=torch.int64, device=key.device)
+    b1, b2 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(d), d)
+    return torch.stack([b1, b2], dim=-1)
 
 
 def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
-    """32 random bits per element (partitionable): ``bits1 ^ bits2``."""
+    """32 random bits per element (partitionable): ``bits1 ^ bits2``.
+
+    A batch of keys ``(..., 2)`` draws ``shape`` from each key: the result
+    is ``key.shape[:-1] + shape``, the vmapped draw."""
     c1, c2 = _counts(tuple(shape), key.device)
-    b1, b2 = threefry2x32(key[0], key[1], c1, c2)
+    lead = tuple(key.shape[:-1]) + (1,) * len(shape)
+    b1, b2 = threefry2x32(key[..., 0].reshape(lead), key[..., 1].reshape(lead), c1, c2)
     return b1 ^ b2
 
 
@@ -111,7 +128,8 @@ def uniform(
     minval: float = 0.0,
     maxval: float = 1.0,
 ) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, float32, minval, maxval)``.
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``; a batch
+    of keys ``(..., 2)`` draws ``shape`` from each (:func:`random_bits`).
 
     The mantissa trick of ``_uniform``: 23 random mantissa bits under the
     exponent of 1.0, minus 1, scaled and shifted in float32 (``minval``

@@ -2,8 +2,9 @@
 
 Counterpart of ``fognetsimpp_tpu/state.py``.  Every class lists the same
 fields in the same order with the same shapes and dtypes as its JAX
-twin, including the zero-row sub-states of subsystems the port does not
-carry yet (``ChaosState``, ``HierState``, ``TelemetryState``), so a flattened port state lines up with
+twin, including the zero-row sub-states of subsystems that are off or
+that the port does not carry yet (``TelemetryState``), so a flattened
+port state lines up with
 ``jax.tree_util.tree_leaves`` of the JAX state leaf by leaf.
 
 One representation differs: a PRNG key (``WorldState.key``,
@@ -200,7 +201,9 @@ class LearnState(Struct):
 @register_pytree
 @dataclasses.dataclass
 class ChaosState(Struct):
-    """Fault-injection state (inert: zero-row per-fog/per-task leaves)."""
+    """Fault-injection state (:mod:`.chaos`): per-fog schedules, the
+    per-task retry column and the counters; zero-row per-fog and per-task
+    leaves when ``spec.chaos`` is off."""
 
     key: torch.Tensor  # (2,) PRNG key words (int64)
     next_down: torch.Tensor  # (Fc,) f32
@@ -219,7 +222,9 @@ class ChaosState(Struct):
 @register_pytree
 @dataclasses.dataclass
 class HierState(Struct):
-    """Federated multi-broker state (inert: zero-row on one broker)."""
+    """Federated multi-broker state (:mod:`.hier`): ownership, hops, the
+    aged peer loads and the migration counters; zero-row leaves with one
+    broker."""
 
     user_broker: torch.Tensor  # (Uh,) i32
     fog_broker: torch.Tensor  # (Fh,) i32
@@ -432,34 +437,12 @@ def init_state(
         **{f.name: full((), 0, i32) for f in dataclasses.fields(Metrics)}
     )
     learn = init_learn_state(spec, dev)
-    Fc, Tc = spec.chaos_fogs, spec.chaos_tasks
-    chaos = ChaosState(
-        key=trandom.PRNGKey(0, dev),
-        next_down=full((Fc,), 0.0, f32),
-        next_up=full((Fc,), 0.0, f32),
-        epoch=full((Fc,), 0, i32),
-        down_ticks=full((Fc,), 0, i32),
-        rtt_phase=full((Fc,), 0.0, f32),
-        retry=full((Tc,), 0, i8),
-        n_crashes=full((), 0, i32),
-        n_recovers=full((), 0, i32),
-        n_lost_crash=full((), 0, i32),
-        n_reoffloaded=full((), 0, i32),
-        n_retry_exhausted=full((), 0, i32),
-    )
-    B = spec.hier_brokers
-    hier = HierState(
-        user_broker=full((0,), 0, i32),
-        fog_broker=full((0,), 0, i32),
-        task_broker=full((0,), 0, i32),
-        hops=full((spec.hier_tasks,), 0, i8),
-        peer_load=full((B, B), 0.0, f32),
-        peer_t=full((B, B), 0.0, f32),
-        mig_out=full((B,), 0, i32),
-        mig_in=full((B,), 0, i32),
-        n_migrated=full((), 0, i32),
-        n_hop_exhausted=full((), 0, i32),
-    )
+    # the chaos stream is folded from the world key, never split from it
+    from .chaos.faults import init_chaos_state
+    from .hier.federation import init_hier_state
+
+    chaos = init_chaos_state(spec, key)
+    hier = init_hier_state(spec, dev)
     Fm, Pm, Rm = (
         spec.telemetry_fogs, spec.telemetry_phases, spec.telemetry_slots
     )

@@ -25,6 +25,17 @@ from fognetsimpp_tpu_torch.scenarios.cell_sum_inputs import large_cells, replica
 from fognetsimpp_tpu_torch.scenarios.pool_scan_inputs import KINDS as SCAN_KINDS
 from fognetsimpp_tpu_torch.scenarios.pool_scan_inputs import rows as scan_rows
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU tensors here are tiny: one thread beside the other
+    test workers (torch's OpenMP pool would only spin)."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 pytestmark = pytest.mark.cuda
 
 
@@ -733,3 +744,87 @@ def test_v1v2_card_run_equals_cpu_run(cuda, name):
             assert pk.LAUNCHES["local_pool_scan"] == spec.n_ticks
     for a, c in zip(*runs):
         assert a.dtype == c.dtype and a.tobytes() == c.tobytes()
+
+
+# ----------------------------------------------------------------------
+# chaos and the federated hierarchy on the card
+# ----------------------------------------------------------------------
+
+_CHAOS = dict(
+    n_users=64, n_fogs=4, fog_mips=(40000.0, 80000.0), send_interval=0.01,
+    horizon=0.06, start_time_max=0.02, assume_static=False, chaos=True,
+    chaos_mode=1, chaos_mtbf_s=0.02, chaos_mttr_s=0.01, chaos_max_retries=3,
+    chaos_script=((1, 0.01, 0.03),), chaos_rtt_amp=0.5, chaos_rtt_burst_prob=0.2,
+    derive_acks=False,
+)
+_IMBALANCED = dict(
+    n_users=64, n_fogs=4, fog_mips=(900.0, 60000.0, 60000.0, 60000.0),
+    send_interval=0.01, horizon=0.06, n_brokers=2, hier_policy=1,
+    hier_threshold=0.5, hier_max_hops=2, hier_rtt_s=0.005, derive_acks=False,
+)
+_FAULT_WORLDS = {
+    "chaos_min_busy": dict(_CHAOS),
+    "chaos_exp3": dict(_CHAOS, policy=int(Policy.EXP3)),
+    "chaos_lose": dict(_CHAOS, chaos_mode=0),
+    "hier_min_busy": dict(_IMBALANCED),
+    "hier_exp3": dict(_IMBALANCED, policy=int(Policy.EXP3)),
+}
+
+
+def _fault_world(device, name):
+    from fognetsimpp_tpu_torch.hier import stamp_ownership
+
+    spec, st, net, b = smoke.build(device=device, **_FAULT_WORLDS[name])
+    if spec.hier_active:
+        st = stamp_ownership(spec, st, user_broker=[0] * spec.n_users,
+                             fog_broker=[0, 1, 1, 1])
+    return spec, st, net, b
+
+
+@pytest.mark.parametrize("name", sorted(_FAULT_WORLDS))
+def test_chaos_and_hier_card_runs_equal_cpu_runs(cuda, name):
+    runs = []
+    for device in (cuda, "cpu"):
+        spec, st, net, b = _fault_world(device, name)
+        runs.append(engine.run(spec, st, net, b)[0])
+    for a, c in zip(*(state_to_numpy(r) for r in runs)):
+        assert a.dtype == c.dtype and a.tobytes() == c.tobytes()
+    final = runs[1]
+    if spec.chaos:
+        assert int(final.chaos.n_crashes) > 0
+    else:
+        assert int(final.hier.n_migrated) > 0
+
+
+@pytest.mark.parametrize("name", sorted(_FAULT_WORLDS))
+def test_chaos_and_hier_ticks_do_not_synchronise(cuda, name):
+    """A chaos tick (the lifecycle draws, the sweep's per-task gathers
+    of the per-fog edges, the RTT factor) and a federated tick (the
+    per-domain winners, the migrate phase) wait for the card nowhere."""
+    spec, st, net, b = _fault_world(cuda, name)
+    step = engine.make_step(spec)
+    for _ in range(30):  # past the first crashes and migrations
+        st = step(st, net, b)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st = step(st, net, b)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(st.metrics.n_scheduled) > 0
+
+
+def test_fold_in_over_tensors_on_the_card_equals_cpu(cuda):
+    from fognetsimpp_tpu_torch import random as trandom
+
+    data = torch.tensor([0, 1, 7, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 1], dtype=torch.int64)
+    for seed in (0, 5, -7):
+        key = trandom.PRNGKey(seed)
+        want = trandom.fold_in(key, data)
+        got = trandom.fold_in(key.to(cuda), data.to(cuda))
+        assert torch.equal(got.cpu(), want)
+        keys = trandom.fold_in(key.to(cuda), torch.arange(6, device=cuda))
+        draws = trandom.uniform(trandom.fold_in(keys, data.to(cuda)), (2,), 1e-7, 1.0)
+        want = trandom.uniform(trandom.fold_in(trandom.fold_in(key, torch.arange(6)), data),
+                               (2,), 1e-7, 1.0)
+        assert draws.cpu().numpy().tobytes() == want.numpy().tobytes()

@@ -6,9 +6,20 @@ through the native simulator with that file's assertions and tolerances;
 built, replayed and checked by ``tests/test_torch_des.py``.
 """
 import pytest
+import torch
 
 from tests import test_torch_des as des
-from tests.test_torch_des import one_torch_thread  # noqa: F401 (a fixture)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU tensors here are tiny: one thread beside the other
+    test workers (torch's OpenMP pool would only spin)."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
 
 NAME = "v1_local_first"
 

@@ -412,7 +412,7 @@ TICK_MODULES = [
 ]
 #: The gate reads the tick may make of a promoted field on the spec
 #: (``dynspec._GATED_POSITIVE`` and the finite stop time).
-GATES = {("send_stop_time", "!="), ("uplink_loss_prob", ">"), ("link_up_s", ">")}
+GATES = {("send_stop_time", "!=")} | {(f, ">") for f in tdyn._GATED_POSITIVE}
 
 
 def _spec_reads(tree):

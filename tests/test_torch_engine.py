@@ -11,6 +11,7 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+import torch
 
 from fognetsimpp_tpu import Policy
 from fognetsimpp_tpu.core import engine as jengine
@@ -23,6 +24,17 @@ from fognetsimpp_tpu_torch.parallel.taskshard import run_tp_sharded
 from fognetsimpp_tpu_torch.runtime.signals import summarize as tsummarize
 from fognetsimpp_tpu_torch.scenarios import smoke as tsmoke
 from fognetsimpp_tpu_torch.state import state_to_numpy, tree_leaves
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU tensors here are tiny: one thread beside the other
+    test workers (torch's OpenMP pool would only spin)."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
 
 BENCH_SMALL = dict(
     n_users=256, n_fogs=8, fog_mips=(1000.0, 2000.0, 3000.0, 4000.0),

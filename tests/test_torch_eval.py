@@ -10,13 +10,24 @@ import functools
 
 import numpy as np
 import pytest
+import torch
 
 from fognetsimpp_tpu.learn import eval as jeval
 from fognetsimpp_tpu.scenarios import smoke as jsmoke
 from fognetsimpp_tpu_torch.learn import eval as teval
 from fognetsimpp_tpu_torch.scenarios import smoke as tsmoke
 from fognetsimpp_tpu_torch.spec import Policy
-from tests.test_torch_policies import one_torch_thread  # noqa: F401 (a fixture)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU tensors here are tiny: one thread beside the other
+    test workers (torch's OpenMP pool would only spin)."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
 
 WORLD = dict(
     n_users=12, n_fogs=3, fog_mips=(40000.0, 80000.0, 20000.0),

@@ -25,6 +25,17 @@ from fognetsimpp_tpu_torch.f32math import (
     cosf, expf, fma, log1pf, logf, sinf, xla_cumsum, xla_sum,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU tensors here are tiny: one thread beside the other
+    test workers (torch's OpenMP pool would only spin)."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 _SIN = jax.jit(jnp.sin)
 _COS = jax.jit(jnp.cos)
 

@@ -27,6 +27,16 @@ from fognetsimpp_tpu_torch.ops import queues as tqueues
 from fognetsimpp_tpu_torch.ops.scatter import add_drop, set_drop
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU tensors here are tiny: one thread beside the other
+    test workers (torch's OpenMP pool would only spin)."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 def _window(K, F, seed, p_mask=0.7, t_max=0.01):
     """Numpy-made window: mask, fog ids, coarse times (plenty of ties)."""
     rng = np.random.default_rng(seed)

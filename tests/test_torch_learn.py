@@ -7,15 +7,25 @@ a bandit id, every leaf bit for bit against the undonated JAX
 The worlds and the comparison are ``tests/test_torch_policies.py``'s.
 """
 import pytest
+import torch
 
 from fognetsimpp_tpu_torch.core import engine as tengine
 from tests.test_torch_policies import (  # noqa: F401 (fixtures)
     LEARNED_WORLDS,
     _build_port,
     assert_run_matches_jax,
-    one_torch_thread,
     port_runs,
 )
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU tensors here are tiny: one thread beside the other
+    test workers (torch's OpenMP pool would only spin)."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
 
 
 @pytest.mark.parametrize("name", LEARNED_WORLDS)

@@ -12,6 +12,8 @@ the port's states.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 from fognetsimpp_tpu.core import engine as jengine
 from fognetsimpp_tpu.core.engine import make_step as jmake_step
@@ -24,6 +26,16 @@ from fognetsimpp_tpu_torch.scenarios import smoke as tsmoke
 from fognetsimpp_tpu_torch.spec import Stage
 from fognetsimpp_tpu_torch.state import net_from_numpy, state_from_numpy
 from tests.test_torch_v1v2 import assert_same
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU tensors here are tiny: one thread beside the other
+    test workers (torch's OpenMP pool would only spin)."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
 
 
 def _kw(enabled, n_users, interval, horizon=0.2, rate=100e6):

@@ -18,10 +18,21 @@ card tests (``tests/test_torch_cuda.py``).
 import math
 
 import numpy as np
+import pytest
 import torch
 
 from fognetsimpp_tpu_torch.ops.pool_kernels import local_pool_scan_plain
 from fognetsimpp_tpu_torch.scenarios.pool_scan_inputs import rows
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU tensors here are tiny: one thread beside the other
+    test workers (torch's OpenMP pool would only spin)."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
 
 
 #: Rows of a stage: 16 groups of 32 (``kStage`` in the source).

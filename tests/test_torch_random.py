@@ -7,6 +7,17 @@ import torch
 from fognetsimpp_tpu_torch import random as trandom
 from fognetsimpp_tpu_torch.f32math import fma
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU tensors here are tiny: one thread beside the other
+    test workers (torch's OpenMP pool would only spin)."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 SEEDS = [0, 1, 42, 123456789, 2 ** 31 - 1, -7]
 SHAPES = [(), (1,), (7,), (3, 4), (1001, 2), (20000,)]
 
@@ -97,3 +108,32 @@ def test_fma_is_singly_rounded():
     for i in range(a.shape[0]):
         exact = Fraction(float(a[i])) * Fraction(float(b[i])) + Fraction(float(c[i]))
         assert got[i] == _nearest_f32(exact), (a[i], b[i], c[i])
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_fold_in_over_a_tensor_of_data(seed):
+    """The tensor form of ``fold_in``: one key folded with each datum
+    (data at and past 2^31 included), and a batch of keys folded with a
+    datum each, equal to the vmapped ``jax.random.fold_in``."""
+    kj, kt = jax.random.PRNGKey(seed), trandom.PRNGKey(seed)
+    data = np.array([0, 1, 7, 0x0C4A05, 2 ** 31 - 1, 2 ** 31, 2 ** 31 + 5,
+                     2 ** 32 - 1], np.uint32)
+    want = jax.vmap(lambda d: jax.random.fold_in(kj, d))(data)
+    got = trandom.fold_in(kt, torch.from_numpy(data.astype(np.int64)))
+    np.testing.assert_array_equal(_key_np(want), got.numpy())
+    # int32 data wraps to its uint32 bits, as jnp.uint32 wraps it
+    got32 = trandom.fold_in(kt, torch.from_numpy(data.view(np.int32)))
+    np.testing.assert_array_equal(_key_np(want), got32.numpy())
+    for d in data.tolist():
+        np.testing.assert_array_equal(
+            _key_np(jax.random.fold_in(kj, d)), trandom.fold_in(kt, d).numpy()
+        )
+    # per-fog keys folded with a per-fog epoch, then a (2,) draw a key
+    keys_j = jax.vmap(lambda f: jax.random.fold_in(kj, f))(np.arange(5, dtype=np.int32))
+    epochs = np.array([0, 3, 2 ** 31, 9, 1], np.uint32)
+    want = jax.vmap(jax.random.fold_in)(keys_j, epochs)
+    keys_t = trandom.fold_in(kt, torch.arange(5))
+    got = trandom.fold_in(keys_t, torch.from_numpy(epochs.astype(np.int64)))
+    np.testing.assert_array_equal(_key_np(want), got.numpy())
+    draws = jax.vmap(lambda k: jax.random.uniform(k, (2,), np.float32, 1e-7, 1.0))(want)
+    assert np.asarray(draws).tobytes() == trandom.uniform(got, (2,), 1e-7, 1.0).numpy().tobytes()

@@ -11,7 +11,6 @@ of their plain versions, and the refusals against the items that will
 lift them.  Every test runs with functorch's per-replica fallback off
 (``strict_vmap``): an operation without a batching rule raises.
 """
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -259,8 +258,9 @@ def test_cell_sum_rule_equals_per_replica_plain_and_xla(in_dims):
 # ----------------------------------------------------------------------
 
 def test_refusals_name_their_items():
-    """Promoted-knob rows run (item 11 is ported: ``tests/test_torch_dynspec.py``
-    holds them against JAX); replicas across cards and chaos still raise."""
+    """Promoted-knob rows and chaos batches run (items 11 and 12 are
+    ported: ``tests/test_torch_dynspec.py`` and ``tests/test_torch_chaos.py``
+    hold them against JAX); replicas across cards still raise."""
     spec, state, net, bounds = tsmoke.build(device="cpu", n_users=4, n_fogs=2, horizon=0.01)
     batch = treplicas.replicate_state(spec, state, 2)
     key = tdyn.shape_key(spec)
@@ -279,8 +279,14 @@ def test_refusals_name_their_items():
     with pytest.raises(NotImplementedError, match="item 27"):
         tsweep.sweep_explore(tsmoke.build, int(Policy.UCB), [0.1], [0.05],
                              mesh=object(), device="cpu")
-    chaos = dataclasses.replace(spec, chaos=True)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        treplicas.replicate_state(chaos, state, 2)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        treplicas.run_replicated(chaos, batch, net, bounds)
+    # a chaos batch runs (item 12): each replica keys its own schedule
+    # (``tests/test_torch_chaos.py`` holds such batches against JAX)
+    cspec, cstate, cnet, cbounds = tsmoke.build(
+        device="cpu", n_users=4, n_fogs=2, horizon=0.01, assume_static=False,
+        chaos=True, chaos_mtbf_s=0.004, chaos_mttr_s=0.002,
+    )
+    cbatch = treplicas.replicate_state(cspec, cstate, 2)
+    assert not torch.equal(cbatch.chaos.key[0], cbatch.chaos.key[1])
+    cfinal = treplicas.run_replicated(cspec, cbatch, cnet, cbounds)
+    assert cfinal.chaos.down_ticks.shape == (2, 2)
+    assert (cfinal.chaos.n_crashes > 0).all()

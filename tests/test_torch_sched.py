@@ -30,7 +30,17 @@ from fognetsimpp_tpu_torch.learn import bandits as tb
 from fognetsimpp_tpu_torch.learn import rewards as tr
 from fognetsimpp_tpu_torch.ops import sched as tsched
 from fognetsimpp_tpu_torch.state import LearnState as TLearnState
-from tests.test_torch_policies import one_torch_thread  # noqa: F401 (a fixture)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU tensors here are tiny: one thread beside the other
+    test workers (torch's OpenMP pool would only spin)."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
 
 POLICIES = {
     "min_busy": Policy.MIN_BUSY, "round_robin": Policy.ROUND_ROBIN,
@@ -312,17 +322,76 @@ def test_task_uniform_matches_jax():
         assert _bits(w) == g.numpy().tobytes()
 
 
-def test_federated_arguments_raise():
-    d, arms = _inputs("random", seed=1)
+FEDERATED = ["min_busy", "min_latency", "energy_aware", "random", "ucb",
+             "ducb", "exp3", "max_mips"]
+
+
+def _owners(F: int, B: int, T: int, rng):
+    """A random ownership of F fogs by B brokers (each owns one at least)
+    and each of T tasks' broker."""
+    fog_owner = np.concatenate([np.arange(B), rng.integers(0, B, F - B)])
+    rng.shuffle(fog_owner)
+    return fog_owner.astype(np.int32), rng.integers(0, B, T).astype(np.int32)
+
+
+@pytest.mark.parametrize("F, B", [(6, 2), (40, 3)])
+@pytest.mark.parametrize("name", FEDERATED)
+def test_federated_arguments_raise(name, F, B):
+    """The federated domains (``fog_owner``, ``task_broker``,
+    ``n_brokers``): every federatable policy's per-domain decision
+    against JAX, bit for bit, on random, tied and no-fog windows; and
+    ROUND_ROBIN and DYNAMIC refuse to federate with JAX's words."""
+    policy = int(Policy.MAX_MIPS) if name == "max_mips" else POLICIES[name]
+    for case in ("random", "ties", "zero_mips", "all_dead"):
+        d, arms = _inputs(case, seed=zlib.crc32(f"fed/{name}/{case}/{F}".encode()), F=F)
+        rng = np.random.default_rng(F + B)
+        fog_owner, task_broker = _owners(F, B, d["mask"].shape[0], rng)
+        if case == "random":
+            # one domain with no registered fog at all
+            d["registered"][fog_owner == B - 1] = False
+        learn = jb.BanditArms(**{k: jnp.asarray(v) for k, v in arms.items()})
+        for mips0 in ((True, False) if policy in (0, 2, 3) else (False,)):
+            want = jax.jit(
+                lambda d, learn, fo, tbk: jsched.schedule_batch(
+                    policy, d["mask"], d["mips_req"], d["view_busy"],
+                    d["view_mips"], d["registered"], d["fog_alive"],
+                    d["fog_energy_frac"], d["rtt"], d["rr"],
+                    jax.random.PRNGKey(7), mips0, True, order_t=d["order_t"],
+                    rand_u=d["rand_u"], learn=learn, fog_owner=fo,
+                    task_broker=tbk, n_brokers=B,
+                )
+            )({k: jnp.asarray(v) for k, v in d.items()}, learn, fog_owner, task_broker)
+            t = {k: torch.from_numpy(np.asarray(v)) for k, v in d.items()}
+            got = tsched.schedule_batch(
+                policy, t["mask"], t["mips_req"], t["view_busy"], t["view_mips"],
+                t["registered"], t["fog_alive"], t["fog_energy_frac"], t["rtt"],
+                t["rr"], trandom.PRNGKey(7), mips0, order_t=t["order_t"],
+                rand_u=t["rand_u"],
+                learn=tb.BanditArms(
+                    **{k: torch.from_numpy(np.asarray(v)) for k, v in arms.items()}
+                ),
+                fog_owner=torch.from_numpy(fog_owner),
+                task_broker=torch.from_numpy(task_broker), n_brokers=B,
+            )
+            _assert_same(want, got, (name, case, mips0))
+            picked = got[0].numpy()
+            ok = picked >= 0
+            # every pick lies in the task's own domain
+            assert (fog_owner[picked[ok]] == task_broker[ok]).all()
+    d, arms = _inputs("random", seed=1, F=F)
     t = {k: torch.from_numpy(np.asarray(v)) for k, v in d.items()}
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tsched.schedule_batch(
-            int(Policy.MIN_BUSY), t["mask"], t["mips_req"], t["view_busy"],
-            t["view_mips"], t["registered"], t["fog_alive"],
-            t["fog_energy_frac"], t["rtt"], t["rr"], trandom.PRNGKey(0), False,
-            fog_owner=torch.zeros(6, dtype=torch.int32),
-            task_broker=torch.zeros(96, dtype=torch.int32), n_brokers=2,
-        )
+    fog_owner, task_broker = _owners(F, B, 96, np.random.default_rng(0))
+    for pol, words in ((Policy.ROUND_ROBIN, "ROUND_ROBIN does not federate"),
+                       (Policy.DYNAMIC, "Policy.DYNAMIC does not federate")):
+        with pytest.raises(ValueError, match=words):
+            tsched.schedule_batch(
+                int(pol), t["mask"], t["mips_req"], t["view_busy"],
+                t["view_mips"], t["registered"], t["fog_alive"],
+                t["fog_energy_frac"], t["rtt"], t["rr"], trandom.PRNGKey(0), False,
+                policy_id=torch.tensor(0, dtype=torch.int32),
+                fog_owner=torch.from_numpy(fog_owner),
+                task_broker=torch.from_numpy(task_broker), n_brokers=B,
+            )
 
 
 def test_learned_policy_without_arms_raises():

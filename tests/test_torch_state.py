@@ -31,6 +31,17 @@ from fognetsimpp_tpu_torch.state import (
     tree_leaves,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU tensors here are tiny: one thread beside the other
+    test workers (torch's OpenMP pool would only spin)."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 BENCH_SMALL = dict(
     n_users=256, n_fogs=8, fog_mips=(1000.0, 2000.0, 3000.0, 4000.0),
     send_interval=0.0025, horizon=0.1, dt=5e-3, max_sends_per_user=44,
@@ -134,11 +145,11 @@ def test_entry_points_need_a_device_when_cuda_is_absent():
 @pytest.mark.parametrize(
     "kw, item",
     [
-        pytest.param(dict(n_brokers=2), "item 13", id="kw0-item 13"),
+        pytest.param(dict(telemetry=True, telemetry_journeys=4), "item 14",
+                     id="kw0-item 14"),
         pytest.param(dict(telemetry=True, telemetry_hist=True), "item 14",
                      id="kw5-item 14"),
-        pytest.param(dict(chaos=True, chaos_mtbf_s=1.0, chaos_mttr_s=0.1), "item 12",
-                     id="kw7-item 12"),
+        pytest.param(dict(ingest=True, ingest_batch=4), "item 16", id="kw7-item 16"),
         pytest.param(dict(telemetry=True), "item 14", id="kw8-item 14"),
         pytest.param(dict(record_tick_series=True), "item 15", id="kw9-item 15"),
     ],

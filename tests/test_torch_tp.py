@@ -36,6 +36,17 @@ from fognetsimpp_tpu_torch.parallel.shards import ShardGroup
 from fognetsimpp_tpu_torch.scenarios import smoke as tsmoke
 from fognetsimpp_tpu_torch.state import state_to_numpy, tree_leaves
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU tensors here are tiny: one thread beside the other
+    test workers (torch's OpenMP pool would only spin)."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
 #: ``tests/test_tp.py``'s worlds: SMALL under the three dense-broker
@@ -362,7 +373,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "fognetsimpp_tpu"), (path, mod)
+            assert top not in ("jax", "jaxlib", "flax", "fognetsimpp_tpu"), (path, mod)
 
 
 # ----------------------------------------------------------------------

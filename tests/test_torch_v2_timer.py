@@ -37,7 +37,17 @@ from fognetsimpp_tpu_torch.parallel.replicas import strict_vmap
 from fognetsimpp_tpu_torch.scenarios import smoke as tsmoke
 from fognetsimpp_tpu_torch.spec import WorldSpec as TWorldSpec
 from fognetsimpp_tpu_torch.state import net_from_numpy, state_from_numpy
-from tests.test_torch_v1v2 import assert_same, one_torch_thread  # noqa: F401 (a fixture)
+from tests.test_torch_v1v2 import assert_same
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU tensors here are tiny: one thread beside the other
+    test workers (torch's OpenMP pool would only spin)."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
 
 
 def _leaves(tree):

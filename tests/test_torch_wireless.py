@@ -47,6 +47,17 @@ from fognetsimpp_tpu_torch.state import (
     tree_leaves,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU tensors here are tiny: one thread beside the other
+    test workers (torch's OpenMP pool would only spin)."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 #: tests/test_parity_wireless.py's fast-cycling battery world at dt 10 ms
 #: under MIN_BUSY, cut to 3 s: every user dies (from about 0.7 s) and
 #: restarts (from about 2.2 s).
@@ -522,12 +533,29 @@ def test_run_refuses_a_static_world_with_bianchi_tables():
 
 
 def test_tp_runner_refuses_access_points():
-    spec, st, net, b = tw.wireless5(
-        device="cpu", horizon=0.05, mac_model="linear", energy_enabled=False,
-        assume_static=True,
-    )
-    with pytest.raises(NotImplementedError, match="item 26"):
-        run_tp_sharded(spec, st, net, b, n_shards=2)
+    """Access points under the task-sharded tick (item 26): a static
+    linear-MAC AP world at 2 shards equals the port's ``run`` and JAX
+    ``run_tp_sharded`` on every leaf, the APs' ``assoc_sum`` included; a
+    moving AP world is still refused (``TP-DYNTOPO``)."""
+    from fognetsimpp_tpu.parallel import make_mesh
+    from fognetsimpp_tpu.parallel import taskshard as jts
+
+    kw = dict(numb_users=24, horizon=0.05, mac_model="linear",
+              energy_enabled=False, assume_static=True)
+    spec, st, net, b = tw.wireless5(device="cpu", **kw)
+    ref, _ = tengine.run(spec, st, net, b)
+    spec, st, net, b = tw.wireless5(device="cpu", **kw)
+    _, got = run_tp_sharded(spec, st, net, b, n_shards=2)
+    assert [x.tobytes() for x in state_to_numpy(got)] == [
+        x.tobytes() for x in state_to_numpy(ref)
+    ]
+    js, jst, jn, jb = jw.wireless5(**kw)
+    _, want = jts.run_tp_sharded(js, jst, jn, jb, make_mesh(2, axis_name="node"))
+    assert _first_diff(want, got) is None
+    a0, a1 = spec.ap_slice
+    # every tick adds the (static) association counts into the AP rows
+    n_assoc = int(got.nodes.assoc_sum[a0:a1].sum())
+    assert n_assoc > 0 and n_assoc % spec.n_ticks == 0
     spec, st, net, b = tw.wireless5(device="cpu", horizon=0.05)
     with pytest.raises(ValueError, match="TP-DYNTOPO"):
         run_tp_sharded(spec, st, net, b, n_shards=2)
