@@ -66,12 +66,13 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    chain of adds at the SM clock; and the profile of a wireless tick
    (``wireless_profile``);
 11. wireless_churn: ``tests/test_parity_wireless.py``'s fast-cycling
-   battery world at dt 10 ms under MIN_BUSY (8 users, 400 ticks), stepped
+   battery world at dt 10 ms under MIN_BUSY (8 users, cut to 200 of 400
+   ticks: the first restart comes at tick 137), stepped
    on the card watching ``nodes.alive`` (at least one user shut down and
    one restarted), card against CPU every leaf;
 
 12. rr_grid: ``benchmarks.py::config2`` (96 users x 4 fogs, ROUND_ROBIN
-   on the compacted broker, K = 1,024), cut to 250 of its 1,000 ticks of
+   on the compacted broker, K = 1,024), cut to 100 of its 1,000 ticks of
    1 ms: a stepped card run that keeps every arrival window, with
    ``fused_arrival_plan`` held against its plain version on every
    non-empty one (and timed on the first), then ``engine.run`` timed
@@ -92,13 +93,13 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    leaf, one wrapper call of each kernel a tick;
 15. config3: ``benchmarks.py::config3`` at full width, 64 replicas of
    1,000 users x 24 fogs (1,536 fogs end to end: ``pairwise_rank`` and
-   the per-fog reductions a replica), 250 ticks of 1 ms;
+   the per-fog reductions a replica), cut to 100 of its 250 ticks of 1 ms;
 16. config4: ``benchmarks.py::config4`` at its 128 replicas (512 fogs
    end to end: ``fused_arrival_plan``; 8,192 cells: ``cell_sum_ordered``
-   on 1,288,832 entries every tick), 100 ticks of 5 ms;
+   on 1,288,832 entries every tick), cut to 50 of its 100 ticks of 5 ms;
 17. config5: one chunk of 32 of ``benchmarks.py::config5``'s 256 load
-   levels at full width (10,000 users x 32 fogs, K = 4,096, 50 ticks of
-   5 ms): a batch of 32 replicas for each of its four policies (1,024
+   levels at full width (10,000 users x 32 fogs, K = 4,096, cut to 25 of
+   its 50 ticks of 5 ms): a batch of 32 replicas for each of its four policies (1,024
    fogs end to end: ``fused_arrival_plan``), then the four as one
    ``Policy.DYNAMIC`` batch of 128 (5b: 4,096 fogs, ``pairwise_rank``).
    Phases 15-17 each run a batch once to warm up (its first 10 ticks)
@@ -126,8 +127,8 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    cell, 128 in all), each replica's knobs a row of the device operand,
    run as phases 15-17 run theirs; the first and last replica of cells 0
    and 7 against promoted single-world card runs on their cell's knobs;
-21. learned_grid: the bench world under UCB (``derive_acks`` off, 60
-   ticks), reward scale {0.25, 0.3} x discount {0.99, 0.995}, 16
+21. learned_grid: the bench world under UCB (``derive_acks`` off,
+   ``LEARN_HORIZON``), reward scale {0.25, 0.3} x discount {0.99, 0.995}, 16
    replicas a cell (2,048 fogs end to end: ``pairwise_rank``, held against
    its plain version on the first real input), as phase 20; the 0.3 cells'
    first and last replicas against promoted single runs;
@@ -159,7 +160,7 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    bound (bytes, operations, and the chain over the takes and the fire);
    ``fused_arrival_plan`` against its plain version on the first
    non-empty pool-arrival window of the v2 run;
-25. wired_v1 (``scenarios/wired_v1``, 0.5 s of 1 ms) and example
+25. wired_v1 (``scenarios/wired_v1``, 0.25 s of 1 ms) and example
    (``scenarios/example``, 1.1 s of 1 ms: past the 1.0414 s link-up and
    into the drain), card against CPU every leaf, and ``local_pool_scan``
    against its plain version on each run's first window that holds a
@@ -193,6 +194,31 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    ``assoc_sum`` too), the ring and arrival kernels' launches a tick,
    and each held against its plain version on the run's first real
    exchange and window.
+30. telemetry: the bench world (dt 5 ms, 20 ticks, ``derive_acks`` off)
+   on fast fogs (80,000 MIPS, so status-6 acks land in its 0.1 s) with
+   plane 1, the latency histogram and 64 journeys in rings of 64, then
+   the MIN_BUSY chaos world of phase 26 on the same fogs and the hier
+   world of phase 28 with plane 1 and the histogram: each as phase 26
+   (card against CPU every leaf, the arrival kernel on the bench run's
+   first real window), a histogram that counted acks, the host readers'
+   roll-ups printed, ms and device events a tick with telemetry on and
+   off (each world's off twin, and phase 7's world, which may not make
+   more device events than phase 7 did), one ``cell_sum_ordered`` a
+   tick, held against its plain version on the first latency sum with
+   due rows;
+31. telemetry_replicas: 16 replicas of phase 30's bench world with plane
+   1 and the histogram, as phases 15-17 (its arrival kernel at
+   chaos_replicas' shapes, held there), replicas 0 and 15 against their
+   single runs, a histogram that counted acks, the latency sum's
+   ``cell_sum_ordered`` held against its plain version on the batch's
+   first input with due rows, beside the same batch with telemetry off;
+32. tp_telemetry: phase 30's bench world under four shards, without an
+   arrival window (the ring) and with the bench's (the top-K merge):
+   card against CPU every leaf, a histogram that counted acks, the ring
+   and arrival launches a tick, the exchange roll-up, each kernel against
+   its plain version on the run's first real exchange and window, the
+   latency sum's on a shard's first input with due rows, ms and device
+   events a tick on and off.
    Every phase from 18 on resets the wrapper counts before its path and
    fails if a kernel of the path was launched no time;
 
@@ -202,6 +228,7 @@ Without a CUDA device it prints no result and exits 2.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -317,10 +344,10 @@ TP_TICK0_MASKED = 86_103
 BENCH_MASKED = 2_281
 
 #: ``benchmarks.py::config2`` at its own size: 96 users x 4 fogs,
-#: ROUND_ROBIN, send interval 10 ms, dt 1 ms, cut from 1.0 s to 0.25 s
-#: (250 ticks) for the script's time (``benchmarks.py 2`` runs it whole).
+#: ROUND_ROBIN, send interval 10 ms, dt 1 ms, cut from 1.0 s to 0.1 s
+#: (100 ticks) for the script's time (``benchmarks.py 2`` runs it whole).
 RR_GRID = dict(
-    n_users=96, n_fogs=4, send_interval=0.01, horizon=0.25, dt=1e-3,
+    n_users=96, n_fogs=4, send_interval=0.01, horizon=0.1, dt=1e-3,
     max_sends_per_user=104, arrival_window=1024,
 )
 #: The compacted broker's policies on the bench world (``policies``): row
@@ -338,8 +365,10 @@ POLICIES = {
 SMOKE_HORIZON = 0.25
 #: Horizon of the learned policies' runs: at the bench world's 0.1 s no
 #: status-6 ack has landed under UCB or DUCB (tasks take 0.05-0.9 s on
-#: fogs of 1,000-4,000 MIPS), so their credit path would not run.
-LEARN_HORIZON = 0.3
+#: fogs of 1,000-4,000 MIPS), so their credit path would not run; by
+#: 0.15 s each has credited some (the phase fails otherwise).  Cut from
+#: 0.3 s for the script's time.
+LEARN_HORIZON = 0.15
 #: Ticks stepped before a world's short profile, and the ticks profiled.
 PROFILE_FROM, PROFILE_TICKS = 8, 4
 
@@ -359,11 +388,17 @@ REPLICA_WARM_TICKS = 10
 #: ``benchmarks.py``'s ``CONFIG4_R``, and config 5's chunk of load levels
 #: (the script runs one chunk of the 256).
 CONFIG4_R, CONFIG5_CHUNK = 128, 32
+#: Horizons that cut configs 3, 5 and 4 (with dyn4) from their own 0.25,
+#: 0.25 and 0.5 s for the script's time (``benchmarks.py`` runs them
+#: whole): 100 ticks of 1 ms, 25 and 50 of 5 ms.
+CONFIG3_HORIZON, CONFIG5_HORIZON, CONFIG4_HORIZON = 0.1, 0.125, 0.25
 
 #: tests/test_parity_wireless.py's fast-cycling battery world (12 mJ
-#: batteries, 18 mW net drain while publishing) at dt 10 ms, MIN_BUSY.
+#: batteries, 18 mW net drain while publishing) at dt 10 ms, MIN_BUSY,
+#: cut to 2 s (the port's CPU run: first shutdown at tick 10, first
+#: restart at tick 137).
 CHURN = dict(
-    numb_users=8, horizon=4.0, dt=0.01, send_interval=0.1, w_contention=0.0,
+    numb_users=8, horizon=2.0, dt=0.01, send_interval=0.1, w_contention=0.0,
     mac_model="linear", energy_capacity_j=0.012, tx_energy_j=2e-3,
     rx_energy_j=1e-4, idle_power_w=2e-3, harvest_power_w=4e-3,
     harvest_period_s=50.0, harvest_duty=0.5,
@@ -393,7 +428,7 @@ POOL_REPLICAS, POOL_REPLICAS_WIDE = 8, 128
 #: bench world's window.
 POOL_SYNTH_K = 4096
 #: Horizons of the scenario worlds held card against CPU.
-WIRED_V1_HORIZON, EXAMPLE_HORIZON = 0.5, 1.1
+WIRED_V1_HORIZON, EXAMPLE_HORIZON = 0.25, 1.1
 
 #: ``chaos``: ``bench.py::chaos_measurement``'s knobs on the bench world
 #: (dt 5 ms, 20 ticks): REOFFLOAD with 8 retries, the RTT wave and bursts,
@@ -450,6 +485,28 @@ TP_APS = dict(
     send_interval=0.05, queue_capacity=64, extra_aps=59, mac_model="linear",
     energy_enabled=False, assume_static=True,
 )
+
+
+#: The telemetry phases (30-32): plane 1 and the latency histogram on,
+#: journeys of 64 sampled tasks in rings of 64 on the bench world.  The
+#: histogram streams at ack time in the tick, so the ack columns are
+#: written there (``derive_acks`` off).
+TELEMETRY = dict(telemetry=True, telemetry_hist=True, derive_acks=False)
+TEL_JOURNEYS = dict(telemetry_journeys=64, telemetry_journey_ring=64)
+#: The telemetry bench worlds' fogs: the hier world's fast ones (80,000
+#: MIPS).  At the bench world's 1,000-4,000 MIPS MIN_BUSY's first task
+#: takes 200-900 ms, so no status-6 ack lands in 0.1 s and the histogram
+#: would stream nothing; at 80,000 MIPS acks land from the first ticks
+#: (62 in 20 ticks on 400 users, the port's CPU run).
+TEL_FOGS = dict(fog_mips=(80000.0,))
+#: ``telemetry_replicas``: 16 replicas of the telemetry bench world.
+TEL_R = 16
+#: The bench tick's device events before the telemetry planes were ported
+#: (an H100 80GB HBM3 at 700 W): a telemetry-off tick must launch what it
+#: launched before.
+PRE_TELEMETRY_BENCH_EVENTS = 1688.0
+#: Device events a tick by which two traces of one world's tick may differ.
+TRACE_NOISE_EVENTS = 2.0
 
 
 def main() -> int:
@@ -871,7 +928,9 @@ def main() -> int:
         """(device µs, number of device events, µs by name) of a profile."""
         dev_us, n_events, by_name = 0.0, 0, {}
         for ev in prof.events():
-            if str(ev.device_type).endswith("CUDA"):
+            # the engine's record_function("phase_<name>") spans are
+            # annotations, not device work
+            if str(ev.device_type).endswith("CUDA") and not ev.name.startswith("phase_"):
                 us = float(ev.time_range.elapsed_us())
                 dev_us += us
                 n_events += 1
@@ -1034,6 +1093,7 @@ def main() -> int:
         prof_row, by_name = tick_profile(spec, st, net, b, static_cache(spec, st, net))
     finally:
         ak.fused_arrival_plan = fused_plan
+    bench_events = prof_row["device_events_per_tick"]
     emit({
         "phase": "profile", "world": "bench dt=5ms",
         # masked rows of the K-window, a tick each: the steady-state
@@ -1311,7 +1371,7 @@ def main() -> int:
             capture_output=True, text=True, check=True,
         ).stdout.split()[0])
 
-    def check_cell_kernel(case, cell, vals, A, reps, by_events=False):
+    def check_cell_kernel(case, cell, vals, A, reps, by_events=False, n_bytes=None):
         run_k = lambda: ck.cell_sum_ordered(cell, vals, A)  # noqa: E731
         run_p = lambda: ck.cell_sum_ordered_plain(cell, vals, A)  # noqa: E731
         idx = torch.where((cell >= 0) & (cell < A), cell, A).long()
@@ -1343,7 +1403,8 @@ def main() -> int:
         if len(dev_k) > MAX_CELL_LAUNCHES:
             raise SystemExit(f"cell_sum_ordered ({case}): {len(dev_k)} kernels a call")
         largest = int(torch.bincount(idx, minlength=A + 1)[:A].max())
-        n_bytes = cell.shape[0] * 8 + A * 4
+        if n_bytes is None:
+            n_bytes = cell.shape[0] * 8 + A * 4
         return {
             "name": "cell_sum_ordered", "case": case, "N": cell.shape[0], "A": A,
             "largest_cell": largest, "equal": equal, "max_abs_err": err,
@@ -1660,6 +1721,8 @@ def main() -> int:
         peak = torch.cuda.max_memory_allocated()
         n_sched = int(final.metrics.n_scheduled.sum())
         n_pub = int(final.metrics.n_published.sum())
+        hist = ({"lat_hist_count": int(final.telem.lat_hist.sum())}
+                if spec.telemetry and spec.telemetry_hist else {})
         checked = {}
         singles = singles or {r: None for r in (0, 1, R - 1)}
         for r in sorted(singles):
@@ -1691,7 +1754,7 @@ def main() -> int:
             "n_fogs": spec.n_fogs, "window": spec.window,
             "task_rows_per_replica": spec.task_capacity, "ticks": spec.n_ticks,
             "leaves_equal_single": checked, "n_scheduled": n_sched,
-            "n_published": n_pub,
+            "n_published": n_pub, **hist,
             "wall_s": wall, "ms_per_tick": wall / spec.n_ticks * 1e3,
             "task_offload_decisions_per_sec": n_sched / wall,
             "peak_device_bytes": peak, "launches": launches,
@@ -1742,14 +1805,15 @@ def main() -> int:
 
     # 15. config3: benchmarks.py::config3 at full width, 64 replicas
     spec, st, net, b = bm.config3_world(dev)
+    spec = dataclasses.replace(spec, horizon=CONFIG3_HORIZON).validate()
     batch = replicate_state(spec, st, 64, seed=0)
     row, first, launches = replica_phase("config3", spec, batch, net, b)
     emit(row)
     flattened_kernel_rows("config3", first, launches, row["flattened_fogs"])
     del batch, first
 
-    # 16. config4: benchmarks.py::config4 at its 128 replicas, 100 ticks
-    spec, st, net, b = bm.config4_world(device=dev)
+    # 16. config4: benchmarks.py::config4 at its 128 replicas, 50 ticks
+    spec, st, net, b = bm.config4_world(horizon=CONFIG4_HORIZON, device=dev)
     batch = replicate_state(spec, st, CONFIG4_R, seed=0)
     row, first, launches = replica_phase("config4", spec, batch, net, b)
     emit(row)
@@ -1759,7 +1823,7 @@ def main() -> int:
     # 17. config5: one chunk of 32 load levels of benchmarks.py::config5,
     # each policy's batch, then the four as one Policy.DYNAMIC batch (5b)
     loads = bm.config5_loads()[:CONFIG5_CHUNK]
-    c5_kw = bm.config5_build_kw(device=dev)
+    c5_kw = dict(bm.config5_build_kw(device=dev), horizon=CONFIG5_HORIZON)
     pols = [int(p) for p in bm.CONFIG5_POLICIES]
     for dynamic, path in ((False, "config5"), (True, "config5b")):
         total = {"fused_arrival_plan": 0, "pairwise_rank": 0, "cell_sum_ordered": 0}
@@ -1885,9 +1949,9 @@ def main() -> int:
     del card
 
     # 20. dyn4: sweep_dyn's batch over config 4's energy knobs, 128 replicas
-    grid, key, batch, net, b, rows = bm.dyn4_batch(device=dev)
+    grid, key, batch, net, b, rows = bm.dyn4_batch(horizon=CONFIG4_HORIZON, device=dev)
     nrc = bm.DYN4_REPLICAS_PER_CELL
-    spec0 = bm.config4_world(device="cpu")[0]
+    spec0 = bm.config4_world(horizon=CONFIG4_HORIZON, device="cpu")[0]
     singles = {
         r: dyn_on(spec0, dev, **grid[r // nrc])
         for c in (0, len(grid) - 1) for r in (c * nrc, (c + 1) * nrc - 1)
@@ -2305,7 +2369,7 @@ def main() -> int:
         emit_kernel(r, f"{phase}, first non-empty window")
         kernel_rows[row_key][f"{phase}_window"] = real_window(r)
 
-    fault_launches = {}
+    fault_launches, fault_profiles = {}, {}
     for row in CHAOS_ROWS:
         phase = f"chaos {row}"
         build = chaos_build(row)
@@ -2337,6 +2401,7 @@ def main() -> int:
                 v for k, v in by_name.items() if any(s in k for s in OUR_KERNELS)),
         })
         fault_launches[phase] = launches["fused_arrival_plan"]
+        fault_profiles[phase] = prof_row
         del card, calls
 
     # ---- 27. chaos_replicas: a chaos batch, each replica its own schedule -
@@ -2402,6 +2467,7 @@ def main() -> int:
                 v for k, v in by_name.items() if any(s in k for s in OUR_KERNELS)),
         })
         fault_launches[phase] = launches["fused_arrival_plan"]
+        fault_profiles[phase] = prof_row
         del card, calls
 
     # ---- 29. tp_aps: access points under the task-sharded tick -----------
@@ -2475,6 +2541,330 @@ def main() -> int:
     tp_aps_launches = launches
     del ref, got, blocks, plans
 
+    # ---- 30. telemetry: every plane on the bench, chaos and hier worlds --
+    from fognetsimpp_tpu_torch.hier import hier_summary
+    from fognetsimpp_tpu_torch.telemetry.health import hist_summary
+    from fognetsimpp_tpu_torch.telemetry.journeys import journey_summary
+    from fognetsimpp_tpu_torch.telemetry.metrics import (
+        exchange_summary, telemetry_summary,
+    )
+
+    def finite(x):
+        return None if isinstance(x, float) and x != x else x
+
+    def tel_summaries(spec, st):
+        """The host readers' roll-ups of a telemetry-on final state, cut to
+        what a line can hold."""
+        t, h = telemetry_summary(spec, st), hist_summary(spec, st)
+        out = {
+            "telemetry_summary": {
+                "ticks": t["ticks"], "defer_sum": t["defer_sum"],
+                "busy_frac_mean": float(t["busy_frac"].mean()),
+                "q_len_max": int(t["q_len_max"].max()),
+                "phase_work": t["phase_work"],
+                "reservoir_rows": len(t["reservoir"]["t"]),
+            },
+            "hist_summary": None if h is None else {
+                "count": h["count"], "sum_ms": h["sum_ms"],
+                "quantiles_ms": {k: finite(v) for k, v in h["quantiles_ms"].items()},
+            },
+        }
+        j = journey_summary(spec, st)
+        if j is not None:
+            out["journey_summary"] = {k: j[k] for k in (
+                "sampled", "ring", "events_total", "dropped_total", "terminal",
+                "in_flight", "unspawned")}
+        hs = hier_summary(spec, st)
+        if hs is not None:
+            out["hier_summary"] = {
+                k: v for k, v in hs.items() if k not in ("load_rows", "load_rows_t")}
+        return out
+
+    def tel_bench(device, **extra):
+        return smoke.build(device=device, **dict(bench_world(5e-3), **TEL_FOGS, **extra))
+
+    def lat_due(args, prefixed):
+        """Due rows of a latency sum's input: its entries in a cell, less
+        the running sums a single-device tick puts first (one a cell)."""
+        cell, _, A = args
+        return int(((cell >= 0) & (cell < A)).sum()) - (A if prefixed else 0)
+
+    def lat_sum_check(case, args, n_due, reps):
+        """``cell_sum_ordered`` against its plain version on a latency
+        sum's input; the bound reads every cell, the values in a cell,
+        and writes the sums."""
+        cell, vals, A = args
+        n_bytes = cell.shape[0] * 4 + int(((cell >= 0) & (cell < A)).sum()) * 4 + A * 4
+        r = check_cell_kernel(case, cell, vals, A, reps, by_events=True, n_bytes=n_bytes)
+        emit({"phase": "kernel", **{k: v for k, v in r.items() if not k.endswith("_ms")},
+              "due_rows": n_due, "device_us": r["ms"] * 1e3,
+              "plain_wall_us": r["plain_ms"] * 1e3,
+              "index_add_device_us": r["library_ms"] * 1e3,
+              "wrapper_us": r["wrapper_ms"] * 1e3, "bound_us": r["bound_ms"] * 1e3,
+              "chain_us": r["chain_ms"] * 1e3})
+        return r, n_bytes
+
+    def lat_sum_input(r, n_due):
+        """A latency-sum input's sub-entry of the kernels line's row."""
+        return {"N": r["N"], "A": r["A"], "due_rows": n_due,
+                "largest_cell": r["largest_cell"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
+                "bound_ms": r["bound_ms"], "max_abs_err": r["max_abs_err"],
+                "timed_by": r["timed_by"]}
+
+    def counted_acks(phase, n):
+        if n <= 0:
+            raise SystemExit(f"{phase}: the latency histogram counted no ack")
+        return n
+
+    def cost(spec, build):
+        """ms a tick and device events a tick of ``build``'s world."""
+        spec_p, st_p, net_p, b_p = build(dev)
+        cache = static_cache(spec_p, st_p, net_p) if spec.assume_static else None
+        prof, _ = tick_profile(spec_p, st_p, net_p, b_p, cache)
+        return {k: prof[k] for k in (
+            "wall_ms_per_tick_unprofiled", "wall_ms_per_tick", "device_events_per_tick",
+            "device_ms_per_tick", "device_busy_share")}
+
+    tel_launches = {}
+    lat_sum_calls = []
+    tel_worlds = {
+        "bench": lambda d: tel_bench(d, **TELEMETRY, **TEL_JOURNEYS),
+        "chaos": lambda d: smoke.build(device=d, **{
+            **bench_world(5e-3), **CHAOS_BENCH, **TEL_FOGS, **TELEMETRY}),
+        "hier": hier_build(dict(HIER_UP, **TELEMETRY)),
+    }
+    for world, build in tel_worlds.items():
+        phase = f"telemetry {world}"
+        spec, card, calls, launches, wall, cpu_s, n_leaves = world_run(
+            phase, build, ("fused_arrival_plan", "cell_sum_ordered"))
+        if launches["cell_sum_ordered"] != spec.n_ticks:
+            raise SystemExit(f"{phase}: cell_sum_ordered launched "
+                             f"{launches['cell_sum_ordered']} times in {spec.n_ticks} ticks")
+        summ = tel_summaries(spec, card)
+        n_acks = counted_acks(phase, int(card.telem.lat_hist.sum()))
+        # the latency sums with due rows
+        lat_sum_calls += [a for n, a in calls if n == "cell_sum_ordered"
+                          and lat_due(a, True) > 0]
+        if world == "bench":
+            fa = first_call(calls, "fused_arrival_plan")
+            r = check_arrival_kernel("fused_arrival_plan", fa[:3], fa[3], (20, 10, 50, 10),
+                                     by_events=True)
+            emit_kernel(r, f"{phase}, first non-empty window")
+            kernel_rows[("fused_arrival_plan", "bench")][f"{phase}_window"] = real_window(r)
+            on = cost(spec, build)
+            off = cost(spec, lambda d: tel_bench(d, derive_acks=False))
+            # phase 7's world, telemetry off: the tick launches what it did.
+            # Two traces of one world's tick differ by up to one event a
+            # tick (1,688.0, 1,688.25, 1,689.0 seen); a telemetry phase
+            # traced on the off tick would add hundreds
+            off_bench = cost(spec, lambda d: smoke.build(device=d, **bench_world(5e-3)))
+            if off_bench["device_events_per_tick"] > bench_events + TRACE_NOISE_EVENTS:
+                raise SystemExit(
+                    f"{phase}: the telemetry-off bench tick made "
+                    f"{off_bench['device_events_per_tick']} device events, phase 7 "
+                    f"{bench_events}")
+            costs = {"on": on, "off_same_world": off, "off_phase7_world": {
+                **off_bench, "phase7_events": bench_events,
+                "equals_phase7": off_bench["device_events_per_tick"] == bench_events,
+                "equals_pre_telemetry": (off_bench["device_events_per_tick"]
+                                         == PRE_TELEMETRY_BENCH_EVENTS)}}
+        elif world == "chaos":
+            costs = {"on": cost(spec, build), "off_same_world": cost(
+                spec, lambda d: smoke.build(device=d, **{
+                    **bench_world(5e-3), **CHAOS_BENCH, **TEL_FOGS}))}
+        else:
+            costs = {"on": cost(spec, build), "off_phase": fault_profiles["hier"]}
+        emit({
+            "phase": "telemetry", "world": world, "policy": Policy(spec.policy).name,
+            "n_users": spec.n_users, "n_fogs": spec.n_fogs, "ticks": spec.n_ticks,
+            "task_rows": spec.task_capacity, "leaves_equal": n_leaves,
+            "wall_s": wall, "ms_per_tick": wall / spec.n_ticks * 1e3, "cpu_run_s": cpu_s,
+            "lat_hist_count": n_acks, "launches": launches, "cost": costs, **summ,
+        })
+        tel_launches[phase] = launches
+        del card, calls
+
+    # lat_sum's ordered sum on the first tick with due rows
+    if not lat_sum_calls:
+        raise SystemExit("telemetry: no latency streamed into a histogram")
+    n_due = lat_due(lat_sum_calls[0], True)
+    r, n_bytes = lat_sum_check("lat_sum, first tick with due rows", lat_sum_calls[0],
+                               n_due, (50, 2))
+    kernel_rows[("cell_sum_ordered", "lat_sum")] = {
+        "name": "cell_sum_ordered", "route": "cuda", "source": SOURCES["cell_sum_ordered"],
+        "replaces": REPLACES["cell_sum_ordered"],
+        "replaces_note": "no TPU kernel: the index order of XLA's float32 "
+                         "scatter-add of the latency histogram's per-fog sums",
+        "launches": 0, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": "bytes",
+        "library_ms": r["library_ms"],
+        "library": "Tensor.index_add_ (atomic adds, another order)",
+        "shape": {"N": r["N"], "A": r["A"], "due_rows": n_due,
+                  "largest_cell": r["largest_cell"]},
+        "shape_of": "telemetry, first due rows", "bound_bytes": n_bytes,
+        "wrapper_ms": r["wrapper_ms"], "chain_ms": r["chain_ms"],
+        "launches_a_call": r["launches_a_call"], "timed_by": r["timed_by"],
+    }
+    del lat_sum_calls
+
+    # ---- 31. telemetry_replicas: 16 bench worlds with plane 1 and the
+    # histogram, one launch of each kernel a tick for the batch
+    spec, st, net, b = tel_bench(dev, **TELEMETRY)
+    batch = replicate_state(spec, st, TEL_R, seed=0)
+    batch_sums = []
+
+    def batch_sum(name, *args):
+        # the batch's first latency sums (the replicas end to end), read
+        # after the phase: a read here would sync the timed run
+        if (name == "cell_sum_ordered" and args[2] == TEL_R * spec.n_fogs
+                and len(batch_sums) < REPLICA_WARM_TICKS + spec.n_ticks):
+            batch_sums.append(args)
+
+    cuda_build.TAPS.append(batch_sum)
+    try:
+        row, first, launches = replica_phase(
+            "telemetry_replicas", spec, batch, net, b,
+            singles={0: None, TEL_R - 1: None}, runner=replicated)
+    finally:
+        cuda_build.TAPS.remove(batch_sum)
+    counted_acks("telemetry_replicas", row["lat_hist_count"])
+    batch_sums = [a for a in batch_sums if lat_due(a, True) > 0]
+    if not batch_sums:
+        raise SystemExit("telemetry_replicas: no latency sum of the batch had due rows")
+    n_due = lat_due(batch_sums[0], True)
+    r, _ = lat_sum_check("lat_sum, the batch's first input with due rows",
+                         batch_sums[0], n_due, (20, 1))
+    kernel_rows[("cell_sum_ordered", "lat_sum")]["telemetry_replicas_input"] = \
+        lat_sum_input(r, n_due)
+    del batch_sums
+    spec_o, st_o, net_o, b_o = tel_bench(dev, derive_acks=False)
+    batch_o = replicate_state(spec_o, st_o, TEL_R, seed=0)
+    with strict_vmap():
+        tick_o, _ = engine.batched_tick(spec_o, net_o, b_o, batch_o)
+        off_row, _ = tick_profile(spec_o, batch_o, net_o, b_o, None, tick=tick_o)
+    row["cost_off_same_batch"] = {k: off_row[k] for k in (
+        "wall_ms_per_tick_unprofiled", "wall_ms_per_tick", "device_events_per_tick",
+        "device_ms_per_tick", "device_busy_share")}
+    emit(row)
+    tel_launches["telemetry_replicas"] = launches
+    del batch, batch_o, first
+
+    # ---- 32. tp_telemetry: the bench world under four shards with every
+    # plane on, the ring exchange (no window) and the windowed merge
+    def tp_events(spec, st, net, b, n):
+        """Device events a tick of an ``n``-tick sharded run."""
+        run_tp_sharded(spec, st, net, b, n_shards=TP_SHARDS, n_ticks=n)
+        torch.cuda.synchronize()
+        for attempt in range(6):
+            if attempt:
+                time.sleep(1.0)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                run_tp_sharded(spec, st, net, b, n_shards=TP_SHARDS, n_ticks=n)
+                torch.cuda.synchronize()
+            dev_us, n_events, _ = device_events(prof)
+            if n_events:
+                break
+        return n_events / n, dev_us / n / 1e3
+
+    for variant, window in (("ring", {"arrival_window": None}), ("window", {})):
+        phase = f"tp_telemetry {variant}"
+        kw = dict(bench_world(5e-3), **window, **TEL_FOGS, **TELEMETRY, **TEL_JOURNEYS)
+        spec, st, net, b = smoke.build(device=dev, **kw)
+        run_tp_sharded(spec, st, net, b, n_shards=TP_SHARDS, n_ticks=REPLICA_WARM_TICKS)
+        torch.cuda.synchronize()
+        plans, blocks, ring = [], [], tshards.ring_all_gather
+
+        def tel_plan(name, *args, phase=phase, plans=plans):
+            if not args[0].is_cuda:
+                raise SystemExit(f"{phase}: {name} took the CPU path")
+            if name in ("fused_arrival_plan", "cell_sum_ordered"):
+                plans.append((name, args))
+
+        def tel_ring(bl, blocks=blocks, ring=ring):
+            if not blocks:
+                blocks.append([x.clone() for x in bl])
+            return ring(bl)
+
+        reset_launches()
+        cuda_build.TAPS.append(tel_plan)
+        tshards.ring_all_gather = tel_ring
+        try:
+            t0 = time.perf_counter()
+            spec2, got = run_tp_sharded(spec, st, net, b, n_shards=TP_SHARDS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            tshards.ring_all_gather = ring
+            cuda_build.TAPS.remove(tel_plan)
+        launches = all_launches()
+        need_launches(phase, launches, ("fused_arrival_plan", "cell_sum_ordered") + (
+            ("ring_all_gather",) if variant == "ring" else ()))
+        t0 = time.perf_counter()
+        spec_c, st_c, net_c, b_c = smoke.build(device="cpu", **kw)
+        _, cpu = run_tp_sharded(spec_c, st_c, net_c, b_c, n_shards=TP_SHARDS)
+        cpu_s = time.perf_counter() - t0
+        n_leaves = assert_same(got, cpu, f"{phase} (card against CPU)")
+        n_acks = counted_acks(phase, int(got.telem.lat_hist.sum()))
+        ex = exchange_summary(spec2, got)
+        fa = first_call(plans, "fused_arrival_plan")
+        # CUDA events: the profiler's trace of these calls came back empty
+        r = check_arrival_kernel("fused_arrival_plan", fa[:3], fa[3], (10, 2, 10, 1),
+                                 by_events=True)
+        emit_kernel(r, f"{phase}, first non-empty window")
+        kernel_rows[("fused_arrival_plan", "tp")][f"tp_telemetry_{variant}_window"] = \
+            real_window(r)
+        ls = next((a for n, a in plans if n == "cell_sum_ordered" and lat_due(a, False) > 0),
+                  None)
+        if ls is None:
+            raise SystemExit(f"{phase}: no shard's latency sum had due rows")
+        if variant == "ring":  # a shard's shape, the same in both variants
+            n_due = lat_due(ls, False)
+            r, _ = lat_sum_check(f"lat_sum, {phase}, a shard's first input with due rows",
+                                 ls, n_due, (20, 1))
+            kernel_rows[("cell_sum_ordered", "lat_sum")]["tp_telemetry_shard_input"] = \
+                lat_sum_input(r, n_due)
+        if variant == "ring":
+            want = rk.ring_all_gather_plain(blocks[0])
+            got_ring = rk.ring_all_gather(blocks[0])
+            if not all(torch.equal(g, w) for g, w in zip(got_ring, want)):
+                raise SystemExit(f"{phase}: ring_all_gather differs from its plain version")
+            n, (K, C) = len(blocks[0]), blocks[0][0].shape
+            ring_bytes = (n * n + n) * K * C * 4
+            kernel_rows[("ring_all_gather", "tp")]["tp_telemetry_window"] = {
+                "n": n, "K": K, "C": C, "timed_by": "CUDA events behind a sleep kernel",
+                "ms": stream_ms(lambda: rk.ring_all_gather(blocks[0]), 50),
+                "plain_ms": stream_ms(lambda: rk.ring_all_gather_plain(blocks[0]), 50),
+                "bound_ms": ring_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                "max_abs_err": max_abs_err(got_ring, want),
+            }
+        ev_on, dms_on = tp_events(spec, st, net, b, 4)
+        kw_off = dict(bench_world(5e-3), **window, **TEL_FOGS, derive_acks=False)
+        spec_o, st_o, net_o, b_o = smoke.build(device=dev, **kw_off)
+        ev_off, dms_off = tp_events(spec_o, st_o, net_o, b_o, 4)  # warms up too
+        t0 = time.perf_counter()
+        run_tp_sharded(spec_o, st_o, net_o, b_o, n_shards=TP_SHARDS)
+        torch.cuda.synchronize()
+        wall_off = time.perf_counter() - t0
+        emit({
+            "phase": "tp_telemetry", "variant": variant, "n_users": spec.n_users,
+            "n_fogs": spec.n_fogs, "n_shards": TP_SHARDS, "window": spec.window,
+            "ticks": spec.n_ticks, "leaves_equal": n_leaves, "wall_s": wall,
+            "ms_per_tick": wall / spec.n_ticks * 1e3, "cpu_run_s": cpu_s,
+            "lat_hist_count": n_acks, "launches": launches,
+            "launches_per_tick": {k: v / spec.n_ticks for k, v in launches.items()},
+            "cost": {"on": {"ms_per_tick": wall / spec.n_ticks * 1e3,
+                            "device_events_per_tick": ev_on, "device_ms_per_tick": dms_on},
+                     "off_same_world": {"ms_per_tick": wall_off / spec.n_ticks * 1e3,
+                                        "device_events_per_tick": ev_off,
+                                        "device_ms_per_tick": dms_off}},
+            "exchange_summary": {k: (v.tolist() if hasattr(v, "tolist") else v)
+                                 for k, v in ex.items() if k not in ("occ_rows", "occ_rows_t")},
+            **tel_summaries(spec2, got),
+        })
+        tel_launches[phase] = launches
+        del got, cpu, blocks, plans
+
     # each row's launches: the main paths' calls at that row's shape
     by_path = {
         ("fused_arrival_plan", "bench"): {
@@ -2518,6 +2908,20 @@ def main() -> int:
     by_path[("fused_arrival_plan", "tp_aps")] = {
         "tp_aps": tp_aps_launches["fused_arrival_plan"]}
     by_path[("ring_all_gather", "tp")]["tp_aps"] = tp_aps_launches["ring_all_gather"]
+    # the telemetry paths (30-32)
+    # (the 16 replicas' end-to-end windows are chaos_replicas' shape)
+    rep_key = ("fused_arrival_plan", "chaos_replicas")
+    by_path[rep_key] = dict(kernel_rows[rep_key]["launches_by_path"], telemetry_replicas=tel_launches[
+        "telemetry_replicas"]["fused_arrival_plan"])
+    for phase, launches in tel_launches.items():
+        if phase == "telemetry_replicas":
+            continue
+        key = "tp" if phase.startswith("tp_") else "bench"
+        by_path[("fused_arrival_plan", key)][phase] = launches["fused_arrival_plan"]
+        if launches["ring_all_gather"]:
+            by_path[("ring_all_gather", "tp")][phase] = launches["ring_all_gather"]
+    by_path[("cell_sum_ordered", "lat_sum")] = {
+        k: v["cell_sum_ordered"] for k, v in tel_launches.items()}
     for key, paths in by_path.items():
         kernel_rows[key]["launches"] = sum(paths.values())
         kernel_rows[key]["launches_by_path"] = paths

@@ -11,7 +11,11 @@ above, both with the 802.11 uplink loss) -> broker-to-broker migration
 a broker domain when federated) -> ``completions_per_tick`` completion
 passes -> fog arrivals (two-stage candidate front, K-window compaction,
 shared tail) -> the bandit learners' reward credit (learned policies
-only) -> per-node message counters -> energy and lifecycle.  The JAX package's
+only) -> the latency histogram -> per-node message counters -> energy and
+lifecycle -> the journey tap -> the telemetry fold (each telemetry phase
+with its plane on only; with ``spec.telemetry`` a bracket after every
+phase books its work, ``_PhaseBook``).  While a profiler records, each
+phase runs under ``record_function("phase_<name>")``.  The JAX package's
 fused slot-window front-end is bit-identical to this tick
 (``tests/test_fused.py``) and is not ported.  :func:`run` replaces the
 ``lax.scan`` with a Python loop and hoists the static link cache out of
@@ -33,7 +37,8 @@ A spec that enables anything outside this slice raises
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Optional, Tuple
+import contextlib
+from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,6 +65,11 @@ from ..spec import (
     STATIC_MAC_ERR, ChaosMode, FogModel, HierPolicy, Policy, Stage, WorldSpec,
 )
 from ..state import WorldState
+from ..telemetry.health import accumulate_latency
+from ..telemetry.journeys import journey_tick
+from ..telemetry.metrics import (
+    PHASE_INDEX, accumulate_tick, reservoir_progress, tick_activity,
+)
 
 _ST_UNUSED = int(Stage.UNUSED)
 _ST_PUB_INFLIGHT = int(Stage.PUB_INFLIGHT)
@@ -1427,8 +1437,9 @@ def _phase_fog_arrivals(spec, state, cache, buf, t1, tp=None, exchange=None):
     Under ``tp`` the candidates are the shard's users', the fast drop's
     per-fog sums are summed over the shards, and ``exchange`` (from
     :mod:`..parallel.taskshard`) turns every shard's surviving candidates
-    into the window each shard's tail plans: ``exchange(state, valid,
-    ids, fog, t, mips) -> ((ids, fog, t, mips) of the window, deferred)``.
+    into the window each shard's tail plans: ``exchange(state, t1, made,
+    valid, ids, fog, t, mips) -> ((ids, fog, t, mips) of the window,
+    deferred)``, ``made`` being the candidates before the fast drop.
     """
     if not spec.two_stage_arrivals:
         return _fog_arrivals_front_full(spec, state, cache, buf, t1)
@@ -1454,6 +1465,7 @@ def _phase_fog_arrivals(spec, state, cache, buf, t1, tp=None, exchange=None):
     if tp is not None:
         cand_slot = cand_slot + tp.t_off  # global task ids
 
+    cand_made = cand_v  # before the fast drop: the TP exchange gauges count it
     # saturated-fog fast drop on the candidate list
     n_fast = torch.zeros((), dtype=_I32, device=dev)
     n_fast_f = torch.zeros((F,), dtype=_I32, device=dev)
@@ -1498,7 +1510,9 @@ def _phase_fog_arrivals(spec, state, cache, buf, t1, tp=None, exchange=None):
         g = idxc_c.long()
         win = (torch.where(valid, cand_slot[g], T).to(_I32), cand_f[g], cand_t[g], cand_m[g])
     else:
-        win, deferred = exchange(state, cand_v, cand_slot, cand_f, cand_t, cand_m)
+        win, deferred = exchange(
+            state, t1, cand_made, cand_v, cand_slot, cand_f, cand_t, cand_m
+        )
         state = state.replace(
             metrics=state.metrics.replace(
                 n_deferred=state.metrics.n_deferred + deferred
@@ -1982,6 +1996,92 @@ def prime_initial_advertisements(
     return state.replace(broker=b)
 
 
+def _span(name: str):
+    """``record_function("phase_<name>")`` while a profiler records (the
+    counterpart of JAX's ``named_scope``), else nothing at all."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function("phase_" + name)
+    return contextlib.nullcontext()
+
+
+class _PhaseBook:
+    """The phase harness of a tick (JAX ``make_step``'s ``_ph``): each
+    phase runs under its profiler span; with an ``activity`` (telemetry
+    on: a thunk reading the tick's counters, such as
+    :func:`..telemetry.metrics.tick_activity`) it is read after every
+    phase (a phase's closing bracket is the next one's opening bracket),
+    and the deltas are stacked, differenced and added into their slots
+    once, at the end of the tick.  No value leaves the device."""
+
+    def __init__(self, activity: Optional[Callable[[], torch.Tensor]] = None):
+        self.activity = activity
+        self.acts: List[torch.Tensor] = [] if activity is None else [activity()]
+        self.slots: List[int] = []
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        """``with book.phase(name): <the phase>``: its span, then its
+        bracket, read after the body has rebound the tick's state."""
+        with _span(name):
+            yield
+        if self.activity is not None:
+            self.acts.append(self.activity())
+            self.slots.append(PHASE_INDEX[name])
+
+    def vector(self, n_phases: int, dev) -> torch.Tensor:
+        """(n_phases,) int32: each slot's summed deltas (wrapping, as
+        JAX's int32 sums do)."""
+        acts = torch.stack(self.acts)
+        idx = kept_tensor(tuple(self.slots), torch.long, dev)
+        return torch.zeros((n_phases,), dtype=_I32, device=dev).index_add(
+            0, idx, acts[1:] - acts[:-1]
+        )
+
+
+def _phase_latency_hist(spec: WorldSpec, state: WorldState, t1) -> WorldState:
+    """The streaming latency histogram (``engine._phase_latency_hist``):
+    every task whose status-6 ack landed by ``t1`` and not yet counted."""
+    return state.replace(telem=accumulate_latency(spec, state.telem, state.tasks, t1))
+
+
+def _phase_journeys(spec: WorldSpec, state: WorldState, t1) -> WorldState:
+    """The journey tap (``engine._phase_journeys``): the sampled tasks'
+    rows diffed against last tick's, one ring row an edge."""
+    return state.replace(telem=journey_tick(
+        spec, state.telem, state.tasks, t1,
+        chaos=state.chaos if spec.chaos else None,
+        hier=state.hier if spec.hier_active else None,
+    ))
+
+
+def _phase_telemetry(spec: WorldSpec, state: WorldState, t1, phase_work) -> WorldState:
+    """Plane-1 accumulation (``engine._phase_telemetry``): the end-of-tick
+    fog, learner and counter snapshot, the phase deltas, the chaos columns
+    (fogs down, crash losses) and a federated world's per-broker load
+    (busy owned fogs over owned fogs)."""
+    U, F = spec.n_users, spec.n_fogs
+    chaos = fogs_down = hier_load = None
+    if spec.chaos:
+        chaos = state.chaos
+        fogs_down = _isum(~state.nodes.alive[U: U + F])
+    if spec.telemetry_hier_brokers > 0:
+        owned = state.hier.fog_broker[None, :] == torch.arange(
+            spec.n_brokers, dtype=_I32, device=t1.device
+        )[:, None]
+        if spec.fog_model == int(FogModel.POOL):
+            busy = state.fogs.pool_avail < state.fogs.mips
+        else:
+            busy = state.fogs.current_task != NO_TASK
+        n_owned = _isum(owned, dim=1).to(_F32)
+        hier_load = _isum(owned & busy[None, :], dim=1).to(_F32) / torch.clamp_min(
+            n_owned, 1.0
+        )
+    return state.replace(telem=accumulate_tick(
+        spec, state.telem, state.fogs, state.learn, state.metrics, state.tick,
+        t1, phase_work, chaos=chaos, fogs_down=fogs_down, hier_load=hier_load,
+    ))
+
+
 def make_step(spec: WorldSpec):
     """The single-tick transition ``step(state, net, bounds, static_cache,
     dyn)`` for ``spec`` (the per-phase order of the JAX ``make_step``).
@@ -2049,60 +2149,89 @@ def make_step(spec: WorldSpec):
                 d2b=fma(backlog, inv_rate.expand_as(backlog), cache.d2b) + qdelay_b
             )
 
+        # the phase harness: every phase under its span; with telemetry on,
+        # its work delta booked to its PHASES slot at the end of the tick
+        book = _PhaseBook(
+            (lambda: tick_activity(state.metrics, buf)) if spec.telemetry else None
+        )
+
         if spec.chaos:
             # the degraded broker->fog delays, then the lifecycle, so this
             # tick's edges are in nodes.alive before any dispatch
             if spec.chaos_rtt_amp > 0 or spec.chaos_rtt_burst_prob > 0:
                 cache = _chaos_rtt(spec, state, cache, t0, dv)
-            state, buf = _phase_chaos(spec, state, cache, buf, t0, t1, dv)
+            with book.phase("chaos"):
+                state, buf = _phase_chaos(spec, state, cache, buf, t0, t1, dv)
 
         if spec.connect_gating:
-            state, buf = _phase_connect(spec, state, cache, buf, t0, t1)
-        state = _phase_adverts(state, t1)
+            with book.phase("connect"):
+                state, buf = _phase_connect(spec, state, cache, buf, t0, t1)
+        with book.phase("adverts"):
+            state = _phase_adverts(state, t1)
         pool = spec.fog_model == int(FogModel.POOL)
         if spec.adv_periodic and not pool:
-            state = _phase_periodic_adverts(spec, state, cache)
-        if spec.max_sends_per_tick > 1:
-            state, buf = _phase_spawn_multi(spec, state, net, cache, buf, t0, t1, dv)
-        else:
-            state, buf = _phase_spawn(spec, state, net, cache, buf, t0, t1, dv)
+            with book.phase("adverts"):
+                state = _phase_periodic_adverts(spec, state, cache)
+        with book.phase("spawn"):
+            if spec.max_sends_per_tick > 1:
+                state, buf = _phase_spawn_multi(spec, state, net, cache, buf, t0, t1, dv)
+            else:
+                state, buf = _phase_spawn(spec, state, net, cache, buf, t0, t1, dv)
         if _hier_migrate_on(spec):
             # matured publishes leave a saturated or dead domain before
             # its broker decides them
-            state, buf = _phase_broker_migrate(spec, state, buf, t1, dv)
+            with book.phase("broker_migrate"):
+                state, buf = _phase_broker_migrate(spec, state, buf, t1, dv)
         v2_local = spec.policy == int(Policy.LOCAL_FIRST) and spec.v2_local_broker
         if v2_local:  # shared-timer fires that precede every arrival
-            state, buf = _phase_v2_release(spec, state, cache, buf, t1, True)
+            with book.phase("v2_release_pre"):
+                state, buf = _phase_v2_release(spec, state, cache, buf, t1, True)
         v2_resched = None
-        if broker_dense_ok(spec):
-            state, buf = _phase_broker_dense(spec, state, cache, buf, t1)
-        else:
-            state, buf, v2_resched = _phase_broker(spec, state, cache, buf, t1)
+        with book.phase("broker"):
+            if broker_dense_ok(spec):
+                state, buf = _phase_broker_dense(spec, state, cache, buf, t1)
+            else:
+                state, buf, v2_resched = _phase_broker(spec, state, cache, buf, t1)
         if v2_local:  # fires this tick's decisions did not cancel
             rs, pre = (None, None) if v2_resched is None else v2_resched
-            state, buf = _phase_v2_release(
-                spec, state, cache, buf, t1, False, resched_t=rs, prerefunded=pre
-            )
+            with book.phase("v2_release_post"):
+                state, buf = _phase_v2_release(
+                    spec, state, cache, buf, t1, False, resched_t=rs, prerefunded=pre
+                )
         if F > 0 and pool:
             if spec.adv_periodic:
                 # the periodic advert carries the pool at its fire time:
                 # the fog events up to the boundary settle first
                 t_fire = (_adv_periods(spec, state.tick) + 1.0) * const(spec.adv_interval, dev)
                 t_a = torch.minimum(t_fire, t1)
-                state, buf = _phase_pool_completions(spec, state, cache, buf, t_a)
-                state, buf = _phase_pool_arrivals(spec, state, cache, buf, t_a)
-                state = _phase_periodic_adverts(spec, state, cache)
-            state, buf = _phase_pool_completions(spec, state, cache, buf, t1)
-            state, buf = _phase_pool_arrivals(spec, state, cache, buf, t1)
+                with book.phase("pool_completions"):
+                    state, buf = _phase_pool_completions(spec, state, cache, buf, t_a)
+                with book.phase("pool_arrivals"):
+                    state, buf = _phase_pool_arrivals(spec, state, cache, buf, t_a)
+                with book.phase("adverts"):
+                    state = _phase_periodic_adverts(spec, state, cache)
+            with book.phase("pool_completions"):
+                state, buf = _phase_pool_completions(spec, state, cache, buf, t1)
+            with book.phase("pool_arrivals"):
+                state, buf = _phase_pool_arrivals(spec, state, cache, buf, t1)
         elif F > 0:
             for _ in range(spec.completions_per_tick):
-                state, buf = _phase_completions(spec, state, cache, buf, t1)
-            state, buf = _phase_fog_arrivals(spec, state, cache, buf, t1)
+                with book.phase("completions"):
+                    state, buf = _phase_completions(spec, state, cache, buf, t1)
+            with book.phase("fog_arrivals"):
+                state, buf = _phase_fog_arrivals(spec, state, cache, buf, t1)
         if spec.policy == int(Policy.LOCAL_FIRST) and not spec.v2_local_broker:
-            state, buf = _phase_local_completions(spec, state, cache, buf, t1)
+            with book.phase("local_completions"):
+                state, buf = _phase_local_completions(spec, state, cache, buf, t1)
         if spec.learn_active:
             # after the fog phases, so an ack landing this tick credits now
-            state = _phase_learn_credit(spec, state, t1, dv)
+            with book.phase("learn_credit"):
+                state = _phase_learn_credit(spec, state, t1, dv)
+        if spec.telemetry_hist:
+            # after the fog phases and the credit, so an ack landing this
+            # tick streams now (it books no counter: no bracket needed)
+            with _span("latency_hist"):
+                state = _phase_latency_hist(spec, state, t1)
 
         rest = torch.zeros((spec.n_aps + spec.n_routers,), dtype=_I32, device=dev)
         tx_all = torch.cat([buf.tx_u, buf.tx_f, buf.tx_b[None], rest])
@@ -2135,12 +2264,24 @@ def make_step(spec: WorldSpec):
                 fog_busy,
                 torch.zeros((spec.n_nodes - U - F,), dtype=torch.bool, device=dev),
             ])
-            energy, alive = step_energy(
-                dv, nodes.energy, nodes.energy_capacity, nodes.has_energy,
-                nodes.alive, t1, tx_all, rx_all, computing,
-            )
+            with _span("energy"):
+                energy, alive = step_energy(
+                    dv, nodes.energy, nodes.energy_capacity, nodes.has_energy,
+                    nodes.alive, t1, tx_all, rx_all, computing,
+                )
             nodes = nodes.replace(energy=energy, alive=alive)
         state = state.replace(nodes=nodes)
+        if spec.journey_active:
+            # after every task-writing phase, before the telemetry fold
+            with _span("journeys"):
+                state = _phase_journeys(spec, state, t1)
+        if spec.telemetry:
+            # after every phase booked its work, before the tick advances
+            # (the reservoir row is keyed on this tick's index)
+            with _span("telemetry"):
+                state = _phase_telemetry(
+                    spec, state, t1, book.vector(spec.telemetry_phases, dev)
+                )
         return state.replace(
             t=t1,
             tick=state.tick + 1,
@@ -2337,7 +2478,9 @@ def run_chunked(
     horizon (:func:`..dynspec.apply_knobs` refuses a shape-defining field
     or a gate flip).  ``promote=False`` takes the spec's values as host
     constants.  No chunk writes into a state in place, so a state kept by
-    ``callback`` stays as it was handed over.
+    ``callback`` stays as it was handed over.  ``telemetry_stream(rows,
+    ticks_done)`` (a telemetry-on spec only) gets the reservoir rows each
+    chunk completed (:func:`..telemetry.metrics.reservoir_progress`).
     """
     if promote is None:
         promote = promote_default()
@@ -2351,15 +2494,15 @@ def run_chunked(
             "run_chunked does not collect per-tick series; run() per chunk "
             "or record snapshots via the callback"
         )
-    if telemetry_stream is not None:
-        raise NotImplementedError(
-            "not ported yet: telemetry_stream, the reservoir rows of the "
-            "telemetry plane (ROADMAP.md §1 item 14)"
-        )
     if inject is not None:
         raise NotImplementedError(
             "not ported yet: inject, the twin's chunk-boundary arrivals "
             "(ROADMAP.md §1 item 16)"
+        )
+    if telemetry_stream is not None and not spec.telemetry:
+        raise ValueError(
+            "telemetry_stream needs spec.telemetry=True (the reservoir "
+            "is zero-row when the plane is off)"
         )
     dev = state.t.device
     live_spec = spec
@@ -2367,10 +2510,14 @@ def run_chunked(
     total = spec.n_ticks
     chunk = min(chunk_ticks, total)
     done = 0
+    next_row = 0
     while done < total:
         n = min(chunk, total - done)
         state = _run(run_spec, state, net, bounds, n, dyn, fused_cache=True)
         done += n
+        if telemetry_stream is not None:
+            rows, next_row = reservoir_progress(spec, state.telem, done, next_row)
+            telemetry_stream(rows, done)
         if callback is not None:
             callback(state, done)
         if reconfigure is not None and done < total:

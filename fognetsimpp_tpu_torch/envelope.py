@@ -27,14 +27,10 @@ def broker_dense_ok(spec: WorldSpec) -> bool:
 
 def slice_reject_reason(spec: WorldSpec, net=None) -> Optional[str]:
     """Why the port cannot run ``spec`` (and ``net``) yet; None = it can."""
-    if spec.telemetry or spec.telemetry_hist or spec.journey_active:
-        return "the telemetry planes (ROADMAP.md §1 item 14)"
     if spec.record_tick_series or spec.record_trails:
         return "per-tick series recording (ROADMAP.md §1 item 15)"
     if spec.ingest:
         return "twin ingestion (ROADMAP.md §1 item 16)"
-    if spec.tp_shards:
-        return "the task-sharded telemetry plane (ROADMAP.md §1 item 23)"
     return None
 
 
@@ -55,15 +51,7 @@ def check_one_card(mesh) -> None:
 
 
 def check_tp_slice(spec: WorldSpec, net=None) -> None:
-    """The task-sharded runner's envelope: the single-device slice, less
-    the planes the TP tick does not carry yet.  The TP family itself is
-    the JAX gate's (``engine.tp_reject_reason``)."""
-    if (
-        spec.telemetry or spec.telemetry_hist or spec.journey_active
-        or spec.tp_shards
-    ):
-        raise NotImplementedError(
-            "not ported yet: telemetry, the latency histogram and journeys "
-            "under the task-sharded tick (ROADMAP.md §1 items 14 and 23)"
-        )
+    """The task-sharded runner's envelope: the single-device slice (the
+    telemetry planes included).  The TP family itself is the JAX gate's
+    (``engine.tp_reject_reason``)."""
     check_slice(spec, net)

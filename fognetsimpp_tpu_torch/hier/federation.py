@@ -142,8 +142,9 @@ def hier_counters(final) -> dict:
 def hier_summary(spec: WorldSpec, final) -> Optional[dict]:
     """The roll-up of a finished federated run (None with one broker):
     policy, hop budget, counters, per-broker migrations and domain sizes,
-    as plain ints.  The per-broker load lanes of the reference's summary
-    ride the telemetry plane (``ROADMAP.md`` §1 item 14)."""
+    as plain ints; with the telemetry plane on, each broker's mean load
+    (busy owned fogs over owned fogs) and the strided per-tick load rows
+    with their reservoir times."""
     if not spec.hier_active:
         return None
     h = final.hier
@@ -151,7 +152,7 @@ def hier_summary(spec: WorldSpec, final) -> Optional[dict]:
     fb = _np(h.fog_broker).astype(np.int64)
     ub = _np(h.user_broker).astype(np.int64)
     c = hier_counters(final)
-    return {
+    out = {
         "n_brokers": B,
         "policy": HierPolicy(spec.hier_policy).name.lower(),
         "max_hops": int(spec.hier_max_hops),
@@ -162,3 +163,15 @@ def hier_summary(spec: WorldSpec, final) -> Optional[dict]:
         "fogs_per_broker": [int((fb == b).sum()) for b in range(B)],
         "users_per_broker": [int((ub == b).sum()) for b in range(B)],
     }
+    t = getattr(final, "telem", None)
+    if t is not None and t.hier_load_sum.shape[0] == B:
+        ticks = max(int(_np(t.ticks)), 1)
+        res = _np(t.res).astype(np.float64)
+        rows = _np(t.hier_load_res).astype(np.float64)
+        Rm = rows.shape[0]
+        stride = max(1, -(-spec.n_ticks // Rm)) if Rm else 1
+        n_rows = min(Rm, -(-ticks // stride)) if Rm else 0
+        out["load_mean"] = [float(x) / ticks for x in _np(t.hier_load_sum)]
+        out["load_rows"] = rows[:n_rows]
+        out["load_rows_t"] = res[:n_rows, 0] if n_rows else np.zeros((0,))
+    return out

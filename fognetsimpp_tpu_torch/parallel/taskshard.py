@@ -31,14 +31,23 @@ leaf is bit-equal to the single-device engine where the JAX TP tick is
 a bounded exchange window.  By default the runners take the promoted
 knobs as a device operand shared by the shards (``promote``, as the JAX
 TP runner does; :mod:`..dynspec`), and :func:`run_tp_chunked` may retune
-them between chunks.  Telemetry, the latency histogram and journeys are
-not carried (``envelope.check_tp_slice``); donation has no counterpart.
+them between chunks.  Donation has no counterpart.
+
+With the telemetry plane on, the runner stamps the shard axis on the
+spec (:func:`stamp_tp_telemetry`: ``tp_shards`` and the per-shard
+exchange gauges), each shard books its part of every phase bracket, the
+latency histogram's deltas over its task rows and the journeys of the
+sampled slots it owns, and one int32 and one float32 sum over the shards
+fold them at the end of the tick (:func:`_tp_telemetry_fold`).  The sums
+go in shard order on one device; the float32 latency sums of the
+histogram agree with the JAX TP runner's to the 1e-6 the reference
+documents, every other leaf bit for bit.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -60,19 +69,32 @@ from ..core.engine import (
     _phase_fog_arrivals,
     _phase_spawn,
     _phase_spawn_multi,
+    _PhaseBook,
+    _span,
     tp_reject_reason,
 )
-from ..dynspec import DynSpec, apply_knobs, dyn_of, dyn_to_device, promote_default, split_spec
+from ..dynspec import (
+    DynSpec, apply_knobs, div_knob, dyn_of, dyn_to_device, promote_default, split_spec,
+)
 from ..envelope import check_tp_slice
-from ..f32math import const
+from ..f32math import const, kept_tensor
 from ..net.mobility import MobilityBounds
 from ..net.topology import LinkCache, NetParams, associate
 from ..ops.queues import NO_TASK
+from ..ops.scatter import set_drop
 from ..spec import WorldSpec
 from ..state import Metrics, NodeState, TaskState, UserState, WorldState, tree_map
+from ..telemetry.health import latency_hist_delta
+from ..telemetry.journeys import journey_tick_tp
+from ..telemetry.metrics import (
+    PHASE_INDEX, PHASES, accumulate_exchange, accumulate_tick, init_exchange_leaves,
+)
 from .shards import ShardGroup
 
 _METRIC_FIELDS = tuple(f.name for f in dataclasses.fields(Metrics))
+#: The counters a shard's fog phases book as replicated values (the
+#: deferral of its own candidates is partial).
+_REP_FIELDS = tuple(f for f in _METRIC_FIELDS if f != "n_deferred")
 
 
 # ----------------------------------------------------------------------
@@ -167,7 +189,44 @@ def pad_users_to_multiple(
         is_wireless=ins_nodes(net.is_wireless, False),
         ap_nodes=torch.where(net.ap_nodes >= U, net.ap_nodes + pad, net.ap_nodes),
     )
-    return spec2, state.replace(nodes=nodes, users=users, tasks=tasks), net2
+    state2 = state.replace(nodes=nodes, users=users, tasks=tasks)
+    if spec.telemetry and spec.telemetry_hist:
+        # the exactly-once flag grows with the task table; ghost rows stay
+        # UNUSED, so their flags stay 0.  The J-sized journey leaves stay
+        # as they are: ghost rows append at the table's end, so the sampled
+        # ids keep their (user, send) slots (dynspec.bucket_spec's rule)
+        seen = state.telem.lat_seen
+        state2 = state2.replace(telem=state2.telem.replace(
+            lat_seen=torch.cat([seen, torch.zeros((pad * S,), dtype=seen.dtype, device=seen.device)])
+        ))
+    return spec2, state2, net2
+
+
+def stamp_tp_telemetry(
+    spec: WorldSpec, state: WorldState, n: int
+) -> Tuple[WorldSpec, WorldState]:
+    """Stamp the shard axis on a telemetry-on world
+    (``taskshard.stamp_tp_telemetry``): ``spec.tp_shards = n`` and the
+    per-shard exchange leaves sized for it.  Idempotent; a no-op with the
+    plane off.  The population must already divide over ``n``."""
+    if not spec.telemetry:
+        return spec, state
+    if spec.tp_shards != n:
+        spec = dataclasses.replace(spec, tp_shards=n).validate()
+    if state.telem.exg_cand_sum.shape[0] != n:
+        state = state.replace(telem=state.telem.replace(
+            **init_exchange_leaves(spec, state.t.device)
+        ))
+    cap = (spec.n_users // n) * min(spec.arrival_cands, spec.max_sends_per_user)
+    if cap >= 2 ** 24:
+        # the exchange gauges ride an f32 one-hot sum over the shards:
+        # per-tick candidate counts must stay exact integers in f32
+        raise ValueError(
+            f"per-shard candidate capacity {cap} >= 2^24: the "
+            "telemetry exchange fold loses f32 integer exactness — "
+            "run telemetry off at this shape or raise the shard count"
+        )
+    return spec, state
 
 
 # ----------------------------------------------------------------------
@@ -203,9 +262,38 @@ def _floats(x: torch.Tensor) -> torch.Tensor:
 # the arrival exchange
 # ----------------------------------------------------------------------
 
+class ExgStats(NamedTuple):
+    """One shard's exchange-plane scalars of a tick (``taskshard.ExgStats``),
+    made by :func:`_exchange` when the telemetry plane is on."""
+
+    occ: torch.Tensor  # () f32 contending candidates / window slots
+    util: torch.Tensor  # () f32 seated / window slots
+    age: torch.Tensor  # () f32 ticks the oldest deferred candidate waited
+    cand: torch.Tensor  # () f32 candidates made (before the fast drop)
+    defer: torch.Tensor  # () f32 candidates deferred at the window
+    seated: torch.Tensor  # () i32 candidates seated in the window
+
+
+def _exg_stats(spec, t1, made, cand_v, cand_t, seat, n_set, seated, defer, slots):
+    """The shard's :class:`ExgStats` (``occ`` and ``util`` over ``slots``,
+    the age of the oldest candidate left waiting, in ticks)."""
+    waiting = cand_v & ~seat
+    age_t = torch.where(waiting, t1 - cand_t, -_INF).amax()
+    # XLA divides by a literal as a product with its float32 reciprocal
+    age = torch.clamp_min(div_knob(age_t, spec.dt), 0.0)
+    return ExgStats(
+        occ=div_knob(n_set.to(_F32), slots),
+        util=div_knob(seated.to(_F32), slots),
+        age=torch.where(waiting.any(), age, 0.0),
+        cand=_isum(made).to(_F32),
+        defer=defer.to(_F32),
+        seated=seated.to(_I32),
+    )
+
+
 def _exchange(
-    spec, tp, k_exchange: int, window_k: Optional[int],
-    state, cand_v, cand_slot, cand_f, cand_t, cand_m,
+    spec, tp, k_exchange: int, window_k: Optional[int], stats: Optional[dict],
+    state, t1, made, cand_v, cand_slot, cand_f, cand_t, cand_m,
 ):
     """The window every shard's fog tail plans, from each shard's
     surviving candidates (``taskshard._tp_fog_arrivals``' exchange), and
@@ -218,7 +306,9 @@ def _exchange(
     tick-keyed rotation (``pos``), keeps each shard's best ``K`` and
     merges them into the globally best ``K``, so the window is the one
     the single-device engine compacts.  Sentinel rows carry the invalid
-    id ``T_g``.
+    id ``T_g``.  With ``stats`` (a telemetry-on tick) the shard's
+    :class:`ExgStats` land in ``stats["exg"]``; ``made`` is its candidate
+    list before the saturated-fog fast drop.
     """
     S = spec.max_sends_per_user
     T_g = tp.n_users_global * S
@@ -259,11 +349,15 @@ def _exchange(
                 [T_g, 0, 0x7F800000, 0, maxpos], dtype=_I32, device=dev
             )  # slot, fog, bits(+inf), bits(0.0), pos
             win = torch.cat([win, sent.expand(K_w - k_loc, 5)])
-        full = ring_topk_merge(win, tp)
+        with _span("tp_exchange"):
+            full = ring_topk_merge(win, tp)
         # window-overflow deferral: a local candidate seats iff its pos is
         # within the merged window's largest valid key
         w_max = torch.where(full[:, 0] < T_g, full[:, 4], -1).amax()
-        deferred = n_set - _isum(cand_v & (pos <= w_max))
+        seat = cand_v & (pos <= w_max)
+        seated = _isum(seat)
+        deferred = n_set - seated
+        slots = K_w
     else:
         # exchange-window compaction (no-window regime)
         deferred = torch.clamp_min(n_set - k_exchange, 0)
@@ -282,7 +376,19 @@ def _exchange(
             _bits(torch.where(valid_l, cand_t[gl], _INF)),
             _bits(torch.where(valid_l, cand_m[gl], 0.0)),
         ], dim=1)  # (K_ex, 4) i32: one array around the ring
-        full = ring_all_gather(packed, tp)
+        with _span("tp_exchange"):
+            full = ring_all_gather(packed, tp)
+        if stats is not None:
+            seat = set_drop(
+                torch.zeros((UR,), dtype=torch.bool, device=dev),
+                torch.where(valid_l, idxc_l, UR), torch.ones((), dtype=torch.bool, device=dev),
+            )
+            seated = torch.clamp_max(n_set, k_exchange)
+        slots = k_exchange
+    if stats is not None:
+        stats["exg"] = _exg_stats(
+            spec, t1, made, cand_v, cand_t, seat, n_set, seated, deferred, slots
+        )
     return (full[:, 0], full[:, 1], _floats(full[:, 2]), _floats(full[:, 3])), deferred
 
 
@@ -308,54 +414,100 @@ def _tp_tick(
     """One sharded tick over the LOCAL world view (``taskshard._tp_tick``):
     connect -> adverts -> spawn -> dense decide -> completions xN ->
     arrivals (the engine's phases with ``tp``, the exchange from
-    :func:`_exchange`) -> counters.  Every shard-partial counter rides
-    ONE end-of-tick ``psum``."""
+    :func:`_exchange`) -> latency histogram -> journeys -> counters ->
+    telemetry.  Every shard-partial counter rides ONE end-of-tick
+    ``psum``; with the telemetry plane on, one int32 and one float32 psum
+    more carry the phase deltas, the histogram deltas and the exchange
+    gauges."""
     dev = state.t.device
     dt = const(spec.dt, dev)
     t0 = state.tick.to(_F32) * dt
     t1 = (state.tick + 1).to(_F32) * dt
     U, F = spec.n_users, spec.n_fogs
+    telem_on = spec.telemetry
+    hist_on = spec.telemetry and spec.telemetry_hist
+    jour_on = spec.journey_active
 
     m_carry = state.metrics
     m_rep = _zero_metrics(m_carry)
     buf_p = _zero_buf(U, F, dev)
+    buf_r = _zero_buf(U, F, dev)
     state = state.replace(metrics=_zero_metrics(m_carry))  # partial acc
 
+    # the phase brackets: each shard books the delta of its partial
+    # counters (its users' acks and its deferrals among them), shard 0
+    # also that of the replicated ones, so the sum over the shards is the
+    # single-device bracket (integer adds commute).  ``state.metrics`` is
+    # the partial accumulator until the fog phases, which run on the
+    # replicated one
+    fog_side = False
+
+    def activity():
+        m_part_v, m_rep_v = (m_part, state.metrics) if fog_side else (state.metrics, m_rep)
+        part = [getattr(m_part_v, f).reshape(1) for f in _METRIC_FIELDS]
+        part += [x.reshape(-1) for x in buf_p] + [buf_r.tx_u, buf_r.rx_u]
+        part.append(m_rep_v.n_deferred.reshape(1))
+        if tp.shard == 0:
+            part += [getattr(m_rep_v, f).reshape(1) for f in _REP_FIELDS]
+            part += [buf_r.tx_f, buf_r.rx_f, buf_r.tx_b.reshape(1), buf_r.rx_b.reshape(1)]
+        return torch.cat(part).sum(dtype=_I32)
+
+    book = _PhaseBook(activity if telem_on else None)
     # the static world's hoisted cache stands in for mobility + association
     if spec.connect_gating:
-        state, buf_p = _phase_connect(spec, state, cache, buf_p, t0, t1)
+        with book.phase("connect"):
+            state, buf_p = _phase_connect(spec, state, cache, buf_p, t0, t1)
     # advert delivery counts an F-sum, identical on every shard: it goes
     # to the REPLICATED accumulator
-    m_part = state.metrics
-    state = _phase_adverts(state.replace(metrics=m_rep), t1)
-    m_rep, state = state.metrics, state.replace(metrics=m_part)
-    if spec.max_sends_per_tick > 1:
-        state, buf_p = _phase_spawn_multi(spec, state, net, cache, buf_p, t0, t1, dv, tp=tp)
-    else:
-        state, buf_p = _phase_spawn(spec, state, net, cache, buf_p, t0, t1, dv, tp=tp)
-    state, buf_p = _phase_broker_dense(spec, state, cache, buf_p, t1, tp=tp)
-    m_part = state.metrics
+    with book.phase("adverts"):
+        m_part = state.metrics
+        state = _phase_adverts(state.replace(metrics=m_rep), t1)
+        m_rep, state = state.metrics, state.replace(metrics=m_part)
+    with book.phase("spawn"):
+        if spec.max_sends_per_tick > 1:
+            state, buf_p = _phase_spawn_multi(spec, state, net, cache, buf_p, t0, t1, dv, tp=tp)
+        else:
+            state, buf_p = _phase_spawn(spec, state, net, cache, buf_p, t0, t1, dv, tp=tp)
+    with book.phase("broker"):
+        state, buf_p = _phase_broker_dense(spec, state, cache, buf_p, t1, tp=tp)
 
     # the fog phases run on the replicated fog state, so their counters
     # are replicated, save the acks to this shard's users and the
     # deferral of its candidates, which are shard-partial
-    state = state.replace(metrics=m_rep)
-    buf_r = _zero_buf(U, F, dev)
+    m_part = state.metrics
+    state, fog_side = state.replace(metrics=m_rep), True
     for _ in range(spec.completions_per_tick):
-        state, buf_r = _phase_completions(spec, state, cache, buf_r, t1, tp=tp)
-    state, buf_r = _phase_fog_arrivals(
-        spec, state, cache, buf_r, t1, tp=tp,
-        exchange=functools.partial(_exchange, spec, tp, k_exchange, window_k),
-    )
+        with book.phase("completions"):
+            state, buf_r = _phase_completions(spec, state, cache, buf_r, t1, tp=tp)
+    stats = {} if telem_on else None
+    with book.phase("fog_arrivals"):
+        state, buf_r = _phase_fog_arrivals(
+            spec, state, cache, buf_r, t1, tp=tp,
+            exchange=functools.partial(_exchange, spec, tp, k_exchange, window_k, stats),
+        )
     m_rep = state.metrics
     m_part = m_part.replace(n_deferred=m_part.n_deferred + m_rep.n_deferred)
     m_rep = m_rep.replace(n_deferred=torch.zeros_like(m_rep.n_deferred))
     buf_p = buf_p._replace(rx_u=buf_p.rx_u + buf_r.rx_u)
 
+    # the latency histogram's deltas over this shard's task rows (its
+    # exactly-once flags stay shard-local: each task has one owner)
+    if hist_on:
+        with _span("latency_hist"):
+            hist_d, sum_d, seen = latency_hist_delta(spec, state.telem, state.tasks, t1)
+        state = state.replace(telem=state.telem.replace(lat_seen=seen))
+    # journeys: the slots this shard owns; only the overwrite count
+    # crosses the shards, in the end-of-tick psum
+    if jour_on:
+        with _span("journeys"):
+            telem_j, j_over = journey_tick_tp(spec, state.telem, state.tasks, t1, tp.t_off)
+        state = state.replace(telem=telem_j)
+
     # THE end-of-tick combine: every shard-partial scalar in one psum
     nf = len(_METRIC_FIELDS)
     tot = tp.psum(torch.stack(
         [getattr(m_part, f) for f in _METRIC_FIELDS] + [buf_p.tx_b, buf_p.rx_b]
+        + ([j_over] if jour_on else [])
     ))
     delta = {f: tot[i] + getattr(m_rep, f) for i, f in enumerate(_METRIC_FIELDS)}
     n_def = delta["n_deferred"]
@@ -368,6 +520,12 @@ def _tp_tick(
     vals["n_deferred_max"] = torch.maximum(m_carry.n_deferred_max, n_def)
     tx_b = tot[nf] + buf_r.tx_b
     rx_b = tot[nf + 1] + buf_r.rx_b
+    if jour_on:
+        # the summed count is the same on every shard: j_dropped stays
+        # replicated
+        state = state.replace(telem=state.telem.replace(
+            j_dropped=state.telem.j_dropped + tot[nf + 2]
+        ))
 
     # per-node counters: the user segment shard-local, the rest replicated
     rest = torch.zeros((spec.n_aps + spec.n_routers,), dtype=_I32, device=dev)
@@ -385,9 +543,57 @@ def _tp_tick(
                 nodes.assoc_sum[a1:],
             ])
         )
-    return state.replace(
-        nodes=nodes, metrics=Metrics(**vals), t=t1, tick=state.tick + 1
+    state = state.replace(nodes=nodes, metrics=Metrics(**vals))
+    if telem_on:
+        with _span("tp_fold"):
+            state = _tp_telemetry_fold(
+                spec, tp, state, t1, book.vector(len(PHASES), dev), stats["exg"],
+                (hist_d, sum_d) if hist_on else None,
+            )
+    return state.replace(t=t1, tick=state.tick + 1)
+
+
+def _tp_telemetry_fold(spec, tp, state, t1, ph, exg: ExgStats, hist):
+    """The end-of-tick telemetry fold (``taskshard._tp_tick`` 9a-9b): one
+    int32 psum of the phase deltas (``ph``, this shard's bracket vector)
+    and histogram counts, one float32 psum of the exchange gauges (shard
+    ``s`` fills column ``s`` only, so the sum is a gather) and the latency
+    sums; then :func:`..telemetry.metrics.accumulate_exchange` on a
+    stamped world and :func:`..telemetry.metrics.accumulate_tick`."""
+    dev = t1.device
+    n_ph = len(PHASES)
+    tp_slots = kept_tensor(
+        (PHASE_INDEX["tp_exchange"], PHASE_INDEX["tp_defer"]), torch.long, dev
     )
+    ph = ph.index_put((tp_slots,), torch.stack([exg.seated, exg.defer.to(_I32)]))
+    ints, flts = [ph], []
+    S_n = tp.n_shards
+    exg_on = spec.telemetry_tp_shards > 0
+    if exg_on:
+        col = torch.stack([exg.occ, exg.util, exg.age, exg.cand, exg.defer])
+        onehot = torch.arange(S_n, device=dev) == tp.shard
+        flts.append(torch.where(onehot[None, :], col[:, None], 0.0).reshape(-1))
+    if hist is not None:
+        ints.append(hist[0].reshape(-1))
+        flts.append(hist[1])
+    int_tot = tp.psum(torch.cat(ints))
+    flt_tot = tp.psum(torch.cat(flts)) if flts else None
+    telem = state.telem
+    if hist is not None:
+        F = spec.n_fogs
+        telem = telem.replace(
+            lat_hist=telem.lat_hist + int_tot[n_ph:].reshape(F, spec.telemetry_hist_bins),
+            lat_sum=telem.lat_sum + flt_tot[-F:],
+        )
+    if exg_on:
+        g = flt_tot[: 5 * S_n].reshape(5, S_n)
+        telem = accumulate_exchange(spec, telem, g[0], g[1], g[2], g[3], g[4], state.tick)
+    with _span("telemetry"):
+        telem = accumulate_tick(
+            spec, telem, state.fogs, state.learn, state.metrics, state.tick, t1,
+            int_tot[:n_ph],
+        )
+    return state.replace(telem=telem)
 
 
 # ----------------------------------------------------------------------
@@ -395,8 +601,10 @@ def _tp_tick(
 # ----------------------------------------------------------------------
 
 def _tp_setup(spec, state, net, n_shards, exchange_window, pad):
-    """Gate, pad and size the exchange: ``(spec, state, net, k_exchange,
-    window_k)`` (``taskshard._tp_setup``, less placement)."""
+    """Gate, pad, stamp a telemetry-on world's shard axis
+    (:func:`stamp_tp_telemetry`) and size the exchange: ``(spec, state,
+    net, k_exchange, window_k)`` (``taskshard._tp_setup``, less
+    placement)."""
     spec.validate()
     reason = tp_reject_reason(spec)
     if reason is not None:
@@ -423,9 +631,12 @@ def _tp_setup(spec, state, net, n_shards, exchange_window, pad):
                 "already bounds the hop-pruned exchange to its global "
                 "K-window — drop exchange_window or the arrival window"
             )
-        return spec, state, net, cap, spec.window
-    k_ex = cap if exchange_window is None else max(1, min(exchange_window, cap))
-    return spec, state, net, k_ex, None
+        window_k, k_ex = spec.window, cap
+    else:
+        window_k = None
+        k_ex = cap if exchange_window is None else max(1, min(exchange_window, cap))
+    spec, state = stamp_tp_telemetry(spec, state, n)
+    return spec, state, net, k_ex, window_k
 
 
 def _shard_view(spec, state, net, cache, n: int, s: int):
@@ -451,6 +662,12 @@ def _shard_view(spec, state, net, cache, n: int, s: int):
             for k in ("fogs", "broker", "metrics", "learn", "chaos", "hier", "telem")
         },
     )
+    if spec.telemetry and spec.telemetry_hist:
+        # the exactly-once flags of the shard's own task rows; every shard
+        # holds a whole copy of the J-sized journey leaves and advances
+        # only the slots it owns
+        seen = state.telem.lat_seen[t0: t0 + U_loc * S].clone()
+        st = st.replace(telem=st.telem.replace(lat_seen=seen))
     cache_l = cache.replace(
         assoc=cut(cache.assoc), attach_now=cut(cache.attach_now),
         acc_delay=cut(cache.acc_delay), reachable=cut(cache.reachable),
@@ -556,8 +773,28 @@ def run_tp_sharded(
         nodes=tree_map(cat_nodes, *[f.nodes for f in finals]),
         users=tree_map(cat_rows, *[f.users for f in finals]),
         tasks=tree_map(cat_rows, *[f.tasks for f in finals]),
+        telem=_join_telem(spec, [f.telem for f in finals]),
     )
     return spec, final
+
+
+def _join_telem(spec: WorldSpec, telems: list):
+    """The shards' telemetry joined: shard 0's replicated leaves, the
+    shards' ``lat_seen`` blocks end to end and each journey slot's leaves
+    from the shard that owns its task row (the others never advanced it)."""
+    t = telems[0]
+    if spec.telemetry and spec.telemetry_hist:
+        t = t.replace(lat_seen=torch.cat([x.lat_seen for x in telems]))
+    if spec.journey_active:
+        J = t.j_task.shape[0]
+        owner = (t.j_task // (spec.task_capacity // len(telems))).long()
+        slot = torch.arange(J, device=owner.device)
+
+        def by_owner(name):
+            return torch.stack([getattr(x, name) for x in telems])[owner, slot]
+
+        t = t.replace(**{k: by_owner(k) for k in ("j_prev", "j_ring", "j_cursor")})
+    return t
 
 
 def run_tp_chunked(
@@ -615,8 +852,13 @@ def unstamp_tp_carry(spec: WorldSpec, state: WorldState) -> Tuple[WorldSpec, Wor
     """A TP chunk-boundary carry re-described by the unsharded spec
     (``tp_shards`` 0), the fork point of the TP what-if
     (``taskshard.unstamp_tp_carry``).  The joined carry already lies on
-    one device; padded users stay, inert.  The port stamps no per-shard
-    telemetry (``envelope.check_tp_slice``), so nothing else changes."""
+    one device; padded users stay, inert.  A telemetry-on carry's
+    per-shard exchange leaves go back to the unsharded (zero-row) shape:
+    they describe the sharded run, not the forked world."""
     if spec.tp_shards:
         spec = dataclasses.replace(spec, tp_shards=0).validate()
+        if spec.telemetry:
+            state = state.replace(telem=state.telem.replace(
+                **init_exchange_leaves(spec, state.t.device)
+            ))
     return spec, state

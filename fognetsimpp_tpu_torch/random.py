@@ -10,7 +10,9 @@ module re-implements the functions the slice needs:
   ``threefry_fold_in``), :func:`fold_in` also over a tensor of data and
   a batch of keys (the vmapped fold);
 * :func:`random_bits`, :func:`uniform`, :func:`randint` — the samplers
-  (``jax/_src/random.py``: ``_uniform``, ``_randint``).
+  (``jax/_src/random.py``: ``_uniform``, ``_randint``);
+* :func:`permutation` and :func:`choice` (without replacement) — the
+  sort-based shuffle of ``_shuffle``.
 
 A key is an ``int64`` tensor of shape ``(2,)`` holding the two uint32
 words; every intermediate is an ``int64`` tensor masked with
@@ -166,3 +168,33 @@ def randint(
     off = ((higher % span) * mult + (lower % span)) & _M32
     off = off % span
     return (off + lo).to(torch.int32)
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)``: ``arange(n)`` (int32) shuffled.
+
+    ``_shuffle``'s rounds: ``ceil(3 ln n / ln(2^32 - 1))`` of them, each
+    splitting the key, drawing 32 bits for every element and sorting the
+    elements by them, stably (equal draws keep their order, as XLA's
+    ``sort_key_val`` does: at n = 440,000 some twenty pairs tie).
+    """
+    n = int(n)
+    x = torch.arange(n, dtype=torch.int32, device=key.device)
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
+    for _ in range(rounds):
+        key, sub = split(key, 2)
+        order = torch.sort(random_bits(sub, (n,)), stable=True).indices
+        x = x[order]
+    return x
+
+
+def choice(key: torch.Tensor, n: int, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.choice(key, n, shape, replace=False)``: the first
+    ``prod(shape)`` entries of :func:`permutation`."""
+    size = int(np.prod(shape)) if len(shape) else 1
+    if size > n:
+        raise ValueError(
+            f"Cannot take a larger sample (size {size}) than population "
+            f"(size {n}) when 'replace=False'"
+        )
+    return permutation(key, n)[:size].reshape(tuple(shape))

@@ -2,9 +2,9 @@
 
 Counterpart of ``fognetsimpp_tpu/state.py``.  Every class lists the same
 fields in the same order with the same shapes and dtypes as its JAX
-twin, including the zero-row sub-states of subsystems that are off or
-that the port does not carry yet (``TelemetryState``), so a flattened
-port state lines up with
+twin, including the zero-row sub-states of subsystems that are off
+(``TelemetryState``, defined with its accumulators in
+:mod:`.telemetry.metrics`), so a flattened port state lines up with
 ``jax.tree_util.tree_leaves`` of the JAX state leaf by leaf.
 
 One representation differs: a PRNG key (``WorldState.key``,
@@ -29,30 +29,16 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.utils._pytree as pytree
 
 from . import random as trandom
 from .device import resolve_device
 from .envelope import check_slice
 from .spec import NodeKind, Policy, WorldSpec
-from .telemetry.metrics import EXG_OCC_BINS, J_NCOLS, RES_FIELDS
+from .struct import Struct, register_pytree  # noqa: F401 (re-exported)
+from .telemetry.metrics import TelemetryState, init_telemetry_state
 
 # Sentinel for "no task": valid task ids are [0, T).
 NO_TASK = -1
-
-
-class Struct:
-    """Mixin: functional field replacement, as flax's ``.replace``."""
-
-    def replace(self, **changes):
-        return dataclasses.replace(self, **changes)
-
-
-def register_pytree(cls):
-    """Class decorator: ``cls``, a dataclass of tensors and dataclasses,
-    becomes a torch pytree node whose children are its fields in order."""
-    pytree.register_dataclass(cls)
-    return cls
 
 
 @register_pytree
@@ -240,41 +226,6 @@ class HierState(Struct):
 
 @register_pytree
 @dataclasses.dataclass
-class TelemetryState(Struct):
-    """Device telemetry accumulators (inert: zero-row when off)."""
-
-    ticks: torch.Tensor
-    defer_sum: torch.Tensor
-    q_len_sum: torch.Tensor
-    q_len_max: torch.Tensor
-    q_len_min: torch.Tensor
-    busy_ticks: torch.Tensor
-    pool_occ_sum: torch.Tensor
-    pick_hist: torch.Tensor
-    phase_work: torch.Tensor
-    res: torch.Tensor
-    lat_hist: torch.Tensor
-    lat_sum: torch.Tensor
-    lat_seen: torch.Tensor
-    exg_occ_hist: torch.Tensor
-    exg_occ_sum: torch.Tensor
-    exg_cand_sum: torch.Tensor
-    exg_defer_sum: torch.Tensor
-    exg_defer_max: torch.Tensor
-    exg_util_sum: torch.Tensor
-    exg_age_max: torch.Tensor
-    exg_occ_res: torch.Tensor
-    hier_load_sum: torch.Tensor
-    hier_load_res: torch.Tensor
-    j_task: torch.Tensor
-    j_prev: torch.Tensor
-    j_ring: torch.Tensor
-    j_cursor: torch.Tensor
-    j_dropped: torch.Tensor
-
-
-@register_pytree
-@dataclasses.dataclass
 class WorldState(Struct):
     """The full world.  ``t`` is the tick-boundary clock."""
 
@@ -443,45 +394,8 @@ def init_state(
 
     chaos = init_chaos_state(spec, key)
     hier = init_hier_state(spec, dev)
-    Fm, Pm, Rm = (
-        spec.telemetry_fogs, spec.telemetry_phases, spec.telemetry_slots
-    )
-    Sm, Bm, J, Rj = (
-        spec.telemetry_tp_shards, spec.telemetry_hier_brokers,
-        spec.journey_slots, spec.journey_ring,
-    )
-    telem = TelemetryState(
-        ticks=full((), 0, i32),
-        defer_sum=full((), 0, i32),
-        q_len_sum=full((Fm,), 0.0, f32),
-        q_len_max=full((Fm,), 0, i32),
-        q_len_min=full((Fm,), spec.queue_capacity, i32),
-        busy_ticks=full((Fm,), 0, i32),
-        pool_occ_sum=full((Fm,), 0.0, f32),
-        pick_hist=full((Fm,), 0.0, f32),
-        phase_work=full((Pm,), 0, i32),
-        res=full((Rm, len(RES_FIELDS)), 0.0, f32),
-        lat_hist=full(
-            (spec.telemetry_hist_fogs, spec.telemetry_hist_nbins), 0, i32
-        ),
-        lat_sum=full((spec.telemetry_hist_fogs,), 0.0, f32),
-        lat_seen=full((spec.telemetry_hist_tasks,), 0, i8),
-        exg_occ_hist=full((Sm, EXG_OCC_BINS), 0, i32),
-        exg_occ_sum=full((Sm,), 0.0, f32),
-        exg_cand_sum=full((Sm,), 0, i32),
-        exg_defer_sum=full((Sm,), 0, i32),
-        exg_defer_max=full((Sm,), 0, i32),
-        exg_util_sum=full((Sm,), 0.0, f32),
-        exg_age_max=full((Sm,), 0.0, f32),
-        exg_occ_res=full((Rm if Sm else 0, Sm), 0.0, f32),
-        hier_load_sum=full((Bm,), 0.0, f32),
-        hier_load_res=full((Rm if Bm else 0, Bm), 0.0, f32),
-        j_task=full((0,), 0, i32),
-        j_prev=full((0, J_NCOLS), 0, i32),
-        j_ring=full((J, Rj, 4), 0, i32),
-        j_cursor=full((J,), 0, i32),
-        j_dropped=full((), 0, i32),
-    )
+    # the journey sample is folded from the world key, never split
+    telem = init_telemetry_state(spec, key)
     return WorldState(
         t=full((), 0.0, f32),
         tick=full((), 0, i32),

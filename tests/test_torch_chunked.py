@@ -168,8 +168,24 @@ def test_refusals_match_jax_and_name_their_items():
         jengine.run_chunked, dataclasses.replace(jspec, record_tick_series=True),
         jst, jnet, jb, **series,
     )
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tengine.run_chunked(spec, st, net, b, telemetry_stream=lambda rows, d: None)
+    # the reservoir stream (item 14) is ported: it refuses a telemetry-off
+    # spec as JAX does, and streams JAX's rows from a telemetry-on one
+    stream = dict(chunk_ticks=40, telemetry_stream=lambda rows, d: None)
+    assert _value_error(tengine.run_chunked, spec, st, net, b, **stream) == \
+        _value_error(jengine.run_chunked, jspec, jst, jnet, jb, **stream)
+    tel = dict(SMOKE, telemetry=True)
+    got, want = [], []
+    spec, st, net, b = tsmoke.build(device="cpu", **tel)
+    tengine.run_chunked(spec, st, net, b, 40,
+                        telemetry_stream=lambda rows, d: got.append((rows, d)))
+    jspec, jst, jnet, jb = jsmoke.build(**tel)
+    jengine.run_chunked(jspec, jst, jnet, jb, 40, callback=lambda s, d: None,
+                        telemetry_stream=lambda rows, d: want.append((rows, d)))
+    assert [d for _, d in got] == [d for _, d in want] == [40, 80, 100]
+    for (g, _), (w, _) in zip(got, want):
+        assert set(g) == set(w)
+        for k in w:
+            assert g[k].tobytes() == np.asarray(w[k]).tobytes(), k
     with pytest.raises(NotImplementedError, match="item 16"):
         tengine.run_chunked(spec, st, net, b, inject=lambda s, d: s)
 

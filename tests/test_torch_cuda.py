@@ -828,3 +828,126 @@ def test_fold_in_over_tensors_on_the_card_equals_cpu(cuda):
         want = trandom.uniform(trandom.fold_in(trandom.fold_in(key, torch.arange(6)), data),
                                (2,), 1e-7, 1.0)
         assert draws.cpu().numpy().tobytes() == want.numpy().tobytes()
+
+
+# ----------------------------------------------------------------------
+# the telemetry planes on the card
+# ----------------------------------------------------------------------
+
+#: A wired world with every plane on: telemetry, the latency histogram
+#: and journeys (64 users, fast fogs, so acks stream from the first ticks).
+_TEL = dict(
+    n_users=64, n_fogs=4, fog_mips=(40000.0, 80000.0), send_interval=0.01,
+    horizon=0.1, telemetry=True, telemetry_hist=True, telemetry_journeys=16,
+    telemetry_journey_ring=16,
+)
+
+
+def test_telemetry_card_run_equals_cpu_run(cuda):
+    """Every leaf, the telemetry leaves included; the latency sums take
+    ``cell_sum_ordered`` once a tick."""
+    ck.reset_launches()
+    spec, st, net, b = smoke.build(device=cuda, **_TEL)
+    card, _ = engine.run(spec, st, net, b)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["cell_sum_ordered"] == spec.n_ticks
+    spec, st, net, b = smoke.build(device="cpu", **_TEL)
+    cpu, _ = engine.run(spec, st, net, b)
+    for a, c in zip(state_to_numpy(card), state_to_numpy(cpu)):
+        assert a.dtype == c.dtype and a.tobytes() == c.tobytes()
+    assert int(cpu.telem.lat_hist.sum()) > 0 and int(cpu.telem.j_cursor.sum()) > 0
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["single", "batched"])
+def test_telemetry_tick_does_not_synchronise(cuda, batched):
+    """A telemetry-on tick (the phase brackets, the histogram, the journey
+    tap, the reservoir write) waits for the card nowhere, alone or as a
+    replica batch."""
+    from fognetsimpp_tpu_torch.net.topology import associate
+    from fognetsimpp_tpu_torch.parallel.replicas import replicate_state, strict_vmap
+
+    spec, st, net, b = smoke.build(device=cuda, **_TEL)
+    if batched:
+        with strict_vmap():
+            tick, _ = engine.batched_tick(spec, net, b, replicate_state(spec, st, 4))
+            batch = replicate_state(spec, st, 4)
+            for _ in range(20):
+                batch = tick(batch)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                batch = tick(batch)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        assert int(batch.telem.ticks.sum()) == 4 * 21
+        return
+    step = engine.make_step(spec)
+    cache = associate(net, st.nodes.pos, st.nodes.alive, spec.broker_index)
+    for _ in range(20):
+        st = step(st, net, b, cache)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st = step(st, net, b, cache)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(st.telem.lat_hist.sum()) > 0
+
+
+def test_tp_telemetry_run_equals_cpu_and_does_not_synchronise(cuda):
+    """The TP tick with every plane on (four shards, the ring exchange):
+    card against CPU every leaf, and a second sharded run waits for the
+    card nowhere."""
+    kw = dict(_TEL, horizon=0.03)
+    rk.reset_launches()
+    spec, st, net, b = smoke.build(device=cuda, **kw)
+    _, card = run_tp_sharded(spec, st, net, b, n_shards=4)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES["ring_all_gather"] == spec.n_ticks
+    spec_c, st_c, net_c, b_c = smoke.build(device="cpu", **kw)
+    _, cpu = run_tp_sharded(spec_c, st_c, net_c, b_c, n_shards=4)
+    for a, c in zip(state_to_numpy(card), state_to_numpy(cpu)):
+        assert a.dtype == c.dtype and a.tobytes() == c.tobytes()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run_tp_sharded(spec, st, net, b, n_shards=4, n_ticks=3)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _lat_sum_case(kind, F=32, T=440_000, seed=0):
+    """``accumulate_latency``'s ordered sum at the bench world's shapes:
+    the F running sums first, then the task rows, not due at -1."""
+    rng = np.random.default_rng(seed)
+    fog = rng.integers(0, F, T).astype(np.int32)
+    due = {"sparse": rng.random(T) < 0.005, "one_fog_5000": np.zeros(T, bool),
+           "all_due": np.ones(T, bool)}[kind]
+    if kind == "one_fog_5000":
+        rows = rng.choice(T, 5000, replace=False)
+        due[rows], fog[rows] = True, 7
+    lat = (rng.random(T) * 0.05).astype(np.float32)
+    cell = np.concatenate([np.arange(F, dtype=np.int32), np.where(due, fog, -1).astype(np.int32)])
+    vals = np.concatenate([(rng.random(F) * 10).astype(np.float32), lat])
+    return torch.from_numpy(cell), torch.from_numpy(vals), F
+
+
+@pytest.mark.parametrize("kind", ["sparse", "one_fog_5000", "all_due"])
+def test_cell_sum_equals_plain_at_lat_sum_shapes(cuda, kind):
+    cell, vals, F = _lat_sum_case(kind)
+    got = ck.cell_sum_ordered(cell.to(cuda), vals.to(cuda), F)
+    want = ck.cell_sum_ordered_plain(cell, vals, F)
+    assert got.cpu().numpy().tobytes() == want.numpy().tobytes()
+    # four replicas end to end: one call
+    from fognetsimpp_tpu_torch.parallel.replicas import strict_vmap
+
+    c = torch.stack([cell] * 4)
+    v = torch.stack([vals.roll(r) for r in range(4)])
+    ck.reset_launches()
+    with strict_vmap():
+        got = torch.func.vmap(lambda a, x: ck.cell_sum_ordered(a, x, F))(c.to(cuda), v.to(cuda))
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["cell_sum_ordered"] == 1
+    for r in (0, 3):
+        want = ck.cell_sum_ordered_plain(c[r], v[r], F)
+        assert got[r].cpu().numpy().tobytes() == want.numpy().tobytes()

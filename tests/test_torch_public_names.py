@@ -3,7 +3,7 @@
 Every name ``fognetsimpp_tpu/__init__.py`` exports (its ``from ... import``
 lists, read from its syntax tree) is an attribute of
 ``fognetsimpp_tpu_torch``, from the port's own modules, and so are the
-``chaos`` and ``hier`` subpackages' names.  Importing the package builds
+``chaos``, ``hier`` and ``telemetry`` subpackages' names.  Importing the package builds
 no kernel.
 """
 import ast
@@ -41,7 +41,7 @@ def _exported(init: pathlib.Path):
     return names
 
 
-@pytest.mark.parametrize("pkg", ["", "chaos", "hier"])
+@pytest.mark.parametrize("pkg", ["", "chaos", "hier", "telemetry"])
 def test_every_jax_public_name_is_in_the_port(pkg):
     names = _exported(REPO / "fognetsimpp_tpu" / pkg / "__init__.py")
     assert names

@@ -317,10 +317,17 @@ def test_run_tp_sharded_rejects_outside_its_envelope():
     rr = dataclasses.replace(spec, policy=int(Policy.ROUND_ROBIN))
     with pytest.raises(ValueError, match=r"\[TP-POLICY\]"):
         tts.run_tp_sharded(rr, st, net, b, n_shards=2)
-    with pytest.raises(NotImplementedError, match="items 14 and 23"):
-        tts.run_tp_sharded(
-            dataclasses.replace(spec, telemetry=True), st, net, b, n_shards=2
-        )
+    # the telemetry plane runs under two shards (items 14 and 23) and
+    # equals JAX's TP runner; the shard axis is stamped on the spec
+    tel = dict(SMALL, telemetry=True)
+    spec_t, st_t, net_t, b_t = tsmoke.build(device="cpu", **tel)
+    spec2, got = tts.run_tp_sharded(spec_t, st_t, net_t, b_t, n_shards=2, n_ticks=20)
+    js, jst, jn, jb = jsmoke.build(**tel)
+    jspec2, ref = jts.run_tp_sharded(
+        js, jst, jn, jb, make_mesh(2, axis_name="node"), n_ticks=20
+    )
+    assert spec2.tp_shards == jspec2.tp_shards == 2
+    _assert_leaves_equal(got, _jax_leaves(ref), "telemetry under two shards")
     win = dataclasses.replace(spec, arrival_window=4)
     with pytest.raises(ValueError, match="exchange_window"):
         tts.run_tp_sharded(win, st, net, b, n_shards=2, exchange_window=2)
@@ -370,6 +377,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "fognetsimpp_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
+    assert {"metrics.py", "health.py", "journeys.py", "profile.py"} <= {
+        p.name for p in files if p.parent.name == "telemetry"
+    }
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
