@@ -25,7 +25,7 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    computes this function), and beside the ring all-gather one
    ``torch.cat(blocks, out=...)`` a shard, the library call that computes
    the same function;
-4. smoke: ``smoke.build(horizon=0.25)`` on the card against the same world
+4. smoke: ``smoke.build(horizon=0.1)`` on the card against the same world
    on the CPU, every leaf equal, and the run's summary;
 5. bench: the bench world at full width (10,000 users x 32 fogs, K = 4096,
    queue 128, derive_acks, 0.1 s) at dt 5 ms and dt 1 ms: card against CPU
@@ -37,8 +37,8 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    device time and idle share per tick, the heaviest kernels, the window's
    masked rows a tick), and the arrival kernel timed on the first window
    of the run that holds rows;
-8. tp: ``bench.py::tp_measurement``'s world (2^20 users x 64 fogs, 50
-   ticks of 5 ms, 9,437,184 task rows) under ``run_tp_sharded`` at four
+8. tp: ``bench.py::tp_measurement``'s world (2^20 users x 64 fogs, cut
+   to 30 of its 50 ticks of 5 ms, 9,437,184 task rows) under ``run_tp_sharded`` at four
    shards with the bench's exchange window: card against CPU every leaf
    over the first ``TP_CHECK_TICKS`` ticks (also the warm-up), then the
    whole horizon timed (decisions per second, ms per tick, the ring and
@@ -51,8 +51,8 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    the single-device ``engine.run`` on the card, every leaf;
 10. wireless: ``benchmarks.py::config4``'s world at one replica, full
    width (``wireless5``: 10,000 mobile, battery-powered users, 64 APs with
-   the Bianchi MAC keyed by offered load, ENERGY_AWARE, 100 ticks of
-   5 ms, T = 140,000 task rows): a stepped card run that keeps every
+   the Bianchi MAC keyed by offered load, ENERGY_AWARE, cut to 50 of 100 ticks of
+   5 ms, T = 90,000 task rows): a stepped card run that keeps every
    arrival window and tick 0's per-cell sum input, ``fused_arrival_plan``
    against its plain version on every non-empty window, ``engine.run``
    timed after it (decisions per second, ms per tick, launches), card
@@ -66,13 +66,13 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    chain of adds at the SM clock; and the profile of a wireless tick
    (``wireless_profile``);
 11. wireless_churn: ``tests/test_parity_wireless.py``'s fast-cycling
-   battery world at dt 10 ms under MIN_BUSY (8 users, cut to 200 of 400
+   battery world at dt 10 ms under MIN_BUSY (8 users, cut to 160 of 400
    ticks: the first restart comes at tick 137), stepped
    on the card watching ``nodes.alive`` (at least one user shut down and
    one restarted), card against CPU every leaf;
 
 12. rr_grid: ``benchmarks.py::config2`` (96 users x 4 fogs, ROUND_ROBIN
-   on the compacted broker, K = 1,024), cut to 100 of its 1,000 ticks of
+   on the compacted broker, K = 1,024), cut to 60 of its 1,000 ticks of
    1 ms: a stepped card run that keeps every arrival window, with
    ``fused_arrival_plan`` held against its plain version on every
    non-empty one (and timed on the first), then ``engine.run`` timed
@@ -93,16 +93,16 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    leaf, one wrapper call of each kernel a tick;
 15. config3: ``benchmarks.py::config3`` at full width, 64 replicas of
    1,000 users x 24 fogs (1,536 fogs end to end: ``pairwise_rank`` and
-   the per-fog reductions a replica), cut to 100 of its 250 ticks of 1 ms;
+   the per-fog reductions a replica), cut to 40 of its 250 ticks of 1 ms;
 16. config4: ``benchmarks.py::config4`` at its 128 replicas (512 fogs
    end to end: ``fused_arrival_plan``; 8,192 cells: ``cell_sum_ordered``
-   on 1,288,832 entries every tick), cut to 50 of its 100 ticks of 5 ms;
+   on 1,288,832 entries every tick), cut to 20 of its 100 ticks of 5 ms;
 17. config5: one chunk of 32 of ``benchmarks.py::config5``'s 256 load
-   levels at full width (10,000 users x 32 fogs, K = 4,096, cut to 25 of
+   levels at full width (10,000 users x 32 fogs, K = 4,096, cut to 10 of
    its 50 ticks of 5 ms): a batch of 32 replicas for each of its four policies (1,024
    fogs end to end: ``fused_arrival_plan``), then the four as one
    ``Policy.DYNAMIC`` batch of 128 (5b: 4,096 fogs, ``pairwise_rank``).
-   Phases 15-17 each run a batch once to warm up (its first 10 ticks)
+   Phases 15-17 each run a batch once to warm up (its first 5 ticks)
    and once timed (ms a
    tick, decisions per second over all replicas, peak device memory,
    each wrapper's calls a tick, which must be the single world's one),
@@ -118,8 +118,8 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    state: the callback sees ticks 7, 14 and 20 and its kept states stay
    intact, every leaf equals the card's ``engine.run`` and the CPU's
    ``run_chunked``;
-19. reconfigure: config 4's single world (100 ticks in chunks of 25), its
-   idle power and shutdown threshold retuned at tick 50: equal to the
+19. reconfigure: config 4's single world (40 ticks in chunks of 10), its
+   idle power and shutdown threshold retuned at tick 20: equal to the
    manual composition (two promoted ``engine.run`` calls) and to the CPU,
    every leaf; the alive users at each boundary;
 20. dyn4: ``benchmarks.py``'s dyn4, ``sweep_dyn``'s batch over config 4's
@@ -160,8 +160,8 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    bound (bytes, operations, and the chain over the takes and the fire);
    ``fused_arrival_plan`` against its plain version on the first
    non-empty pool-arrival window of the v2 run;
-25. wired_v1 (``scenarios/wired_v1``, 0.25 s of 1 ms) and example
-   (``scenarios/example``, 1.1 s of 1 ms: past the 1.0414 s link-up and
+25. wired_v1 (``scenarios/wired_v1``, 0.15 s of 1 ms) and example
+   (``scenarios/example``, 1.06 s of 1 ms: past the 1.0414 s link-up and
    into the drain), card against CPU every leaf, and ``local_pool_scan``
    against its plain version on each run's first window that holds a
    row.
@@ -189,7 +189,7 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    printed;
 29. tp_aps: ``benchmarks.py::config4``'s world at one replica and full
    width made TP-eligible (linear MAC, no energy model, static; 10,000
-   users, 64 APs, its 100 ticks of 5 ms) under ``run_tp_sharded`` at four shards
+   users, 64 APs, cut to 75 of its 100 ticks of 5 ms) under ``run_tp_sharded`` at four shards
    against ``engine.run`` on the card, every leaf (the APs'
    ``assoc_sum`` too), the ring and arrival kernels' launches a tick,
    and each held against its plain version on the run's first real
@@ -219,6 +219,22 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    its plain version on the run's first real exchange and window, the
    latency sum's on a shard's first input with due rows, ms and device
    events a tick on and off.
+33. cli: ``python -m fognetsimpp_tpu_torch`` as a subprocess on the card
+   at full width, config 4's world at one replica (``-s wireless5 -p
+   energy_aware`` with ``--set`` keys for 10,000 users, 64 APs, the
+   Bianchi MAC, 5 ms ticks, queue 64, 50 ms sends and the config's
+   arrival window, on the telemetry phases' 80,000-MIPS fogs;
+   ``CLI_TICKS`` ticks) with ``--ticks --telemetry --hist --out``: tasks
+   completed and a histogram that counted acks, its summary line, wall
+   time and the series' bytes, its
+   ``.sca.json`` and ``.vec.npz`` against an in-process ``--platform
+   cpu`` run of the same argv, every value equal; the same argv once
+   more through ``main()`` in this process with the wrapper counts reset
+   before it (``fused_arrival_plan`` and ``cell_sum_ordered`` must have
+   launched); then two small calls through ``main()`` on the card,
+   counted, and on the CPU, their files held equal: ``--tp 4`` with no
+   window (``ring_all_gather``) and ``-c examples/demo_v2.ini`` (the v2
+   pool fogs: ``local_pool_scan``).
    Every phase from 18 on resets the wrapper counts before its path and
    fails if a kernel of the path was launched no time;
 
@@ -322,10 +338,11 @@ WIDE_FOG = dict(
 )
 
 #: ``bench.py::tp_measurement``'s world at its defaults: 2^20 users x 64
-#: fogs, send interval 50 ms, dt 5 ms, 0.25 s, one send a tick.
+#: fogs, send interval 50 ms, dt 5 ms, one send a tick; its 0.25 s cut to
+#: 0.15 s (30 ticks) for the script's time.
 TP_WORLD = dict(
     n_users=1_048_576, n_fogs=64, fog_mips=(1000.0, 2000.0, 3000.0, 4000.0),
-    send_interval=0.05, horizon=0.25, dt=5e-3,
+    send_interval=0.05, horizon=0.15, dt=5e-3,
     max_sends_per_user=int(0.25 / 0.05) + 4, max_sends_per_tick=1,
     queue_capacity=128, start_time_max=min(0.05, 0.25 / 4), derive_acks=True,
 )
@@ -333,7 +350,7 @@ TP_SHARDS = 4
 #: The bench's per-shard exchange window (bench.py:579-580): 34,142.
 TP_K_EX = max(256, int(1.3 * (TP_WORLD["n_users"] // TP_SHARDS) * 5e-3 / 0.05) + 64)
 #: Ticks of the tp world held card against CPU (the CPU run's length).
-TP_CHECK_TICKS = 5
+TP_CHECK_TICKS = 3
 #: Masked rows of a shard's arrival-plan window at the tp world's tick 0,
 #: all bound for one fog (this script's ``tp_profile`` phase on an H100);
 #: the kernel phase holds the kernel against its plain version on such a
@@ -344,10 +361,10 @@ TP_TICK0_MASKED = 86_103
 BENCH_MASKED = 2_281
 
 #: ``benchmarks.py::config2`` at its own size: 96 users x 4 fogs,
-#: ROUND_ROBIN, send interval 10 ms, dt 1 ms, cut from 1.0 s to 0.1 s
-#: (100 ticks) for the script's time (``benchmarks.py 2`` runs it whole).
+#: ROUND_ROBIN, send interval 10 ms, dt 1 ms, cut from 1.0 s to 0.06 s
+#: (60 ticks) for the script's time (``benchmarks.py 2`` runs it whole).
 RR_GRID = dict(
-    n_users=96, n_fogs=4, send_interval=0.01, horizon=0.1, dt=1e-3,
+    n_users=96, n_fogs=4, send_interval=0.01, horizon=0.06, dt=1e-3,
     max_sends_per_user=104, arrival_window=1024,
 )
 #: The compacted broker's policies on the bench world (``policies``): row
@@ -362,7 +379,7 @@ POLICIES = {
     "dynamic": ("DYNAMIC", {"learn_in_dynamic": True}),
 }
 #: Horizon of the smoke world's run (cut from 0.5 s for the script's time).
-SMOKE_HORIZON = 0.25
+SMOKE_HORIZON = 0.1
 #: Horizon of the learned policies' runs: at the bench world's 0.1 s no
 #: status-6 ack has landed under UCB or DUCB (tasks take 0.05-0.9 s on
 #: fogs of 1,000-4,000 MIPS), so their credit path would not run; by
@@ -384,30 +401,30 @@ REPLICAS_SMALL = {
 }
 SMALL_R, REPLICA_SEED = 4, 5
 #: Ticks of a replica phase's warm-up run (its shapes are the run's).
-REPLICA_WARM_TICKS = 10
+REPLICA_WARM_TICKS = 5
 #: ``benchmarks.py``'s ``CONFIG4_R``, and config 5's chunk of load levels
 #: (the script runs one chunk of the 256).
 CONFIG4_R, CONFIG5_CHUNK = 128, 32
 #: Horizons that cut configs 3, 5 and 4 (with dyn4) from their own 0.25,
 #: 0.25 and 0.5 s for the script's time (``benchmarks.py`` runs them
-#: whole): 100 ticks of 1 ms, 25 and 50 of 5 ms.
-CONFIG3_HORIZON, CONFIG5_HORIZON, CONFIG4_HORIZON = 0.1, 0.125, 0.25
+#: whole): 40 ticks of 1 ms, 10 and 20 of 5 ms.
+CONFIG3_HORIZON, CONFIG5_HORIZON, CONFIG4_HORIZON = 0.04, 0.05, 0.1
 
 #: tests/test_parity_wireless.py's fast-cycling battery world (12 mJ
 #: batteries, 18 mW net drain while publishing) at dt 10 ms, MIN_BUSY,
-#: cut to 2 s (the port's CPU run: first shutdown at tick 10, first
+#: cut to 1.6 s (the port's CPU run: first shutdown at tick 10, first
 #: restart at tick 137).
 CHURN = dict(
-    numb_users=8, horizon=2.0, dt=0.01, send_interval=0.1, w_contention=0.0,
+    numb_users=8, horizon=1.6, dt=0.01, send_interval=0.1, w_contention=0.0,
     mac_model="linear", energy_capacity_j=0.012, tx_energy_j=2e-3,
     rx_energy_j=1e-4, idle_power_w=2e-3, harvest_power_w=4e-3,
     harvest_period_s=50.0, harvest_duty=0.5,
 )
 
 
-#: ``reconfigure``: config 4's single world in chunks of 25 ticks, its
-#: energy knobs retuned at tick 50 of 100.
-RECONF_CHUNK, RECONF_AT = 25, 50
+#: ``reconfigure``: config 4's single world cut to 40 of its 100 ticks,
+#: in chunks of 10 ticks, its energy knobs retuned at tick 20.
+RECONF_HORIZON, RECONF_CHUNK, RECONF_AT = 0.2, 10, 20
 RECONF_KNOBS = {"idle_power_w": 4e-3, "shutdown_frac": 0.2}
 #: ``learned_grid``: reward scale x discount on the bench world under UCB,
 #: 16 replicas a cell (64 x 32 = 2,048 fogs end to end).
@@ -428,7 +445,9 @@ POOL_REPLICAS, POOL_REPLICAS_WIDE = 8, 128
 #: bench world's window.
 POOL_SYNTH_K = 4096
 #: Horizons of the scenario worlds held card against CPU.
-WIRED_V1_HORIZON, EXAMPLE_HORIZON = 0.25, 1.1
+WIRED_V1_HORIZON, EXAMPLE_HORIZON = 0.15, 1.06
+#: The wireless world (config 4 at one replica) cut to 50 of its 100 ticks.
+WIRELESS_HORIZON = 0.25
 
 #: ``chaos``: ``bench.py::chaos_measurement``'s knobs on the bench world
 #: (dt 5 ms, 20 ticks): REOFFLOAD with 8 retries, the RTT wave and bursts,
@@ -474,14 +493,14 @@ HIER_DOWN = dict(
     derive_acks=False, chaos_script=tuple((f, 0.01, 0.09) for f in range(HIER_SLOW)),
 )
 #: ``tp_aps``: ``benchmarks.py::config4``'s world at one replica and full
-#: width, made TP-eligible (linear MAC, no energy model, static), its 100
-#: ticks, without config 4's arrival window: the TP tick's no-window
+#: width, made TP-eligible (linear MAC, no energy model, static), cut to 75
+#: of its 100 ticks, without config 4's arrival window: the TP tick's no-window
 #: exchange is the ring all-gather (a windowed spec merges top-K windows
 #: instead).  The linear MAC charges 1.5 ms a station of the cell (about
 #: 156 here), so connecting takes 0.2-0.5 s and the first task reaches a
 #: fog at tick 63 (the port's CPU run): 50 ticks would plan no arrival.
 TP_APS = dict(
-    numb_users=10_000, horizon=0.5, dt=5e-3, policy="ENERGY_AWARE",
+    numb_users=10_000, horizon=0.375, dt=5e-3, policy="ENERGY_AWARE",
     send_interval=0.05, queue_capacity=64, extra_aps=59, mac_model="linear",
     energy_enabled=False, assume_static=True,
 )
@@ -507,6 +526,151 @@ TEL_R = 16
 PRE_TELEMETRY_BENCH_EVENTS = 1688.0
 #: Device events a tick by which two traces of one world's tick may differ.
 TRACE_NOISE_EVENTS = 2.0
+
+#: ``cli``: config 4's world at one replica through the CLI
+#: (``benchmarks.py::config4_world``'s keys; the arrival window is added
+#: from that world's spec), ``CLI_TICKS`` ticks of 5 ms, on the telemetry
+#: phases' fast fogs (``TEL_FOGS``): at config 4's 1,000-4,000 MIPS no
+#: task completes within 0.3 s (the port's CPU run at 300 users), so the
+#: histogram and the completion columns would hold zeros; at 80,000 MIPS
+#: acks land from the tenth tick.
+CLI_TICKS = 20
+CLI_CONFIG4 = [
+    "-s", "wireless5", "-p", "energy_aware",
+    "--set", "scenario.numb_users=10000", "--set", "scenario.extra_aps=59",
+    "--set", "scenario.mac_model=bianchi", "--set", "scenario.dt=5ms",
+    "--set", "scenario.queue_capacity=64", "--set", "scenario.send_interval=50ms",
+    "--set", f"fog.*.mips={TEL_FOGS['fog_mips'][0]:g}",
+    "--set", f"scenario.horizon={CLI_TICKS * 5e-3:g}",
+    "--ticks", "--telemetry", "--hist",
+]
+#: The two small CLI calls: the TP tick with no window (the ring), 10
+#: ticks on fogs fast enough that tasks complete, and the v2 demo config
+#: (pool fogs: the local-pool scan, a launch a tick), cut to 0.05 s (0.5 s
+#: took 79 s of the script: 58 ms a tick on the card, three runs), before
+#: its users' first publish: it holds the scan's launches and the card's
+#: files to the CPU's; the ``example`` phase runs the same world past its
+#: link-up.
+CLI_TP = ["-s", "smoke", "--tp", "4", "--set", "scenario.n_users=1024",
+          "--set", "scenario.n_fogs=32", "--set", f"fog.*.mips={TEL_FOGS['fog_mips'][0]:g}",
+          "--set", "scenario.send_interval=10ms", "--set", "scenario.horizon=0.01"]
+CLI_DEMO_V2 = ["-c", "examples/demo_v2.ini", "--set", "scenario.horizon=0.05"]
+
+
+def _cli_files_equal(a: dict, b: dict, what: str) -> dict:
+    """Two runs' ``.sca.json`` and ``.vec.npz`` (paths from their summary
+    lines): every value equal but the run stamp and the argv attribute
+    (output directories and ``--platform``).  Returns the series'
+    bytes."""
+    import numpy as np
+
+    def sca(path):
+        with open(path) as f:
+            d = json.load(f)
+        d.pop("recorded_at")
+        d["attrs"].pop("argv")
+        return d
+
+    if sca(a["sca"]) != sca(b["sca"]):
+        raise SystemExit(f"cli {what}: the .sca.json files differ")
+    with np.load(a["vec"]) as va, np.load(b["vec"]) as vb:
+        if sorted(va.files) != sorted(vb.files):
+            raise SystemExit(f"cli {what}: the .vec.npz files hold other vectors")
+        for k in va.files:
+            x, y = va[k], vb[k]
+            if x.dtype != y.dtype or x.shape != y.shape or x.tobytes() != y.tobytes():
+                raise SystemExit(f"cli {what}: vector {k} differs")
+        return {"series_bytes": int(sum(va[k].nbytes for k in va.files if k.startswith("tick."))),
+                "vectors": len(va.files)}
+
+
+def cli_phase(reset_launches, all_launches, need_launches, smi) -> dict:
+    """Phase 33 (see the module docstring): the config 4 call as a
+    subprocess on the card, each call through ``main()`` in this process
+    on the card with the counts reset and on the CPU; returns each call's
+    launches."""
+    import contextlib
+    import io
+    import os
+
+    import torch
+
+    from fognetsimpp_tpu_torch import benchmarks as bm
+    from fognetsimpp_tpu_torch.__main__ import main as cli_main
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_root = os.path.join(root, "_cli_out")  # git-ignored
+    window = bm.config4_world(horizon=CLI_TICKS * 5e-3, device="cpu")[0].window
+    calls = {
+        "config4": CLI_CONFIG4 + ["--set", f"scenario.arrival_window={window}"],
+        "tp": CLI_TP,
+        "demo_v2": CLI_DEMO_V2,
+    }
+    need = {"config4": ("fused_arrival_plan", "cell_sum_ordered"),
+            "tp": ("fused_arrival_plan", "ring_all_gather"),
+            "demo_v2": ("fused_arrival_plan", "local_pool_scan")}
+    #: the calls whose tasks must complete on the card
+    completes = ("config4", "tp")
+    launches = {}
+    for name, argv in calls.items():
+        what = f"cli {name}"
+        # a config file named from the checkout's root
+        argv = [os.path.join(root, a) if a.endswith(".ini") else a for a in argv]
+        out = {k: os.path.join(out_root, name, k) for k in ("card", "main", "cpu")}
+        card = wall = None
+        if name == "config4":  # the python -m entry point itself
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "fognetsimpp_tpu_torch", *argv, "--out", out["card"]],
+                cwd=root, capture_output=True, text=True, timeout=600,
+            )
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise SystemExit(f"{what}: exit {proc.returncode}: {proc.stderr[-2000:]}")
+            card = json.loads(proc.stdout.strip().splitlines()[-1])
+
+        def in_process(args):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli_main(args)
+            if rc != 0:
+                raise SystemExit(f"{what}: main() returned {rc}")
+            return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+        reset_launches()
+        t1 = time.perf_counter()
+        counted = in_process(argv + ["--out", out["main"]])
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t1
+        launches[name] = all_launches()
+        need_launches(what, launches[name], need[name])
+        t1 = time.perf_counter()
+        cpu = in_process(argv + ["--platform", "cpu", "--out", out["cpu"]])
+        cpu_s = time.perf_counter() - t1
+        if card is not None:
+            _cli_files_equal(card, counted, f"{name} (subprocess against main())")
+        card = counted if card is None else card
+        files = _cli_files_equal(card, cpu, f"{name} (card against CPU)")
+        for k in ("n_published", "n_completed"):
+            if card[k] != cpu[k]:
+                raise SystemExit(f"{what}: {k} {card[k]} on the card, {cpu[k]} on the CPU")
+        if name in completes and card["n_completed"] <= 0:
+            raise SystemExit(f"{what}: no task completed ({card})")
+        hist_count = None
+        if "--hist" in argv:
+            with open(card["sca"]) as f:
+                hist_count = json.load(f)["hist"]["count"]
+            if hist_count <= 0:
+                raise SystemExit(f"{what}: the latency histogram counted no ack")
+        emit({
+            "phase": "cli", "call": name, "argv": argv,
+            "summary": {k: v for k, v in card.items()
+                        if k not in ("sca", "vec", "sca_txt", "vec_txt", "anf")},
+            "subprocess_wall_s": wall, "run_wall_s": card["wall_s"],
+            "main_wall_s": main_s, "cpu_run_s": cpu_s, "hist_count": hist_count, **files,
+            "launches": launches[name], "nvidia_smi": smi,
+        })
+    return launches
 
 
 def main() -> int:
@@ -1271,7 +1435,7 @@ def main() -> int:
     # ---- 10. the wireless world: config 4 at one replica, full width -----
     # benchmarks.py::config4 at one replica: the 10k-node mobile-handover
     # world with energy, ENERGY_AWARE, the Bianchi MAC over 64 APs
-    w_kw = cell_sum_inputs.wireless_kw()
+    w_kw = dict(cell_sum_inputs.wireless_kw(), horizon=WIRELESS_HORIZON)
 
     def handovers(net, spec, pos0, alive0, pos1, alive1):
         """Users associated at both states, with different APs."""
@@ -1905,7 +2069,7 @@ def main() -> int:
     del kept, card, ref
 
     # 19. reconfigure: config 4's single world, the energy knobs retuned at
-    # tick 50 of 100 in chunks of 25
+    # tick 20 of 40 in chunks of 10
     at = RECONF_AT
 
     def reconf(done):
@@ -1914,7 +2078,7 @@ def main() -> int:
     def alive_users(s, U):
         return int(s.nodes.alive[:U].sum())
 
-    spec, st, net, b = bm.config4_world(device=dev)
+    spec, st, net, b = bm.config4_world(horizon=RECONF_HORIZON, device=dev)
     U = spec.n_users
     alive_at = {}
     reset_launches()
@@ -1932,7 +2096,7 @@ def main() -> int:
                            dyn=dyn_on(spec, dev, **RECONF_KNOBS))
     n_manual = assert_same(card, manual, "reconfigure against the manual composition")
     del mid, manual
-    spec_c, st_c, net_c, b_c = bm.config4_world(device="cpu")
+    spec_c, st_c, net_c, b_c = bm.config4_world(horizon=RECONF_HORIZON, device="cpu")
     n_cpu = assert_same(card, engine.run_chunked(
         spec_c, st_c, net_c, b_c, chunk_ticks=RECONF_CHUNK, reconfigure=reconf),
         "reconfigure card against CPU")
@@ -2865,6 +3029,9 @@ def main() -> int:
         tel_launches[phase] = launches
         del got, cpu, blocks, plans
 
+    # 33. cli: the python -m entry point on the card, and main() counted
+    cli_launches = cli_phase(reset_launches, all_launches, need_launches, smi)
+
     # each row's launches: the main paths' calls at that row's shape
     by_path = {
         ("fused_arrival_plan", "bench"): {
@@ -2922,6 +3089,16 @@ def main() -> int:
             by_path[("ring_all_gather", "tp")][phase] = launches["ring_all_gather"]
     by_path[("cell_sum_ordered", "lat_sum")] = {
         k: v["cell_sum_ordered"] for k, v in tel_launches.items()}
+    # the CLI's calls (33): config 4's single world at the wireless rows'
+    # shape, the TP smoke world's ring, the v2 demo's scan
+    for name in ("fused_arrival_plan", "cell_sum_ordered"):
+        by_path[(name, "wireless")]["cli"] = cli_launches["config4"][name]
+    by_path[("ring_all_gather", "tp")]["cli_tp"] = cli_launches["tp"]["ring_all_gather"]
+    by_path[("local_pool_scan", "v2_bench")]["cli_demo_v2"] = \
+        cli_launches["demo_v2"]["local_pool_scan"]
+    by_path[("fused_arrival_plan", "v2_bench")]["cli_demo_v2"] = \
+        cli_launches["demo_v2"]["fused_arrival_plan"]
+    by_path[("fused_arrival_plan", "tp")]["cli_tp"] = cli_launches["tp"]["fused_arrival_plan"]
     for key, paths in by_path.items():
         kernel_rows[key]["launches"] = sum(paths.values())
         kernel_rows[key]["launches_by_path"] = paths

@@ -2082,9 +2082,12 @@ def _phase_telemetry(spec: WorldSpec, state: WorldState, t1, phase_work) -> Worl
     ))
 
 
-def make_step(spec: WorldSpec):
+def make_step(spec: WorldSpec, with_aux: bool = False):
     """The single-tick transition ``step(state, net, bounds, static_cache,
     dyn)`` for ``spec`` (the per-phase order of the JAX ``make_step``).
+    ``with_aux``: the same tick returning ``(state, aux)``, ``aux``
+    holding the tick's per-AP association counts (``{"n_assoc": (A,)
+    int32}``) for the series recorder.
 
     ``dyn``: the promoted knobs as a device operand
     (:func:`..dynspec.dyn_to_device`; under ``vmap`` one row of
@@ -2282,7 +2285,7 @@ def make_step(spec: WorldSpec):
                 state = _phase_telemetry(
                     spec, state, t1, book.vector(spec.telemetry_phases, dev)
                 )
-        return state.replace(
+        state = state.replace(
             t=t1,
             tick=state.tick + 1,
             metrics=state.metrics.replace(
@@ -2291,6 +2294,9 @@ def make_step(spec: WorldSpec):
                 )
             ),
         )
+        if with_aux:
+            return state, {"n_assoc": cache.n_assoc}
+        return state
 
     return step
 
@@ -2361,6 +2367,53 @@ def _static_cache(
     )
 
 
+def series_row(spec: WorldSpec, state: WorldState, n_assoc: torch.Tensor) -> dict:
+    """One tick's row of the per-tick series (``engine.run``'s scan body
+    under ``spec.record_tick_series``), read from the state after the
+    tick and the tick's own association counts."""
+    nodes = state.nodes
+    energy = nodes.energy
+    # jnp.mean: XLA's float32 sum, then the product with the reciprocal
+    # of the constant count
+    mean = xla_sum(energy) * const(float(np.float32(1.0) / np.float32(energy.shape[0])),
+                                   energy.device)
+    row = {
+        "t": state.t,
+        "busy_time": state.fogs.busy_time,
+        "q_len": state.fogs.q_len,
+        "pool_avail": state.fogs.pool_avail,
+        "n_alive": _isum(nodes.alive),
+        "energy_mean": mean,
+        "n_assoc": n_assoc,
+    }
+    if spec.learn_active:
+        row["learn_picks"] = state.learn.pick_count
+        row["learn_lat_sum"] = state.learn.lat_sum
+        row["learn_lat_cnt"] = state.learn.lat_cnt
+    if spec.record_trails:
+        row["pos"] = nodes.pos
+    return row
+
+
+class SeriesBuffer:
+    """The per-tick series on the state's device: one preallocated
+    ``(n, ...)`` tensor a key, one row written a tick (a device copy, no
+    wait for the card), moved to the host once by :meth:`host`."""
+
+    def __init__(self, row: dict, n: int):
+        self.cols = {k: torch.empty((n,) + tuple(v.shape), dtype=v.dtype, device=v.device)
+                     for k, v in row.items()}
+
+    def write(self, i: int, row: dict) -> None:
+        for k, v in row.items():
+            self.cols[k][i].copy_(v)
+
+    def host(self) -> dict:
+        # keys in sorted order, as JAX's scan hands back its dict (a
+        # pytree's dict children are sorted)
+        return {k: self.cols[k].cpu() for k in sorted(self.cols)}
+
+
 def run(
     spec: WorldSpec,
     state: WorldState,
@@ -2368,45 +2421,63 @@ def run(
     bounds: Optional[MobilityBounds] = None,
     n_ticks: Optional[int] = None,
     dyn: Optional[DynSpec] = None,
-) -> Tuple[WorldState, None]:
+) -> Tuple[WorldState, Optional[dict]]:
     """Run ``n_ticks`` (default: the spec's horizon) on the state's device.
 
-    Returns ``(final_state, None)``: per-tick series recording is not
-    ported.  The state stays on its device; the loop never waits for it.
-    ``dyn``: the promoted knobs as a device operand, ``spec`` then being
-    their shape key (``dynspec.split_spec``); ``None`` takes the spec's
-    own values as host constants.
+    Returns ``(final_state, series)``: ``series`` is None unless
+    ``spec.record_tick_series``, then ``{name: (n_ticks, ...) CPU tensor}``
+    with JAX ``run``'s keys (``t``, ``busy_time``, ``q_len``,
+    ``pool_avail``, ``n_alive``, ``energy_mean``, ``n_assoc``; a learned
+    policy adds ``learn_picks``, ``learn_lat_sum``, ``learn_lat_cnt``,
+    ``spec.record_trails`` adds ``pos``).  The state stays on its device;
+    the loop never waits for it.  ``dyn``: the promoted knobs as a device
+    operand, ``spec`` then being their shape key (``dynspec.split_spec``);
+    ``None`` takes the spec's own values as host constants.
     """
-    return _run(spec, state, net, bounds, n_ticks, dyn, fused_cache=False), None
+    return _run(spec, state, net, bounds, n_ticks, dyn, fused_cache=False,
+                record=spec.record_tick_series)
 
 
-def _run(spec, state, net, bounds, n_ticks, dyn, fused_cache: bool) -> WorldState:
+def _run(spec, state, net, bounds, n_ticks, dyn, fused_cache: bool, record: bool = False):
     """:func:`run`'s loop, the static cache built as :func:`_static_cache`
-    with ``fused_cache``."""
+    with ``fused_cache``: ``(final, series)``, ``series`` None unless
+    ``record`` (the tick with its aux, each row written into a
+    :class:`SeriesBuffer`)."""
     bounds, n = _runner_setup(spec, net, state.t.device, bounds, n_ticks)
-    step = make_step(spec)
+    step = make_step(spec, with_aux=record)
     static_cache = (
         _static_cache(spec, net, state, fused_cache) if spec.assume_static else None
     )
-    for _ in range(n):
-        state = step(state, net, bounds, static_cache, dyn)
+    buf = None
+    if record:
+        # the row's shapes and dtypes, read from the initial state
+        a0, a1 = spec.ap_slice
+        buf = SeriesBuffer(series_row(spec, state, torch.zeros(
+            (a1 - a0,), dtype=torch.int32, device=state.t.device)), n)
+    for i in range(n):
+        if record:
+            state, aux = step(state, net, bounds, static_cache, dyn)
+            buf.write(i, series_row(spec, state, aux["n_assoc"]))
+        else:
+            state = step(state, net, bounds, static_cache, dyn)
     if spec.derive_acks:
         state = _finalize_derived_acks(spec, state, static_cache)
-    return state
+    return state, (buf.host() if record else None)
 
 
 def batched_tick(
     spec: WorldSpec, net: NetParams, bounds: MobilityBounds, batch: WorldState,
-    dyn_rows: Optional[DynSpec] = None,
+    dyn_rows: Optional[DynSpec] = None, with_aux: bool = False,
 ):
     """``(tick, cache)``: ``tick(batch) -> batch`` advances R worlds like
     ``batch`` one tick, one ``torch.func.vmap`` of ``make_step(spec)``;
     ``cache`` is each replica's static link cache (None on a moving
     world), computed from ``batch`` as JAX computes it inside its vmap.
     ``dyn_rows`` gives each replica its own row of promoted knobs
-    (``dynspec.dyn_rows``), mapped beside the state.  The port draws no
+    (``dynspec.dyn_rows``), mapped beside the state.  ``with_aux``: the
+    tick returns ``(batch, aux)`` (:func:`make_step`).  The port draws no
     numbers from torch's generator, so the vmap refuses randomness."""
-    step = make_step(spec)
+    step = make_step(spec, with_aux=with_aux)
     vmap = torch.func.vmap
     d_dim = None if dyn_rows is None else 0
     if not spec.assume_static:
@@ -2426,7 +2497,7 @@ def run_batched(
     bounds: Optional[MobilityBounds] = None,
     n_ticks: Optional[int] = None,
     dyn_rows: Optional[DynSpec] = None,
-) -> Tuple[WorldState, None]:
+) -> Tuple[WorldState, Optional[dict]]:
     """:func:`run` for R worlds at once: ``batch`` carries a leading
     replica axis on every leaf, and ``net`` and ``bounds`` are shared.
     ``dyn_rows``: each replica's promoted knobs, every leaf with the same
@@ -2437,16 +2508,31 @@ def run_batched(
     (:mod:`..ops.arrival_kernels`, :mod:`..ops.cell_kernels`) lay the
     replicas' windows end to end for one kernel call.  Replica r of the
     result equals :func:`run` on replica r of ``batch``, leaf for leaf.
+    With ``spec.record_tick_series`` the second item is each replica's
+    series, ``(R, n_ticks, ...)`` CPU tensors under :func:`run`'s keys.
     """
     bounds, n = _runner_setup(spec, net, batch.t.device, bounds, n_ticks)
-    tick, cache = batched_tick(spec, net, bounds, batch, dyn_rows)
-    for _ in range(n):
-        batch = tick(batch)
+    record = spec.record_tick_series
+    tick, cache = batched_tick(spec, net, bounds, batch, dyn_rows, with_aux=record)
+    series = None
+    if record:
+        rows = torch.func.vmap(lambda s, a: series_row(spec, s, a))
+        a0, a1 = spec.ap_slice
+        no_assoc = torch.zeros((batch.t.shape[0], a1 - a0), dtype=torch.int32,
+                               device=batch.t.device)
+        buf = SeriesBuffer(rows(batch, no_assoc), n)
+        for i in range(n):
+            batch, aux = tick(batch)
+            buf.write(i, rows(batch, aux["n_assoc"]))
+        series = {k: v.transpose(0, 1) for k, v in buf.host().items()}
+    else:
+        for _ in range(n):
+            batch = tick(batch)
     if spec.derive_acks:
         batch = torch.func.vmap(
             lambda s, c: _finalize_derived_acks(spec, s, c)
         )(batch, cache)
-    return batch, None
+    return batch, series
 
 
 def _promoted(spec: WorldSpec, dev) -> Tuple[WorldSpec, DynSpec]:
@@ -2513,7 +2599,7 @@ def run_chunked(
     next_row = 0
     while done < total:
         n = min(chunk, total - done)
-        state = _run(run_spec, state, net, bounds, n, dyn, fused_cache=True)
+        state = _run(run_spec, state, net, bounds, n, dyn, fused_cache=True)[0]
         done += n
         if telemetry_stream is not None:
             rows, next_row = reservoir_progress(spec, state.telem, done, next_row)
@@ -2540,5 +2626,5 @@ def run_jit(
         promote = promote_default()
     if promote:
         key_spec, dyn = _promoted(spec, state.t.device)
-        return _run(key_spec, state, net, bounds, None, dyn, fused_cache=True)
-    return _run(spec, state, net, bounds, None, None, fused_cache=True)
+        return _run(key_spec, state, net, bounds, None, dyn, fused_cache=True)[0]
+    return _run(spec, state, net, bounds, None, None, fused_cache=True)[0]

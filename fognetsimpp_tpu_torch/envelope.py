@@ -27,8 +27,6 @@ def broker_dense_ok(spec: WorldSpec) -> bool:
 
 def slice_reject_reason(spec: WorldSpec, net=None) -> Optional[str]:
     """Why the port cannot run ``spec`` (and ``net``) yet; None = it can."""
-    if spec.record_tick_series or spec.record_trails:
-        return "per-tick series recording (ROADMAP.md §1 item 15)"
     if spec.ingest:
         return "twin ingestion (ROADMAP.md §1 item 16)"
     return None

@@ -14,7 +14,12 @@ algorithms and differ in the last bit).
 """
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
+
+from .device import plain_host
 
 
 def const(x: float, device) -> torch.Tensor:
@@ -35,13 +40,18 @@ def _bitcast_vmap(info, in_dims, x, dtype):
     return _bitcast_op(x, dtype), in_dims[0]
 
 
+#: Whether this PyTorch has a batching rule for a dtype view (2.13 on).
+_VIEW_BATCHES = tuple(int(v) for v in torch.__version__.split(".")[:2]) >= (2, 13)
+
+
 def bitcast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``x.view(dtype)`` for a dtype of the same width: the same bits read
     as another type.  A tensor of a replica batch (``vmap``) goes through
     a custom operator whose batching rule views the whole batch at once,
     since PyTorch releases before 2.13 have no batching rule for a dtype
-    view."""
-    if torch._C._functorch.is_functorch_wrapped_tensor(x):
+    view; from 2.13 on the view's own rule does it, without the custom
+    operator's dispatch (milliseconds a call on the CPU)."""
+    if not _VIEW_BATCHES and torch._C._functorch.is_functorch_wrapped_tensor(x):
         return _bitcast_op(x, dtype)
     return x.view(dtype)
 
@@ -55,6 +65,10 @@ def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     error), and round-to-odd in 53 bits followed by round-to-nearest in
     24 bits is the correctly rounded result, since 53 >= 2 * 24 + 2.
     """
+    if plain_host(a, b, c):
+        out = _fma_host(a.numpy(), b.numpy(), c.numpy())
+        if out is not None:
+            return out
     p = a.double() * b.double()
     c64 = c.double()
     s = p + c64
@@ -65,6 +79,27 @@ def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     toward = torch.where(err > 0, inf, -inf)
     nudge = torch.isfinite(s) & (err != 0) & even
     return torch.where(nudge, torch.nextafter(s, toward), s).float()
+
+
+def _fma_host(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> Optional[torch.Tensor]:
+    """:func:`fma`'s steps in numpy float64 for plain CPU tensors: the same
+    IEEE operations, at a fraction of torch's dispatch cost.  None where a
+    result is NaN, whose bits the two libraries may propagate from
+    different operands: the tensor path then decides them."""
+    with np.errstate(all="ignore"):
+        p = np.asarray(a, np.float64) * np.asarray(b, np.float64)
+        c64 = np.asarray(c, np.float64)
+        s = np.asarray(p + c64)
+        bv = s - p
+        err = (p - (s - bv)) + (c64 - bv)
+        even = (s.view(np.int64) & 1) == 0
+        nudge = np.isfinite(s) & (err != 0) & even
+        out = np.asarray(
+            np.where(nudge, np.nextafter(s, np.where(err > 0, np.inf, -np.inf)), s),
+            np.float32)
+    if np.isnan(out).any():
+        return None
+    return torch.from_numpy(out)
 
 
 # ----------------------------------------------------------------------
@@ -169,6 +204,8 @@ def _reduce_large(xi: torch.Tensor):
 def _sincosf(y: torch.Tensor, cos: bool) -> torch.Tensor:
     if y.dtype != torch.float32:
         raise TypeError(f"sinf/cosf take float32, got {y.dtype}")
+    if plain_host(y):
+        return torch.from_numpy(_sincosf_host(y.numpy(), cos))
     xi = bitcast(y, torch.int32).long() & _M32
     top = (xi >> 20) & 0x7FF
     x = y.double()
@@ -193,6 +230,58 @@ def _sincosf(y: torch.Tensor, cos: bool) -> torch.Tensor:
     tiny = torch.ones_like(y) if cos else y
     out = torch.where(top < _TOP_TINY, tiny, out)
     return torch.where(top >= _TOP_INF, torch.full_like(y, float("nan")), out)
+
+
+def _sincosf_host(y: np.ndarray, cos: bool) -> np.ndarray:
+    """:func:`_sincosf`'s steps in numpy for a plain CPU tensor's values:
+    the same integer and float64 operations in the same order."""
+    shape = y.shape
+    y = np.atleast_1d(y)
+    with np.errstate(all="ignore"):
+        xi = y.view(np.int32).astype(np.int64) & _M32
+        top = (xi >> 20) & 0x7FF
+        x = y.astype(np.float64)
+        n_f = ((x * _HPI_INV).astype(np.int32) + np.int32(0x800000)) >> 24
+        nd = n_f.astype(np.float64)
+        r_f = (x - nd * _HPI_HI) - nd * _HPI_LO
+        # reduce_large
+        tab = np.asarray(_INV_PIO4, np.int64)
+        k = (xi >> 26) & 15
+        m = ((xi & 0xFFFFFF) | 0x800000) << ((xi >> 23) & 7)
+        r0 = (m * tab[k]) & _M32
+        r1 = m * tab[k + 4]
+        r2 = m * tab[k + 8]
+        lo = (r2 >> 32) + (r1 & _M32)
+        hi = (r0 + (r1 >> 32) + (lo >> 32)) & _M32
+        lo = lo & _M32
+        n_l = ((hi + (1 << 29)) & _M32) >> 30
+        hi = (hi - (n_l << 30)) & _M32
+        hi = np.where(hi >= 1 << 31, hi - (1 << 32), hi)
+        r_l = (hi * (1 << 32) + lo).astype(np.float64) * _PI63
+        big = top >= _TOP_120
+        n = np.where(big, n_l, n_f.astype(np.int64) & 3)
+        q = np.where(big, (n_l + (xi >> 31)) & 3, n)
+        r = np.where(big, r_l, r_f)
+        cos_tab = np.where((q & 2) != 0, -1.0, 1.0)
+        odd = (((n ^ 1) if cos else n) & 1) != 0
+
+        def poly(x, x2, cos_tab, odd):
+            x3 = x * x2
+            s1 = _S[1] + x2 * _S[2]
+            x7 = x3 * x2
+            sin_p = (x + x3 * _S[0]) + x7 * s1
+            x4 = x2 * x2
+            c2 = _C[3] + x2 * _C[4]
+            c = (_C[0] + x2 * _C[1]) + x4 * _C[2]
+            cos_p = (c + (x4 * x2) * c2) * cos_tab
+            return np.where(odd, cos_p, sin_p)
+
+        out = poly(r * np.asarray(_SIGN)[q], r * r, cos_tab, odd)
+        small = poly(x, x * x, np.ones_like(x), np.full(odd.shape, cos))
+        out = np.where(top < _TOP_PIO4, small, out).astype(np.float32)
+        out = np.where(top < _TOP_TINY, np.ones_like(y) if cos else y, out)
+        out = np.where(top >= _TOP_INF, np.float32(np.nan), out)
+    return np.ascontiguousarray(out, np.float32).reshape(shape)
 
 
 def sinf(y: torch.Tensor) -> torch.Tensor:

@@ -3,21 +3,22 @@
 
 Every policy replays the same scenario (same seed, topology and publish
 schedule up to policy-dependent feedback); the static runs give the
-world's oracle, the best fixed policy by mean task latency.  The per-tick
-regret curves of the JAX harness read the recorded tick series, which is
-``ROADMAP.md`` §1 item 15 in the port: ``run_policy(record_series=True)``
-and :func:`evaluate` raise until then.
+world's oracle, the best fixed policy by mean task latency.  A learned
+run's per-tick credited-latency accumulators (``learn_lat_sum``,
+``learn_lat_cnt`` in the tick series) give its regret curve against that
+oracle without re-reading the task table; :func:`evaluate` persists them
+through the recorder as the ``learnRegret`` and ``learnPicks`` vectors.
 
 Host-side module: it drives :func:`~..core.engine.run` and reads results
 back once a run.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..spec import Policy
+from ..spec import LEARNED_POLICIES, Policy
 
 #: Static policies the oracle is taken over (the argmin family without
 #: ENERGY_AWARE, which differs only in energy-enabled worlds).
@@ -27,9 +28,6 @@ DEFAULT_STATICS: Tuple[Policy, ...] = (
     Policy.MIN_LATENCY,
     Policy.RANDOM,
 )
-
-_SERIES = "per-tick series recording (ROADMAP.md §1 item 15)"
-
 
 def mean_task_latency_s(final) -> float:
     """Mean publish -> status-6 ack latency (s) over completed tasks."""
@@ -41,11 +39,12 @@ def mean_task_latency_s(final) -> float:
 
 def run_policy(build, policy: int, record_series: bool = False, **kw):
     """Replay the world ``build(policy=..., **kw)`` makes under ``policy``;
-    returns ``(spec, final, series)`` (``series`` is None)."""
+    returns ``(spec, final, series)`` (``series`` None unless
+    ``record_series``)."""
     from ..core.engine import run
 
     if record_series:
-        raise NotImplementedError(f"not ported yet: {_SERIES}")
+        kw = dict(kw, record_tick_series=True)
     spec, state, net, bounds = build(policy=int(policy), **kw)
     final, series = run(spec, state, net, bounds)
     return spec, final, series
@@ -87,7 +86,51 @@ def regret_curves(series, oracle_mean_s: float) -> Dict[str, np.ndarray]:
     }
 
 
-def evaluate(build, *args, **kw) -> Dict:
-    """The full harness (oracle plus one recorded run a learned policy)
-    needs the tick series and the recorder."""
-    raise NotImplementedError(f"not ported yet: {_SERIES}")
+def evaluate(
+    build,
+    learned: Sequence[Policy] = LEARNED_POLICIES,
+    statics: Sequence[Policy] = DEFAULT_STATICS,
+    outdir: Optional[str] = None,
+    run_id_prefix: str = "learn",
+    **kw,
+) -> Dict:
+    """The full harness: the oracle and one recorded run a learned policy.
+
+    Returns ``{"oracle": {"policy", "policy_name", "mean_latency_s",
+    "statics"}, "learned": {name: {"mean_latency_s", "final_regret_s",
+    "picks", "credited", "paths"?}}}``.  With ``outdir`` each learned run
+    is recorded (``<prefix>-<name>.sca.json`` / ``.vec.npz``) with the
+    ``learnRegret`` / ``learnPicks`` curves as extra signal vectors.
+    """
+    best, static_means = static_oracle(build, statics=statics, **kw)
+    oracle_mean = static_means[best]
+    out: Dict = {
+        "oracle": {
+            "policy": int(best),
+            "policy_name": Policy(best).name.lower(),
+            "mean_latency_s": oracle_mean,
+            "statics": static_means,
+        },
+        "learned": {},
+    }
+    for pol in learned:
+        name = Policy(int(pol)).name.lower()
+        spec, final, series = run_policy(build, int(pol), record_series=True, **kw)
+        curves = regret_curves(series, oracle_mean)
+        entry = {
+            "mean_latency_s": mean_task_latency_s(final),
+            "final_regret_s": float(curves["learnRegret"][-1]),
+            "picks": final.learn.pick_count.cpu().numpy().tolist(),
+            "credited": float(final.learn.lat_cnt.cpu()),
+        }
+        if outdir is not None:
+            from ..runtime.recorder import record_run
+
+            entry["paths"] = record_run(
+                outdir, spec, final, series=series,
+                run_id=f"{run_id_prefix}-{name}",
+                attrs={"policy": name, "oracle": out["oracle"]},
+                extra_vectors=curves,
+            )
+        out["learned"][name] = entry
+    return out

@@ -35,6 +35,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..device import plain_host
 from . import cuda_build
 
 #: Kernel calls per wrapper (one a wrapper call, whatever its launches)
@@ -259,6 +260,8 @@ def fused_arrival_plan(
     the fused kernel up to :data:`FUSED_MAX_FOGS` of them, past it one
     call of the rank kernel and the per-fog reductions window by window.
     """
+    if plain_host(mask, fog_key, t_key):
+        return _fused_impl(mask, fog_key, t_key, int(n_fogs))
     return _fused_op(mask, fog_key, t_key, int(n_fogs))
 
 
@@ -269,6 +272,8 @@ def pairwise_rank(
     """(K,) i32 within-fog arrival rank; -1 where masked out.  Under
     ``vmap`` the caller names ``n_fogs``, the bound of the masked rows'
     keys, so that the replicas' keys can be told apart end to end."""
+    if plain_host(mask, fog_key, t_key):
+        return _pairwise_impl(mask, fog_key, t_key)
     return _pairwise_op(mask, fog_key, t_key, int(n_fogs))
 
 

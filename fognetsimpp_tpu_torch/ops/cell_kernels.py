@@ -35,6 +35,7 @@ from typing import Dict
 
 import torch
 
+from ..device import plain_host
 from . import cuda_build
 
 #: Kernel launches since the last :func:`reset_launches`.
@@ -161,6 +162,8 @@ def cell_sum_ordered(
     negative ones included, dropped.  Under ``vmap`` the R replicas' entries
     are laid end to end, replica r's cell a at ``r * A + a`` and every
     dropped entry at ``R * A``, and one call sums all R * A cells."""
+    if plain_host(cell, vals):
+        return _cell_sum_impl(cell, vals, int(n_cells))
     return _cell_sum_op(cell, vals, int(n_cells))
 
 

@@ -31,6 +31,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from ..device import plain_host
 from . import cuda_build
 
 #: Kernel launches since the last :func:`reset_launches`.
@@ -139,15 +140,19 @@ def _scan_impl(mips, valid, t, pool0, fire_t0, refund0, v2, one):
     return take, pool, fired
 
 
+def _scan_one(mips, valid, t, pool0, fire_t0, refund0, v2):
+    return _scan_impl(
+        mips[None], valid[None], t[None], pool0.reshape(1), fire_t0.reshape(1),
+        refund0.reshape(1), v2, True,
+    )
+
+
 @torch.library.custom_op("fns::local_pool_scan", mutates_args=())
 def _scan_op(
     mips: torch.Tensor, valid: torch.Tensor, t: torch.Tensor,
     pool0: torch.Tensor, fire_t0: torch.Tensor, refund0: torch.Tensor, v2: bool,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    return _scan_impl(
-        mips[None], valid[None], t[None], pool0.reshape(1), fire_t0.reshape(1),
-        refund0.reshape(1), v2, True,
-    )
+    return _scan_one(mips, valid, t, pool0, fire_t0, refund0, v2)
 
 
 @torch.library.custom_op("fns::local_pool_scan_rows", mutates_args=())
@@ -168,6 +173,8 @@ def local_pool_scan(
     and, under ``v2``, the timer's fire time and its refund (0-d float32).
     ``fired``: the timer popped inside the window (always False for v1).
     Under ``vmap`` the R replicas' windows are scanned in one launch."""
+    if plain_host(mips, valid, t, pool0, fire_t0, refund0):
+        return _scan_one(mips, valid, t, pool0, fire_t0, refund0, bool(v2))
     return _scan_op(mips, valid, t, pool0, fire_t0, refund0, bool(v2))
 
 
@@ -178,6 +185,8 @@ def local_pool_scan_rows(
     """:func:`local_pool_scan` of R worlds laid out as rows (inputs ``(R,
     K)`` and ``(R,)``, outputs likewise) in one launch: what the batching
     rule calls, and the layout :data:`cuda_build.TAPS` sees."""
+    if plain_host(mips, valid, t, pool0, fire_t0, refund0):
+        return _scan_impl(mips, valid, t, pool0, fire_t0, refund0, bool(v2), False)
     return _scan_rows_op(mips, valid, t, pool0, fire_t0, refund0, bool(v2))
 
 

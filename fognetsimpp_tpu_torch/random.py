@@ -27,14 +27,69 @@ from typing import Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .device import plain_host
 from .f32math import bitcast, fma
 
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
-def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
-    return ((x << r) | (x >> (32 - r))) & _M32
+def _threefry_words(k1, k2, x1, x2, mask=_M32):
+    """The cipher's 20 rounds and key injections on uint32 words, which
+    broadcast together: int64 tensors or Python ints, every add and left
+    shift masked back to 32 bits, or numpy ``uint32`` arrays (``mask``
+    None), which wrap by themselves.  Every route of
+    :func:`threefry2x32` runs this one body."""
+    def m(x):
+        return x if mask is None else x & mask
+
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x0 = m(x1 + ks[0])
+    y = m(x2 + ks[1])
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 = m(x0 + y)
+            y = (m(y << r) | (y >> (32 - r))) ^ x0
+        x0 = m(x0 + ks[(i + 1) % 3])
+        y = m(y + ks[(i + 2) % 3] + (i + 1))
+    return x0, y
+
+
+#: Up to this many words the host cipher runs on Python ints, one word at
+#: a time; past it on numpy arrays.  The two cost the same near 10 words
+#: on one CPU core (``python -m fognetsimpp_tpu_torch.tools.host_cipher``).
+_HOST_SCALAR_MAX = 8
+
+
+def _broadcast_shape(shapes) -> Tuple[int, ...]:
+    """numpy's broadcast of ``shapes``, without its array machinery."""
+    nd = max(len(s) for s in shapes)
+    out = []
+    for i in range(nd):
+        dims = {s[i - nd + len(s)] for s in shapes if i - nd + len(s) >= 0} - {1}
+        if len(dims) > 1:
+            raise ValueError(f"shapes {shapes} do not broadcast")
+        out.append(dims.pop() if dims else 1)
+    return tuple(out)
+
+
+def _threefry2x32_host(k1, k2, x1, x2) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`threefry2x32` of plain CPU tensors: the rounds on Python ints
+    (up to :data:`_HOST_SCALAR_MAX` words) or numpy ``uint32`` arrays, the
+    same bits at a fraction of the tensor ops' dispatch cost, which
+    dominates a small world's CPU tick."""
+    ts = (k1, k2, x1, x2)
+    shape = _broadcast_shape([tuple(t.shape) for t in ts])
+    n = int(np.prod(shape))
+    if n <= _HOST_SCALAR_MAX:
+        cols = [t.reshape(-1).tolist() if t.numel() == n and tuple(t.shape) == shape
+                else t.expand(shape).reshape(-1).tolist() for t in ts]
+        outs = [_threefry_words(*(v & _M32 for v in vs)) for vs in zip(*cols)]
+        return tuple(torch.tensor([o[j] for o in outs], dtype=torch.int64).reshape(shape)
+                     for j in (0, 1))
+    a, b, c, d = (t.numpy().astype(np.uint32) for t in ts)
+    return tuple(torch.from_numpy(w.astype(np.int64).reshape(shape))
+                 for w in _threefry_words(a, b, c, d, mask=None))
 
 
 def threefry2x32(
@@ -45,18 +100,14 @@ def threefry2x32(
     ``k1``/``k2`` are the key words, ``x1``/``x2`` the counter words
     (all four broadcast together); returns the two output words.
     Same 20 rounds and key injections as
-    ``jax._src.prng._threefry2x32_lowering``.
+    ``jax._src.prng._threefry2x32_lowering``.  Plain CPU tensors take the
+    host route (:func:`_threefry2x32_host`), everything else (a card's
+    tensors, a ``vmap``'s batched ones) tensor ops; both run the rounds of
+    :func:`_threefry_words`.
     """
-    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
-    x0 = (x1 + ks[0]) & _M32
-    x1_ = (x2 + ks[1]) & _M32
-    for i in range(5):
-        for r in _ROT[i % 2]:
-            x0 = (x0 + x1_) & _M32
-            x1_ = _rotl(x1_, r) ^ x0
-        x0 = (x0 + ks[(i + 1) % 3]) & _M32
-        x1_ = (x1_ + ks[(i + 2) % 3] + (i + 1)) & _M32
-    return x0, x1_
+    if plain_host(k1, k2, x1, x2):
+        return _threefry2x32_host(k1, k2, x1, x2)
+    return _threefry_words(k1, k2, x1, x2)
 
 
 def PRNGKey(seed: int, device: Union[str, torch.device] = "cpu") -> torch.Tensor:
@@ -79,8 +130,20 @@ def _counts(shape: Sequence[int], device) -> Tuple[torch.Tensor, torch.Tensor]:
     return (flat >> 32).reshape(shape), (flat & _M32).reshape(shape)
 
 
+def _host_key(key: torch.Tensor, n: int):
+    """A plain CPU key's two words as Python ints when ``n`` words are to
+    be drawn from it on the host's integer path, else None."""
+    if n <= _HOST_SCALAR_MAX and key.dim() == 1 and plain_host(key):
+        return key.tolist()
+    return None
+
+
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split(key, num)`` (partitionable): ``(num, 2)`` keys."""
+    words = _host_key(key, num)
+    if words is not None:
+        return torch.tensor([_threefry_words(*words, 0, i) for i in range(num)],
+                            dtype=torch.int64).reshape(num, 2)
     c1, c2 = _counts((num,), key.device)
     b1, b2 = threefry2x32(key[0], key[1], c1, c2)
     return torch.stack([b1, b2], dim=1)
@@ -100,6 +163,10 @@ def fold_in(key: torch.Tensor, data: Union[int, torch.Tensor]) -> torch.Tensor:
     if isinstance(data, torch.Tensor):
         d = data.to(torch.int64) & _M32
     else:
+        words = _host_key(key, 1)
+        if words is not None:
+            return torch.tensor(_threefry_words(*words, 0, int(data) & _M32),
+                                dtype=torch.int64)
         d = torch.full((), int(data) & _M32, dtype=torch.int64, device=key.device)
     b1, b2 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(d), d)
     return torch.stack([b1, b2], dim=-1)
@@ -110,6 +177,12 @@ def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
 
     A batch of keys ``(..., 2)`` draws ``shape`` from each key: the result
     is ``key.shape[:-1] + shape``, the vmapped draw."""
+    n = int(np.prod(shape)) if len(shape) else 1
+    words = _host_key(key, n)
+    if words is not None:
+        return torch.tensor([a ^ b for a, b in (_threefry_words(*words, 0, i)
+                                                for i in range(n))],
+                            dtype=torch.int64).reshape(tuple(shape))
     c1, c2 = _counts(tuple(shape), key.device)
     lead = tuple(key.shape[:-1]) + (1,) * len(shape)
     b1, b2 = threefry2x32(key[..., 0].reshape(lead), key[..., 1].reshape(lead), c1, c2)

@@ -60,10 +60,10 @@ def extract_signals(final: WorldState) -> Dict[str, np.ndarray]:
 
 
 def summarize(final: WorldState) -> Dict[str, float]:
-    """Scalar roll-up: the stage census, every Metrics counter, and the
-    count/mean/max of each signal (ms).  The chaos, hierarchy and learn
-    roll-ups of the JAX ``summarize`` appear once those subsystems are
-    ported; their leaves are zero-row here."""
+    """Scalar roll-up: the stage census, every Metrics counter, the
+    count/mean/max of each signal (ms), and the chaos, hierarchy and
+    learner roll-ups of the worlds that carry them (each subsystem's
+    leaves are zero-row when it is off, which doubles as its flag)."""
     sig = extract_signals(final)
     stage = _np(final.tasks.stage)
     out: Dict[str, float] = {
@@ -77,4 +77,20 @@ def summarize(final: WorldState) -> Dict[str, float]:
         out[f"{name}_n"] = int(v.size)
         out[f"{name}_mean_ms"] = float(v.mean()) if v.size else float("nan")
         out[f"{name}_max_ms"] = float(v.max()) if v.size else float("nan")
+    if final.chaos.next_down.numel():
+        ch = final.chaos
+        out["chaos_crashes"] = int(ch.n_crashes)
+        out["chaos_recovers"] = int(ch.n_recovers)
+        out["chaos_lost_crash"] = int(ch.n_lost_crash)
+        out["chaos_reoffloaded"] = int(ch.n_reoffloaded)
+        out["chaos_retry_exhausted"] = int(ch.n_retry_exhausted)
+    if final.hier.fog_broker.numel():
+        out["hier_migrated"] = int(final.hier.n_migrated)
+        out["hier_hop_exhausted"] = int(final.hier.n_hop_exhausted)
+    if final.learn.pick_p.numel():
+        lat_cnt = float(final.learn.lat_cnt)
+        out["learn_credited"] = int(lat_cnt)
+        out["learn_lat_mean_ms"] = (
+            float(final.learn.lat_sum) / lat_cnt * 1e3 if lat_cnt > 0 else float("nan")
+        )
     return out

@@ -830,6 +830,89 @@ def test_fold_in_over_tensors_on_the_card_equals_cpu(cuda):
         assert draws.cpu().numpy().tobytes() == want.numpy().tobytes()
 
 
+def _float_inputs():
+    """Inputs of each float32 primitive: sinf/cosf's CIRCLE range, the
+    values beside multiples of pi/2, the integer reduction past 120 and
+    special values; exp's and log's ranges; fma's triples with a sum just
+    above a float32 midpoint."""
+    rng = np.random.default_rng(13)
+    f = np.finfo(np.float32)
+    special = np.array([0.0, -0.0, f.tiny, -f.tiny, 1e-45, 1e-40, 2.0 ** -12, 0.7853982,
+                        1.0, -1.0, 88.8, -87.8, 119.99999, 120.0, np.inf, -np.inf, np.nan],
+                       np.float32)
+    half_pi = (np.arange(-80, 81) * (np.pi / 2)).astype(np.float32)
+    big = rng.uniform(120.0, 2.0e5, 4000) * rng.choice([-1.0, 1.0], 4000)
+    huge = 10.0 ** rng.uniform(5.0, 38.0, 2000)
+    trig = np.concatenate([
+        rng.uniform(-120.0, 120.0, 200_000), half_pi, np.nextafter(half_pi, np.float32(9e9)),
+        big, huge, special]).astype(np.float32)
+    expx = np.concatenate([rng.uniform(-104.0, 89.0, 200_000), special]).astype(np.float32)
+    logx = np.concatenate([np.exp(rng.uniform(-103.0, 88.0, 200_000)),
+                           rng.uniform(-0.5, 0.5, 50_000), special]).astype(np.float32)
+    h = np.float32(1 + 2 ** -12)
+    a, b, c = (rng.standard_normal(100_000).astype(np.float32) for _ in range(3))
+    fma3 = (np.append(a, h), np.append(b, h), np.append(c * 1e-3, np.float32(2 ** -60)))
+    return trig, expx, logx, fma3
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bits, any NaN equal to any NaN (payloads may differ)."""
+    a, b = a.cpu().numpy(), b.cpu().numpy()
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    nan = np.isnan(a)
+    return bool(np.array_equal(nan, np.isnan(b))
+                and (a[~nan].view(np.int32) == b[~nan].view(np.int32)).all())
+
+
+def test_float_primitives_on_the_card_equal_both_cpu_routes(cuda):
+    """The card's tensor ops for ``sinf``/``cosf``, ``fma``, ``expf``,
+    ``logf`` and ``log1pf`` give the bits of both CPU routes (the host
+    route, and the tensor route that the card's tensors take), which the
+    CPU tests hold to XLA's."""
+    from fognetsimpp_tpu_torch import f32math as fm
+    from fognetsimpp_tpu_torch.device import host_routes
+
+    trig, expx, logx, fma3 = _float_inputs()
+    unary = [(fm.sinf, trig), (fm.cosf, trig), (fm.expf, expx), (fm.logf, np.abs(logx)),
+             (fm.log1pf, logx)]
+    for fn, x in unary:
+        got = fn(torch.from_numpy(x).to(cuda))
+        for host in (True, False):
+            with host_routes(host):
+                assert _same_bits(got, fn(torch.from_numpy(x))), (fn.__name__, host)
+    got = fm.fma(*(torch.from_numpy(v).to(cuda) for v in fma3))
+    assert got[-1].item() == np.float32(1 + 2 ** -11 + 2 ** -23)
+    for host in (True, False):
+        with host_routes(host):
+            assert _same_bits(got, fm.fma(*(torch.from_numpy(v) for v in fma3))), host
+
+
+def test_cipher_on_the_card_equals_both_cpu_routes(cuda):
+    """Keys, folds and draws of every size (the host route's Python ints,
+    its numpy arrays, and the tensor route) equal on the card."""
+    from fognetsimpp_tpu_torch import random as trandom
+    from fognetsimpp_tpu_torch.device import host_routes
+
+    def draws(dev):
+        key = trandom.PRNGKey(42, device=dev)
+        out = [trandom.split(key, n) for n in (2, 3, 9, 17)]
+        k = trandom.fold_in(trandom.split(key, 3)[2], 0x0B57)
+        out += [trandom.fold_in(k, d) for d in (0, 2 ** 31, 2 ** 32 - 1)]
+        for shape in ((), (1,), (7,), (3, 4), (1001, 2), (20000,)):
+            out.append(trandom.uniform(k, shape, 1e-7, 1.0))
+            out.append(trandom.randint(k, shape, 200, 901))
+        out.append(trandom.permutation(k, 5000))
+        return out
+
+    card = draws(cuda)
+    for host in (True, False):
+        with host_routes(host):
+            for i, (g, w) in enumerate(zip(card, draws("cpu"))):
+                assert g.dtype == w.dtype and g.shape == w.shape, (host, i)
+                assert g.cpu().numpy().tobytes() == w.numpy().tobytes(), (host, i)
+
+
 # ----------------------------------------------------------------------
 # the telemetry planes on the card
 # ----------------------------------------------------------------------
@@ -951,3 +1034,51 @@ def test_cell_sum_equals_plain_at_lat_sum_shapes(cuda, kind):
     for r in (0, 3):
         want = ck.cell_sum_ordered_plain(c[r], v[r], F)
         assert got[r].cpu().numpy().tobytes() == want.numpy().tobytes()
+
+
+# ----------------------------------------------------------------------
+# the per-tick series on the card
+# ----------------------------------------------------------------------
+
+_SERIES_WORLDS = {
+    "smoke": (smoke.build, dict(horizon=0.05, record_tick_series=True)),
+    "wireless5": (wireless.wireless5, dict(numb_users=40, horizon=0.3,
+                                           record_tick_series=True, record_trails=True)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_SERIES_WORLDS))
+def test_series_card_run_equals_cpu_run(cuda, name):
+    build, kw = _SERIES_WORLDS[name]
+    spec, st, net, b = build(device=cuda, **kw)
+    card, card_series = engine.run(spec, st, net, b)
+    torch.cuda.synchronize()
+    spec, st, net, b = build(device="cpu", **kw)
+    cpu, cpu_series = engine.run(spec, st, net, b)
+    for a, c in zip(state_to_numpy(card), state_to_numpy(cpu)):
+        assert a.dtype == c.dtype and a.tobytes() == c.tobytes()
+    assert sorted(card_series) == sorted(cpu_series)
+    for k, v in cpu_series.items():
+        assert card_series[k].device.type == "cpu", k
+        assert card_series[k].numpy().tobytes() == v.numpy().tobytes(), k
+
+
+@pytest.mark.parametrize("name", sorted(_SERIES_WORLDS))
+def test_series_tick_does_not_synchronise(cuda, name):
+    """A series tick (the tick with its aux, the row's reductions, the
+    row written into the device buffer) waits for the card nowhere."""
+    build, kw = _SERIES_WORLDS[name]
+    spec, st, net, b = build(device=cuda, **kw)
+    step = engine.make_step(spec, with_aux=True)
+    cache = engine._static_cache(spec, net, st, False) if spec.assume_static else None
+    st, aux = step(st, net, b, cache)
+    buf = engine.SeriesBuffer(engine.series_row(spec, st, aux["n_assoc"]), 4)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(4):
+            st, aux = step(st, net, b, cache)
+            buf.write(i, engine.series_row(spec, st, aux["n_assoc"]))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert buf.host()["t"].shape == (4,)

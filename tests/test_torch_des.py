@@ -9,13 +9,14 @@ pytree structure and replayed through the same bridge, with
 line of ``tests/test_parity.py`` that builds them:
 
 - ``:24`` the steady wired world (this file);
-- ``:90`` queueing and ``:329`` ENERGY_AWARE
-  (``tests/test_torch_des_queue_energy.py``);
-- ``:119`` MIN_LATENCY (this file) and ROUND_ROBIN, ``:164`` the repaired
+- ``:90`` queueing (``tests/test_torch_des_queue_energy.py``) and ``:329``
+  ENERGY_AWARE (``tests/test_torch_des_energy.py``);
+- ``:119`` MIN_LATENCY (``tests/test_torch_des_min_latency.py``) and
+  ROUND_ROBIN, ``:164`` the repaired
   bug modes and ``:297`` RANDOM, each beside its port-against-JAX run in
   ``tests/test_torch_parity_worlds.py``, ``tests/test_torch_parity_bug_modes.py``
   and ``tests/test_torch_parity_random.py``;
-- ``:411`` fog 0 registering last (this file);
+- ``:411`` fog 0 registering last (``tests/test_torch_des_min_latency.py``);
 - ``:188`` the wired v1 world (``scenarios/wired_v1``: LOCAL_FIRST, POOL
   fogs), ``:216`` v2 POOL fogs under MAX_MIPS and ``:252`` the v2 hybrid
   broker with its shared release timer, in
@@ -326,19 +327,3 @@ def test_queue_times_match(steady):
     assert (np.isfinite(eng_q) == np.isfinite(des_q)).mean() > 0.95
     if both.any():
         np.testing.assert_allclose(eng_q[both], des_q[both], rtol=1e-2, atol=1e-5)
-
-
-def test_min_latency_holds_to_the_des():
-    spec, final, des, used, _ = replay("min_latency", port_run("min_latency"))
-    check_other_policies(2, spec, final, des, used)
-
-
-def test_fog0_registers_last_holds_to_the_des():
-    spec, final, des, used, state0 = replay("fog0_last", port_run("fog0_last"))
-    reg0 = float(np.asarray(state0.broker.register_t)[0])
-    t_dec = np.asarray(final.tasks.t_at_broker)[used]
-    eng_fog = np.asarray(final.tasks.fog)[used]
-    early = t_dec < reg0
-    assert early.any()  # the window before fog 0 registers was exercised
-    assert (eng_fog[early] != 0).all()  # never the unregistered slot 0
-    np.testing.assert_array_equal(eng_fog, des["fog"])

@@ -3,8 +3,8 @@
 The static oracle replays one small world under each static policy and
 must name the same best policy with the same mean latencies; the regret
 curves are host arithmetic on a tick series.  The recorded learned runs
-(``run_policy(record_series=True)``, ``evaluate``) need the per-tick
-series, ``ROADMAP.md`` §1 item 15, and raise until it is ported.
+(``run_policy(record_series=True)``, ``evaluate``) carry the per-tick
+series and equal JAX's, the recorded files included.
 """
 import functools
 
@@ -69,9 +69,31 @@ def test_regret_curves_match_jax():
         assert want[k].dtype == got[k].dtype and want[k].tobytes() == got[k].tobytes()
 
 
-def test_recorded_runs_wait_for_the_tick_series():
-    build = functools.partial(tsmoke.build, device="cpu", **WORLD)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        teval.run_policy(build, int(Policy.UCB), record_series=True)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        teval.evaluate(build)
+def test_recorded_runs_wait_for_the_tick_series(tmp_path):
+    """The recorded learned run and the full harness (the tick series
+    are ported): ``run_policy(record_series=True)``'s series and
+    ``evaluate``'s summary and files equal JAX's."""
+    kw = dict(WORLD, derive_acks=False)
+    _, jfinal, jser = jeval.run_policy(
+        functools.partial(jsmoke.build, **kw), int(Policy.UCB), record_series=True)
+    _, tfinal, tser = teval.run_policy(
+        functools.partial(tsmoke.build, device="cpu", **kw), int(Policy.UCB),
+        record_series=True)
+    assert sorted(tser) == sorted(jser) and "learn_lat_cnt" in tser
+    for k, v in jser.items():
+        assert tser[k].numpy().tobytes() == np.asarray(v).tobytes(), k
+    assert float(tfinal.learn.lat_cnt) > 0
+    pick = dict(learned=(Policy.UCB,), statics=(Policy.MIN_BUSY, Policy.ROUND_ROBIN))
+    want = jeval.evaluate(functools.partial(jsmoke.build, **kw),
+                          outdir=str(tmp_path / "jax"), **pick)
+    got = teval.evaluate(functools.partial(tsmoke.build, device="cpu", **kw),
+                         outdir=str(tmp_path / "port"), **pick)
+    assert got["oracle"] == want["oracle"]
+    paths_j = want["learned"]["ucb"].pop("paths")
+    paths_t = got["learned"]["ucb"].pop("paths")
+    assert got == want
+    vj = np.load(paths_j["vec"])
+    vt = np.load(paths_t["vec"])
+    assert sorted(vt.files) == sorted(vj.files) and "learnRegret" in vt.files
+    for k in vj.files:
+        assert vt[k].dtype == vj[k].dtype and vt[k].tobytes() == vj[k].tobytes(), k

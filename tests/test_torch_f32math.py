@@ -13,7 +13,11 @@
 * the multiply-adds XLA contracts in the learners and the scheduler.
 
 Every primitive's test also shows that the torch builtin parts from XLA
-on the same inputs.
+on the same inputs.  Plain CPU tensors take the host routes (numpy
+float64 and integer steps for ``fma`` and ``sinf``/``cosf``); the
+``tensor_route`` twins run the same cases through the tensor ops that a
+card's tensors take (``device.host_routes(False)``), and the ``vmap``
+test takes both ways a dtype view is batched.
 """
 import jax
 import jax.numpy as jnp
@@ -21,6 +25,8 @@ import numpy as np
 import pytest
 import torch
 
+from fognetsimpp_tpu_torch import f32math
+from fognetsimpp_tpu_torch.device import host_routes
 from fognetsimpp_tpu_torch.f32math import (
     cosf, expf, fma, log1pf, logf, sinf, xla_cumsum, xla_sum,
 )
@@ -277,3 +283,71 @@ def test_contracted_multiply_adds_match_jax(name):
     want = jax.jit(xla)(*args)
     _assert_bits(want, single.numpy(), args[0], name)
     assert _differs(want, twice.numpy())
+
+
+# ----------------------------------------------------------------------
+# the tensor route: the ops a card's tensors take, on the same inputs
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", ["range", "special", "near_half_pi", "past_120"])
+@pytest.mark.parametrize("fn", ["sin", "cos"])
+def test_sinf_cosf_tensor_route_match_jax_bit_for_bit(fn, kind):
+    with host_routes(False):
+        test_sinf_cosf_match_jax_bit_for_bit(fn, kind)
+
+
+@pytest.mark.parametrize("kind", ["range", "reward", "special"])
+def test_expf_tensor_route_matches_jax_bit_for_bit(kind):
+    with host_routes(False):
+        test_expf_matches_jax_bit_for_bit(kind)
+
+
+@pytest.mark.parametrize("kind", ["integers", "positives", "small", "special"])
+@pytest.mark.parametrize("fn", ["log", "log1p"])
+def test_logf_log1pf_tensor_route_match_jax_bit_for_bit(fn, kind):
+    with host_routes(False):
+        test_logf_log1pf_match_jax_bit_for_bit(fn, kind)
+
+
+@pytest.mark.parametrize(
+    "name", ["discount", "ucb_index", "exp3_mix", "energy", "exp3_gain"]
+)
+def test_contracted_multiply_adds_tensor_route_match_jax(name):
+    with host_routes(False):
+        test_contracted_multiply_adds_match_jax(name)
+
+
+def test_host_routes_switch_reaches_the_tensor_ops(monkeypatch):
+    """With the host routes off, no numpy copy runs: the twins above test
+    the tensor ops."""
+    def refuse(*a, **k):
+        raise AssertionError("a host route ran")
+
+    monkeypatch.setattr(f32math, "_fma_host", refuse)
+    monkeypatch.setattr(f32math, "_sincosf_host", refuse)
+    x = torch.linspace(-200.0, 200.0, 101)
+    with host_routes(False):
+        sinf(x), cosf(x), fma(x, x, x)
+    with pytest.raises(AssertionError, match="host route"):
+        sinf(x)
+    with pytest.raises(AssertionError, match="host route"):
+        fma(x, x, x)
+
+
+@pytest.mark.parametrize("view_batches", [False, True])
+def test_primitives_under_vmap_match_jax_either_way_a_view_batches(
+        monkeypatch, view_batches):
+    """A replica batch (``vmap``) bit-casts through the custom operator
+    on torch before 2.13, the card's, and through the dtype view's own
+    rule from 2.13 on: each way gives XLA's bits, whichever torch runs
+    here."""
+    monkeypatch.setattr(f32math, "_VIEW_BATCHES", view_batches)
+    x = np.concatenate([_inputs("past_120")[:1500], _inputs("special"),
+                        _inputs("range")[:2482]]).reshape(4, 1000)
+    e = _exp_inputs("range")[:4000].reshape(4, 1000)
+    vmap = torch.func.vmap
+    _assert_bits(_SIN(x), vmap(sinf)(torch.from_numpy(x)).numpy(), x, "sin")
+    _assert_bits(_COS(x), vmap(cosf)(torch.from_numpy(x)).numpy(), x, "cos")
+    _assert_bits(jax.jit(jnp.exp)(e), vmap(expf)(torch.from_numpy(e)).numpy(), e, "exp")
+    p = np.abs(e)
+    _assert_bits(jax.jit(jnp.log)(p), vmap(logf)(torch.from_numpy(p)).numpy(), p, "log")

@@ -296,3 +296,46 @@ def test_drop_mode_scatters_match_jax():
     want = jnp.asarray(cnt).at[idx2].add(add, mode="drop")
     got = add_drop(torch.from_numpy(cnt), torch.from_numpy(idx2), torch.from_numpy(add))
     np.testing.assert_array_equal(np.asarray(want), got.numpy())
+
+
+@pytest.mark.parametrize("host", [True, False], ids=["host", "tensor"])
+def test_drop_mode_scatters_match_jax_on_both_routes(host, monkeypatch):
+    """Plain CPU tensors write in numpy (``scatter._host_drop``), a card's
+    through ``index_put``/``index_add`` on a padded column (the tensor
+    route, ``device.host_routes(False)``): each equals JAX's drop-mode
+    scatter on 1-D and 2-D columns, tensor, scalar and broadcast values,
+    and integer adds with duplicates."""
+    from fognetsimpp_tpu_torch.device import host_routes
+    from fognetsimpp_tpu_torch.ops import scatter
+
+    if not host:
+        def refuse(*a, **k):
+            raise AssertionError("a host route ran")
+        monkeypatch.setattr(scatter, "_host_drop", refuse)
+    rng = np.random.default_rng(1)
+    t = torch.from_numpy
+    n = 40
+    col = rng.random(n).astype(np.float32)
+    mat = rng.integers(-9, 9, (n, 3)).astype(np.int32)
+    idx = rng.permutation(n + 12)[:25].astype(np.int32)  # some past the end
+    dup = rng.integers(0, n + 4, 300).astype(np.int32)  # duplicates, past the end
+    vals = rng.random(25).astype(np.float32)
+    rows = rng.integers(0, 5, (25, 3)).astype(np.int32)
+    adds = rng.integers(0, 4, 300).astype(np.int32)
+    mat_adds = rng.integers(0, 4, (300, 3)).astype(np.int32)
+    jc, jm = jnp.asarray(col), jnp.asarray(mat)
+    cases = [
+        (jc.at[idx].set(vals, mode="drop"), lambda: set_drop(t(col), t(idx), t(vals))),
+        (jc.at[idx].set(2.5, mode="drop"), lambda: set_drop(t(col), t(idx), 2.5)),
+        (jm.at[idx].set(rows, mode="drop"), lambda: set_drop(t(mat), t(idx), t(rows))),
+        (jm.at[idx].set(rows[0], mode="drop"), lambda: set_drop(t(mat), t(idx), t(rows[0]))),
+        (jm.at[dup].add(adds[:, None], mode="drop"),
+         lambda: add_drop(t(mat), t(dup), t(adds[:, None]))),
+        (jm.at[dup].add(mat_adds, mode="drop"), lambda: add_drop(t(mat), t(dup), t(mat_adds))),
+        (jm.at[dup].add(1, mode="drop"), lambda: add_drop(t(mat), t(dup), 1)),
+    ]
+    with host_routes(host):
+        for i, (want, got) in enumerate(cases):
+            g = got()
+            assert g.numpy().dtype == np.asarray(want).dtype, i
+            np.testing.assert_array_equal(np.asarray(want), g.numpy(), err_msg=str(i))

@@ -3,8 +3,9 @@
 Every name ``fognetsimpp_tpu/__init__.py`` exports (its ``from ... import``
 lists, read from its syntax tree) is an attribute of
 ``fognetsimpp_tpu_torch``, from the port's own modules, and so are the
-``chaos``, ``hier`` and ``telemetry`` subpackages' names.  Importing the package builds
-no kernel.
+``chaos``, ``hier``, ``telemetry``, ``runtime`` and ``config`` subpackages'
+names, and the public names of the ``messages`` module and the CLI module.
+Importing the package builds no kernel.
 """
 import ast
 import pathlib
@@ -41,7 +42,7 @@ def _exported(init: pathlib.Path):
     return names
 
 
-@pytest.mark.parametrize("pkg", ["", "chaos", "hier", "telemetry"])
+@pytest.mark.parametrize("pkg", ["", "chaos", "hier", "telemetry", "runtime", "config"])
 def test_every_jax_public_name_is_in_the_port(pkg):
     names = _exported(REPO / "fognetsimpp_tpu" / pkg / "__init__.py")
     assert names
@@ -54,6 +55,26 @@ def test_every_jax_public_name_is_in_the_port(pkg):
         owner = getattr(getattr(mod, n), "__module__", None)
         if owner is not None and not owner.startswith(("enum", "typing", "builtins")):
             assert owner.startswith("fognetsimpp_tpu_torch"), (n, owner)
+
+
+def _defined(path: pathlib.Path):
+    """Public names a module defines at its top level (functions,
+    classes, assignments)."""
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+    return {n for n in names if not n.startswith("_")}
+
+
+@pytest.mark.parametrize("mod", ["messages", "__main__"])
+def test_every_jax_module_name_is_in_the_port(mod):
+    names = _defined(REPO / "fognetsimpp_tpu" / f"{mod}.py")
+    assert names
+    port_mod = __import__(f"fognetsimpp_tpu_torch.{mod}", fromlist=["_"])
+    assert sorted(n for n in names if not hasattr(port_mod, n)) == []
 
 
 def test_the_public_names_run_a_world():

@@ -1,10 +1,17 @@
-"""The port's threefry2x32 against ``jax.random``, bit for bit."""
+"""The port's threefry2x32 against ``jax.random``, bit for bit.
+
+Plain CPU tensors take the host routes (the cipher on Python ints or
+numpy ``uint32`` words, ``fma`` in numpy float64); each test's
+``tensor_route`` twin runs the same cases through the tensor ops that a
+card's tensors take (``device.host_routes(False)``).
+"""
 import jax
 import numpy as np
 import pytest
 import torch
 
 from fognetsimpp_tpu_torch import random as trandom
+from fognetsimpp_tpu_torch.device import host_routes
 from fognetsimpp_tpu_torch.f32math import fma
 
 
@@ -137,3 +144,61 @@ def test_fold_in_over_a_tensor_of_data(seed):
     np.testing.assert_array_equal(_key_np(want), got.numpy())
     draws = jax.vmap(lambda k: jax.random.uniform(k, (2,), np.float32, 1e-7, 1.0))(want)
     assert np.asarray(draws).tobytes() == trandom.uniform(got, (2,), 1e-7, 1.0).numpy().tobytes()
+
+
+# ----------------------------------------------------------------------
+# the tensor route: the ops a card's tensors take, on the same inputs
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_prngkey_split_fold_in_tensor_route(seed):
+    with host_routes(False):
+        test_prngkey_split_fold_in(seed)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("bounds", [(0.0, 1.0), (0.0, 1e-9), (0.9, 1.1), (1e-7, 1.0), (0.0, 0.05)])
+def test_uniform_bit_exact_tensor_route(seed, bounds):
+    with host_routes(False):
+        test_uniform_bit_exact(seed, bounds)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("bounds", [(200, 901), (0, 7), (-5, 5), (3, 3), (0, 2 ** 31 - 1)])
+def test_randint_bit_exact_tensor_route(seed, bounds):
+    with host_routes(False):
+        test_randint_bit_exact(seed, bounds)
+
+
+def test_fma_is_singly_rounded_tensor_route():
+    with host_routes(False):
+        test_fma_is_singly_rounded()
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_fold_in_over_a_tensor_of_data_tensor_route(seed):
+    with host_routes(False):
+        test_fold_in_over_a_tensor_of_data(seed)
+
+
+def test_host_routes_switch_reaches_the_tensor_ops(monkeypatch):
+    """With the host routes off, no host cipher runs: the twins above test
+    the tensor ops."""
+    def refuse(*a, **k):
+        raise AssertionError("a host route ran")
+
+    host_key = trandom._host_key
+
+    def no_host_key(key, n):
+        if host_key(key, n) is not None:
+            refuse()
+
+    monkeypatch.setattr(trandom, "_threefry2x32_host", refuse)
+    monkeypatch.setattr(trandom, "_host_key", no_host_key)
+    key = trandom.PRNGKey(3)
+    with host_routes(False):
+        trandom.uniform(trandom.fold_in(trandom.split(key, 3)[1], 7), (40,))
+    with pytest.raises(AssertionError, match="host route"):
+        trandom.split(key, 3)
+    with pytest.raises(AssertionError, match="host route"):
+        trandom.random_bits(key[None].expand(2, 2), (40,))

@@ -156,22 +156,31 @@ def test_entry_points_need_a_device_when_cuda_is_absent():
 )
 def test_specs_outside_the_slice_raise(kw, item):
     """Specs of items still to port raise, naming the item.  The telemetry
-    planes (item 14) are ported: those specs build, run and equal JAX on
-    every leaf."""
+    planes (item 14) and the per-tick series (item 15) are ported: those
+    specs build, run and equal JAX on every leaf (and every series key)."""
     spec = TWorldSpec(
         n_users=2, n_fogs=2, send_interval=0.05, horizon=0.05,
         max_sends_per_user=5, **kw,
     ).validate()
-    if item == "item 14":
+    if item in ("item 14", "item 15"):
         assert envelope.slice_reject_reason(spec) is None
         spec, st, net, b = tsmoke.build(device="cpu", horizon=0.05, **kw)
-        final, _ = tengine.run(spec, st, net, b)
+        final, series = tengine.run(spec, st, net, b)
         js, jst, jn, jb = jsmoke.build(horizon=0.05, **kw)
-        ref = [np.asarray(x) for x in jax.tree_util.tree_leaves(jengine.run(js, jst, jn, jb)[0])]
+        jfinal, jseries = jengine.run(js, jst, jn, jb)
+        ref = [np.asarray(x) for x in jax.tree_util.tree_leaves(jfinal)]
         got = state_to_numpy(final)
         assert [a.dtype for a in got] == [a.dtype for a in ref]
         assert all(a.tobytes() == b.tobytes() for a, b in zip(got, ref))
-        assert int(final.telem.ticks) == spec.n_ticks
+        if item == "item 14":
+            assert series is None and jseries is None
+            assert int(final.telem.ticks) == spec.n_ticks
+            return
+        assert sorted(series) == sorted(jseries)
+        for k, v in jseries.items():
+            a = np.asarray(v)
+            assert series[k].numpy().dtype == a.dtype and series[k].numpy().tobytes() == a.tobytes(), k
+        assert series["t"].shape == (spec.n_ticks,)
         return
     with pytest.raises(NotImplementedError, match=item):
         tsmoke.build(device="cpu", horizon=0.05, **kw)

@@ -380,6 +380,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {"metrics.py", "health.py", "journeys.py", "profile.py"} <= {
         p.name for p in files if p.parent.name == "telemetry"
     }
+    assert {"recorder.py", "scave.py", "checkpoint.py", "trails.py", "analysis.py",
+            "signals.py"} <= {p.name for p in files if p.parent.name == "runtime"}
+    assert {"ini.py"} <= {p.name for p in files if p.parent.name == "config"}
+    assert {"messages.py", "__main__.py"} <= {
+        p.name for p in files if p.parent.name == "fognetsimpp_tpu_torch"
+    }
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
