@@ -38,7 +38,7 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    masked rows a tick), and the arrival kernel timed on the first window
    of the run that holds rows;
 8. tp: ``bench.py::tp_measurement``'s world (2^20 users x 64 fogs, cut
-   to 30 of its 50 ticks of 5 ms, 9,437,184 task rows) under ``run_tp_sharded`` at four
+   to 20 of its 50 ticks of 5 ms, 9,437,184 task rows) under ``run_tp_sharded`` at four
    shards with the bench's exchange window: card against CPU every leaf
    over the first ``TP_CHECK_TICKS`` ticks (also the warm-up), then the
    whole horizon timed (decisions per second, ms per tick, the ring and
@@ -162,9 +162,10 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    non-empty pool-arrival window of the v2 run;
 25. wired_v1 (``scenarios/wired_v1``, 0.15 s of 1 ms) and example
    (``scenarios/example``, 1.06 s of 1 ms: past the 1.0414 s link-up and
-   into the drain), card against CPU every leaf, and ``local_pool_scan``
-   against its plain version on each run's first window that holds a
-   row.
+   into the drain; the card takes the CPU's state at tick 1,035, restored
+   as a checkpoint is, and runs the last 25 ticks), card against CPU
+   every leaf, and ``local_pool_scan`` against its plain version on each
+   run's first window that holds a row.
 26. chaos: the bench world (dt 5 ms, 20 ticks) with
    ``bench.py::chaos_measurement``'s knobs (REOFFLOAD, 8 retries, the RTT
    wave and its bursts, fog 0 scripted down from 30 to 60 ms) and random
@@ -235,16 +236,50 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    counted, and on the CPU, their files held equal: ``--tp 4`` with no
    window (``ring_all_gather``) and ``-c examples/demo_v2.ini`` (the v2
    pool fogs: ``local_pool_scan``).
+34. serve: the telemetry bench world of phase 30 (10,000 users x 32 fogs,
+   K = 4,096, 20 ticks of 5 ms, plane 1, the histogram, 64 journeys) with
+   the ingest gate, served by ``twin.ingest.serve_ingest_run`` in chunks
+   of 5 behind ``HealthServer`` on ``127.0.0.1:0``: 256 arrivals fed in
+   process and 64 through ``POST /ingest``, ``GET /metrics`` and ``GET
+   /healthz`` after every chunk, one ``POST /whatif`` (4 send stop times,
+   5 ticks ahead) from a client thread while the loop runs on, an SLO
+   that every ack breaches (the flight recorder dumps), and the
+   ``--trace-out`` export; card against a CPU run of the same session
+   (forking at the card's fork point): every leaf, the last exposition,
+   /healthz, the trace, the arrival log, the recorder's ring, each bundle
+   less its wall fields and the what-if report; ms a chunk, the
+   exposition's render ms, the ask's wall s; ``fused_arrival_plan`` and
+   ``cell_sum_ordered`` launched in the serve run and
+   ``fused_arrival_plan`` in the fork (its calls counted on the server's
+   thread);
+35. serve_tp: ``telemetry.live.serve_tp_run`` at four shards on the
+   CLI's ``--tp 4`` smoke world (1,024 users x 32 fogs of 80,000 MIPS, 10
+   ticks in chunks of 5, the ring): card against CPU every leaf, the last
+   exposition and the ring's per-shard hashes; ``ring_all_gather``
+   launched;
+36. tenants: ``twin.front.FrontDoor`` with two smoke tenants (seeds 0 and
+   1, plane 1 and the histogram) on ``127.0.0.1:0``, 2 rounds of 25 ticks:
+   card against CPU tenant by tenant (every leaf, its page, its ring) and
+   the aggregate page.
    Every phase from 18 on resets the wrapper counts before its path and
    fails if a kernel of the path was launched no time;
 
 then the ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` prints them, and ``{"ok": true, "device": {...}}`` last.
 Without a CUDA device it prints no result and exits 2.
+
+The CPU run of every world that is fixed before the run (``cpu_jobs``)
+is queued at the start on ``CPU_WORKERS`` spawned worker processes, which
+run them while the card runs the phases; a phase waits for its world's
+leaves (``cpu_run_s`` is the worker's seconds).  The CPU runs that depend
+on the card's run (the serve session's fork point) and the small ones stay
+in the script's process.  ``torch.profiler`` traces the card's activity
+only: no phase reads a CPU operator's event.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import statistics
 import subprocess
@@ -339,10 +374,10 @@ WIDE_FOG = dict(
 
 #: ``bench.py::tp_measurement``'s world at its defaults: 2^20 users x 64
 #: fogs, send interval 50 ms, dt 5 ms, one send a tick; its 0.25 s cut to
-#: 0.15 s (30 ticks) for the script's time.
+#: 0.1 s (20 ticks) for the script's time.
 TP_WORLD = dict(
     n_users=1_048_576, n_fogs=64, fog_mips=(1000.0, 2000.0, 3000.0, 4000.0),
-    send_interval=0.05, horizon=0.15, dt=5e-3,
+    send_interval=0.05, horizon=0.1, dt=5e-3,
     max_sends_per_user=int(0.25 / 0.05) + 4, max_sends_per_tick=1,
     queue_capacity=128, start_time_max=min(0.05, 0.25 / 4), derive_acks=True,
 )
@@ -386,6 +421,9 @@ SMOKE_HORIZON = 0.1
 #: 0.15 s each has credited some (the phase fails otherwise).  Cut from
 #: 0.3 s for the script's time.
 LEARN_HORIZON = 0.15
+#: A plain version whose compared call took longer (ms) is timed by that
+#: call alone: its launches' issue is a small share of it.
+SLOW_PLAIN_MS = 250.0
 #: Ticks stepped before a world's short profile, and the ticks profiled.
 PROFILE_FROM, PROFILE_TICKS = 8, 4
 
@@ -444,8 +482,12 @@ POOL_REPLICAS, POOL_REPLICAS_WIDE = 8, 128
 #: Rows of the scan's synthetic windows (``pool_scan_inputs.rows``): the
 #: bench world's window.
 POOL_SYNTH_K = 4096
-#: Horizons of the scenario worlds held card against CPU.
+#: Horizons of the scenario worlds held card against CPU, and the tick at
+#: which the card takes the CPU's state: the example's user publishes into
+#: a pending queue until its link comes up at tick 1,041, and the CLI
+#: phase runs that world's first 50 ticks on the card.
 WIRED_V1_HORIZON, EXAMPLE_HORIZON = 0.15, 1.06
+SCENARIO_FROM_TICK = {"wired_v1": 0, "example": 1035}
 #: The wireless world (config 4 at one replica) cut to 50 of its 100 ticks.
 WIRELESS_HORIZON = 0.25
 
@@ -673,14 +715,593 @@ def cli_phase(reset_launches, all_launches, need_launches, smi) -> dict:
     return launches
 
 
-def main() -> int:
+#: ``serve`` (34): the telemetry bench world (``TEL_FOGS``, plane 1, the
+#: histogram, 64 journeys) with the ingest gate and a send stop time past
+#: the horizon (a promoted knob the what-if can retune), 20 ticks of 5 ms
+#: served in chunks of 5 by ``serve_ingest_run``.
+SERVE_WORLD = dict(**TEL_FOGS, **TELEMETRY, **TEL_JOURNEYS, ingest=True, send_stop_time=1.0)
+SERVE_CHUNK = 5
+#: Arrivals fed in process before the first chunk, and through
+#: ``POST /ingest`` after it; 64 drain at each interior boundary.
+SERVE_FEED = 256
+SERVE_POSTS = 64
+#: The what-if asked over HTTP after chunk 2: 4 stop times, 5 ticks ahead.
+SERVE_ASK = {"knobs": {"send_stop_time": [0.03, 0.045, 0.06, 1.0]}, "ticks": 5}
+#: An SLO every acked task breaches: the flight recorder dumps a bundle.
+SERVE_SLO_MS = 1e-3
+#: ``--trace-out``'s cap on traced tasks for the serve run.
+SERVE_TRACE_TASKS = 20_000
+#: ``serve_tp`` (35): the CLI's ``--tp 4`` smoke world, 10 ticks in chunks
+#: of 5, the ring (no window).
+SERVE_TP_WORLD = dict(n_users=1024, n_fogs=32, fog_mips=TEL_FOGS["fog_mips"],
+                      send_interval=0.01, horizon=0.01, telemetry=True,
+                      telemetry_hist=True, derive_acks=False)
+SERVE_TP_CHUNK = 5
+#: ``tenants`` (36): two smoke tenants (seeds 0 and 1; 256 users x 8 fogs
+#: of 80,000 MIPS, plane 1 and the histogram, the ingest gate) behind one
+#: front door, 2 rounds of 25 ticks of 1 ms.
+TENANT_WORLD = dict(n_users=256, n_fogs=8, fog_mips=TEL_FOGS["fog_mips"],
+                    send_interval=0.01, horizon=0.05, telemetry=True,
+                    telemetry_hist=True, derive_acks=False, ingest=True)
+TENANT_CHUNK = 25
+TENANT_ROUNDS = 2
+
+
+def _http(url, body=None, timeout=300):
+    """``(status, body text)`` of one request to the phases' own server on
+    ``127.0.0.1``."""
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method="POST" if body is not None else "GET")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, r.read().decode()
+
+
+def _masked_ingest(obj):
+    """A JSON value with every ingest stats dict's ``latency_s`` (a wall
+    clock reading) dropped, and the manifests' ``recorded_at`` and trace
+    path."""
+    if isinstance(obj, dict):
+        return {k: _masked_ingest(v) for k, v in obj.items()
+                if k not in ("latency_s", "recorded_at", "trace", "wall_s")}
+    if isinstance(obj, list):
+        return [_masked_ingest(v) for v in obj]
+    return obj
+
+
+def _mask_latency_line(text):
+    import re
+
+    return re.sub(r"^(fns_twin_ingest_latency_seconds) .*$", r"\1 -", text, flags=re.M)
+
+
+def serve_session(device, outdir, ask_at=None):
+    """The ``serve`` phase's session on ``device``: the bench world served
+    by ``serve_ingest_run`` behind ``HealthServer`` on ``127.0.0.1:0``,
+    ``SERVE_FEED`` arrivals fed in process and ``SERVE_POSTS`` through
+    ``POST /ingest`` after chunk 1, ``GET /metrics`` and ``GET /healthz``
+    after every chunk, one ``POST /whatif``: from a client thread started
+    after chunk 2 while the loop goes on (``ask_at`` None), or, to repeat
+    a session, synchronously once the door holds the carry of tick
+    ``ask_at``.  Returns the final state and what the checks read."""
+    import os
+    import threading
+
     import numpy as np
+
+    from fognetsimpp_tpu_torch.scenarios import smoke
+    from fognetsimpp_tpu_torch.telemetry.health import hist_summary
+    from fognetsimpp_tpu_torch.telemetry.live import HealthServer
+    from fognetsimpp_tpu_torch.telemetry.openmetrics import render_openmetrics
+    from fognetsimpp_tpu_torch.telemetry.timeline import export_trace
+    from fognetsimpp_tpu_torch.twin.ingest import IngestQueue, serve_ingest_run
+
+    spec, st, net, b = smoke.build(device=device, **dict(bench_world(5e-3), **SERVE_WORLD))
+    rng = np.random.default_rng(0)
+    n = SERVE_FEED + SERVE_POSTS
+    users = rng.integers(0, spec.n_users, n).tolist()
+    mips = (np.round(rng.uniform(100.0, 1000.0, n) * 2) / 2).tolist()
+    rows = list(zip(users, mips))
+    q = IngestQueue(capacity=1024)
+    q.feed_rows(rows[:SERVE_FEED])
+    server = HealthServer(port=0)
+    url = f"http://127.0.0.1:{server.port}"
+    ask = json.dumps(SERVE_ASK).encode()
+    out = {"chunk_s": [], "ask": None, "threads": []}
+    last = [time.perf_counter()]
+
+    def post_ask():
+        t0 = time.perf_counter()
+        code, text = _http(url + "/whatif", ask)
+        out["ask"] = (code, json.loads(text), time.perf_counter() - t0)
+
+    def on_chunk(health):
+        if device.type == "cuda":
+            import torch
+
+            torch.cuda.synchronize()
+        now = time.perf_counter()
+        out["chunk_s"].append(now - last[0])
+        k = health["chunks"]
+        if k == 1:
+            body = json.dumps({"rows": [list(r) for r in rows[SERVE_FEED:]]}).encode()
+            code, text = _http(url + "/ingest", body)
+            if code != 200 or json.loads(text)["accepted"] != SERVE_POSTS:
+                raise SystemExit(f"serve: POST /ingest answered {code} {text}")
+        out["metrics"] = _http(url + "/metrics")[1]
+        out["health"] = json.loads(_http(url + "/healthz")[1])
+        if ask_at is None and k == 2:
+            th = threading.Thread(target=post_ask, name="whatif-client")
+            th.start()
+            out["threads"].append(th)
+        elif ask_at is not None and k == ask_at // SERVE_CHUNK + 1:
+            post_ask()
+        last[0] = time.perf_counter()
+
+    try:
+        t0 = time.perf_counter()
+        final, status = serve_ingest_run(
+            spec, st, net, b, queue=q, server=server, chunk_ticks=SERVE_CHUNK,
+            slo_ms=SERVE_SLO_MS, dump_dir=os.path.join(outdir, "pm"), on_chunk=on_chunk,
+            whatif_ticks=SERVE_ASK["ticks"])
+        run_s = time.perf_counter() - t0
+        for th in out["threads"]:
+            th.join(600)
+            if th.is_alive():
+                raise SystemExit("serve: the what-if client did not finish")
+    finally:
+        server.close()
+    if out["ask"] is None or out["ask"][0] != 200:
+        raise SystemExit(f"serve: the what-if ask failed: {out['ask']}")
+    t0 = time.perf_counter()
+    trace = export_trace(spec, final, os.path.join(outdir, "trace.json"),
+                         max_tasks=SERVE_TRACE_TASKS)
+    trace_s = time.perf_counter() - t0
+    hist = hist_summary(spec, final)
+    t0 = time.perf_counter()
+    render_openmetrics(spec, final, hist=hist, ingest=q.stats())
+    render_ms = (time.perf_counter() - t0) * 1e3
+    return spec, final, {**out, "status": status, "run_s": run_s, "trace": trace,
+                         "trace_s": trace_s, "render_ms": render_ms, "ingest": q.stats(),
+                         "log": status["arrival_log"]}
+
+
+def _profile_events(fn, n_ticks):
+    """Device events and device ms a tick of ``fn()`` (an ``n_ticks``-tick
+    run, warm) from ``torch.profiler``; a trace with no device event is
+    taken again, up to six times, a second apart."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
-        return 2
+    for attempt in range(6):
+        if attempt:
+            time.sleep(1.0)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events() if str(e.device_type).endswith("CUDA")
+               and not e.name.startswith("phase_")]
+        if evs:
+            break
+    dev_us = sum(float(e.time_range.elapsed_us()) for e in evs)
+    return len(evs) / n_ticks, dev_us / n_ticks / 1e3
+
+
+def serve_cost(dev):
+    """The serve world cut to 10 ticks (2 chunks of 5), plain
+    ``run_chunked`` against ``serve_run`` (no server, no what-if): wall ms
+    a chunk after a warm-up, device events and device ms a tick from the
+    profiler."""
+    import torch
+
+    from fognetsimpp_tpu_torch.core.engine import run_chunked
+    from fognetsimpp_tpu_torch.scenarios import smoke
+    from fognetsimpp_tpu_torch.telemetry.live import serve_run
+
+    world = smoke.build(device=dev, **dict(bench_world(5e-3), **SERVE_WORLD,
+                                          horizon=2 * SERVE_CHUNK * 5e-3))
+    spec = world[0]
+    calls = {
+        "off": lambda: run_chunked(*world, chunk_ticks=SERVE_CHUNK),
+        "on": lambda: serve_run(*world, chunk_ticks=SERVE_CHUNK, port=None),
+    }
+    out = {}
+    for name, fn in calls.items():
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ev, dms = _profile_events(fn, spec.n_ticks)
+        out[name] = {"ms_a_chunk": wall / (spec.n_ticks / SERVE_CHUNK) * 1e3,
+                     "ms_a_tick": wall / spec.n_ticks * 1e3,
+                     "device_events_per_tick": ev, "device_ms_per_tick": dms}
+    return out
+
+
+def serve_phase(dev, outroot, reset_launches, all_launches, need_launches, assert_same, smi):
+    """Phase 34 (see the module docstring): the serve session on the card
+    with the counts reset, then the same session on the CPU forking at the
+    card's fork point; returns the serve run's and the fork's launches."""
+    import collections
+    import os
+    import threading
+
+    import torch
+
+    from fognetsimpp_tpu_torch.ops import cuda_build
+
+    fork = collections.Counter()
+
+    def fork_tap(name, *args):
+        # the what-if's kernel calls run on the server's handler thread
+        if args[0].is_cuda and threading.current_thread() is not threading.main_thread():
+            fork[name] += 1
+
+    reset_launches()
+    cuda_build.TAPS.append(fork_tap)
+    try:
+        spec, card, got = serve_session(dev, os.path.join(outroot, "card"))
+    finally:
+        cuda_build.TAPS.remove(fork_tap)
+    total = all_launches()
+    launches = {k: v - fork.get(k, 0) for k, v in total.items()}
+    fork_launches = {k: fork.get(k, 0) for k in total}
+    need_launches("serve", launches, ("fused_arrival_plan", "cell_sum_ordered"))
+    need_launches("serve (the what-if fork)", fork_launches, ("fused_arrival_plan",))
+    code, report, ask_s = got["ask"]
+    done = report["fork_ticks_done"]
+    t0 = time.perf_counter()
+    _, cpu, want = serve_session(torch.device("cpu"), os.path.join(outroot, "cpu"), ask_at=done)
+    cpu_s = time.perf_counter() - t0
+    n_leaves = assert_same(card, cpu, "serve (card against CPU)")
+    checks = {
+        "exposition": _mask_latency_line(got["metrics"]) == _mask_latency_line(want["metrics"]),
+        "healthz": _masked_ingest(got["health"]) == _masked_ingest(want["health"]),
+        "trace": json.load(open(got["trace"])) == json.load(open(want["trace"])),
+        "whatif_report": report == want["ask"][1],
+        "arrival_log": got["log"] == want["log"],
+        "ring": _masked_ingest(got["status"]["recorder"].ring)
+        == _masked_ingest(want["status"]["recorder"].ring),
+        "dumps": [os.path.basename(p) for p in got["status"]["dumps"]]
+        == [os.path.basename(p) for p in want["status"]["dumps"]],
+    }
+    for a, b in zip(got["status"]["dumps"], want["status"]["dumps"]):
+        ma, mb = json.load(open(a)), json.load(open(b))
+        checks["bundle " + os.path.basename(a)] = _masked_ingest(ma) == _masked_ingest(mb)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise SystemExit(f"serve: card and CPU differ in {bad}")
+    if not got["status"]["dumps"]:
+        raise SystemExit("serve: the breaching SLO dumped no bundle")
+    ing = got["ingest"]
+    if ing["injected"] <= 0 or ing["accepted"] != SERVE_FEED + SERVE_POSTS:
+        raise SystemExit(f"serve: the queue's stats are off: {ing}")
+    if int(card.telem.lat_hist.sum()) <= 0:
+        raise SystemExit("serve: the latency histogram counted no ack")
+    emit({
+        "phase": "serve", "n_users": spec.n_users, "n_fogs": spec.n_fogs,
+        "ticks": spec.n_ticks, "chunk_ticks": SERVE_CHUNK, "leaves_equal": n_leaves,
+        "checks": sorted(checks), "run_s": got["run_s"],
+        "ms_a_chunk": [s * 1e3 for s in got["chunk_s"]],
+        "render_ms": got["render_ms"], "trace_s": got["trace_s"],
+        "whatif": {"wall_s": ask_s, "fork_ticks_done": done, "n_cells": report["n_cells"],
+                   "delta_n_published": [c["delta"]["n_published"] for c in report["cells"]]},
+        "ingest": ing, "dumps": [os.path.basename(p) for p in got["status"]["dumps"]],
+        "anomalies": got["status"]["anomalies"], "slo_breaches": got["status"]["slo_breaches"],
+        "lat_hist_count": int(card.telem.lat_hist.sum()), "cpu_session_s": cpu_s,
+        "cost": serve_cost(dev),
+        "launches": launches, "fork_launches": fork_launches, "nvidia_smi": smi,
+    })
+    return launches, fork_launches
+
+
+def serve_tp_session(device, n_shards):
+    """``serve_tp_run`` of ``SERVE_TP_WORLD`` on ``device`` behind a server
+    on ``127.0.0.1:0``: the final state, the ring and the last
+    ``/metrics``."""
+    from fognetsimpp_tpu_torch.scenarios import smoke
+    from fognetsimpp_tpu_torch.telemetry.live import serve_tp_run
+
+    spec, st, net, b = smoke.build(device=device, **SERVE_TP_WORLD)
+    seen = {}
+
+    def on_chunk(health):
+        seen["health"] = health
+
+    t0 = time.perf_counter()
+    spec2, final, status = serve_tp_run(spec, st, net, b, n_shards=n_shards,
+                                        chunk_ticks=SERVE_TP_CHUNK, port=0, on_chunk=on_chunk)
+    run_s = time.perf_counter() - t0
+    try:
+        metrics = _http(f"http://127.0.0.1:{status['port']}/metrics")[1]
+    finally:
+        status["server"].close()
+    return spec2, final, status, metrics, run_s
+
+
+def serve_tp_phase(dev, n_shards, reset_launches, all_launches, need_launches, assert_same,
+                   smi):
+    """Phase 35: ``serve_tp_run`` at ``n_shards`` shards on the card, counted,
+    against the CPU."""
+    import torch
+
+    reset_launches()
+    spec, card, status, metrics, run_s = serve_tp_session(dev, n_shards)
+    launches = all_launches()
+    need_launches("serve_tp", launches, ("fused_arrival_plan", "ring_all_gather"))
+    t0 = time.perf_counter()
+    _, cpu, cstatus, cmetrics, _ = serve_tp_session(torch.device("cpu"), n_shards)
+    cpu_s = time.perf_counter() - t0
+    n_leaves = assert_same(card, cpu, "serve_tp (card against CPU)")
+    if metrics != cmetrics:
+        raise SystemExit("serve_tp: the last exposition differs between card and CPU")
+    if status["recorder"].ring != cstatus["recorder"].ring:
+        raise SystemExit("serve_tp: the flight recorder's hashes differ between card and CPU")
+    if "fns_tp_exchange_candidates{shard=" not in metrics:
+        raise SystemExit("serve_tp: the exposition has no per-shard exchange family")
+    emit({
+        "phase": "serve_tp", "n_users": spec.n_users, "n_fogs": spec.n_fogs,
+        "n_shards": n_shards, "ticks": spec.n_ticks, "chunk_ticks": SERVE_TP_CHUNK,
+        "leaves_equal": n_leaves, "run_s": run_s, "ms_a_tick": run_s / spec.n_ticks * 1e3,
+        "chunks": status["chunks"], "n_completed": int(card.metrics.n_completed),
+        "shard_hashes": len(status["recorder"].ring[-1]["shard_hashes"]),
+        "cpu_session_s": cpu_s, "launches": launches, "nvidia_smi": smi,
+    })
+    return launches
+
+
+def tenant_door(device):
+    """Two smoke tenants behind a front door on ``127.0.0.1:0``, served
+    ``TENANT_ROUNDS`` rounds: the door and the aggregate ``/metrics``."""
+    from fognetsimpp_tpu_torch.scenarios import smoke
+    from fognetsimpp_tpu_torch.twin.front import FrontDoor
+
+    door = FrontDoor(capacity=2, chunk_ticks=TENANT_CHUNK, port=0)
+    try:
+        for i in range(2):
+            door.admit(f"t{i}", *smoke.build(device=device, seed=i, **TENANT_WORLD))
+        t0 = time.perf_counter()
+        ticks = door.serve(TENANT_ROUNDS)
+        wall = time.perf_counter() - t0
+        url = f"http://127.0.0.1:{door.server.port}"
+        pages = {p: _http(url + p)[1] for p in ("/metrics", "/t/t0/metrics", "/t/t1/healthz")}
+    finally:
+        door.close()
+    return door, ticks, wall, pages
+
+
+def tenants_phase(dev, reset_launches, all_launches, need_launches, assert_same, smi):
+    """Phase 36: the front door on the card, counted, against the CPU,
+    tenant by tenant."""
+    import torch
+
+    reset_launches()
+    door, ticks, wall, pages = tenant_door(dev)
+    launches = all_launches()
+    need_launches("tenants", launches, ("fused_arrival_plan", "cell_sum_ordered"))
+    cdoor, cticks, _, cpages = tenant_door(torch.device("cpu"))
+    if ticks != cticks or door.tenant_rows() != cdoor.tenant_rows():
+        raise SystemExit("tenants: the tenants' rows differ between card and CPU")
+    if _mask_latency_line(str(pages)) != _mask_latency_line(str(cpages)):
+        raise SystemExit("tenants: the served pages differ between card and CPU")
+    leaves = {}
+    for label in ("t0", "t1"):
+        t, c = door._tenants[label], cdoor._tenants[label]
+        leaves[label] = assert_same(t.state, c.state, f"tenants {label} (card against CPU)")
+        if t.metrics_text != c.metrics_text or t.recorder.ring != c.recorder.ring:
+            raise SystemExit(f"tenants {label}: its page or ring differs between card and CPU")
+    emit({
+        "phase": "tenants", "tenants": door.tenants, "rounds": TENANT_ROUNDS,
+        "chunk_ticks": TENANT_CHUNK, "ticks": ticks, "wall_s": wall,
+        "ms_a_tenant_chunk": wall / (TENANT_ROUNDS * 2) * 1e3,
+        "rows": door.tenant_rows(), "leaves_equal": leaves, "launches": launches,
+        "nvidia_smi": smi,
+    })
+    return launches
+
+
+# ---- the CPU references, run in worker processes ------------------------
+#: Worker processes that run each world's CPU reference while the card
+#: runs the phases before it (spawned, so the card stays the parent's),
+#: torch's threads in each, and the niceness they run at.
+CPU_WORKERS, CPU_WORKER_THREADS, CPU_WORKER_NICE = 3, 2, 10
+
+
+def built_by(fn, *args):
+    """A world builder a worker can unpickle: ``built_by(fn, *args)(device)``
+    is ``fn(*args, device)``, which returns ``(spec, state, net, bounds)``."""
+    return functools.partial(fn, *args)
+
+
+def _smoke_world(kw, device):
+    from fognetsimpp_tpu_torch.scenarios import smoke
+
+    return smoke.build(device=device, **kw)
+
+
+def _hier_world(kw, device):
+    """The smoke world of ``kw`` with domain 0 owning every user and the
+    fogs owned as ``HIER_FOG_OWNER`` says."""
+    from fognetsimpp_tpu_torch.hier import stamp_ownership
+
+    spec, st, net, b = _smoke_world(kw, device)
+    st = stamp_ownership(spec, st, user_broker=[0] * spec.n_users, fog_broker=HIER_FOG_OWNER)
+    return spec, st, net, b
+
+
+def _wireless_world(kw, device):
+    from fognetsimpp_tpu_torch.scenarios import wireless
+
+    return wireless.wireless5(device=device, **kw)
+
+
+def _scenario_world(name, kw, device):
+    import importlib
+
+    return importlib.import_module(f"fognetsimpp_tpu_torch.scenarios.{name}").build(
+        device=device, **kw)
+
+
+def _policy_world(name, device):
+    """The bench world under ``POLICIES[name]``."""
+    import torch
+
+    from fognetsimpp_tpu_torch.spec import BugCompat, Policy
+
+    pol, over = POLICIES[name]
+    pid = int(Policy[pol])
+    kw = bench_world(5e-3)
+    if "mips0_divisor" in over:
+        kw["bug_compat"] = BugCompat(mips0_divisor=over["mips0_divisor"])
+    learned = pol in ("UCB", "DUCB", "EXP3") or over.get("learn_in_dynamic", False)
+    if learned:
+        kw.update(horizon=LEARN_HORIZON,
+                  max_sends_per_user=int(LEARN_HORIZON / kw["send_interval"]) + 4)
+    kw.update(policy=pid, derive_acks=not learned,
+              learn_in_dynamic=over.get("learn_in_dynamic", False))
+    spec, st, net, b = _smoke_world(kw, device)
+    if pid == int(Policy.DYNAMIC):
+        st = st.replace(broker=st.broker.replace(policy_id=torch.full(
+            (), int(Policy.EXP3), dtype=torch.int32, device=device)))
+    return spec, st, net, b
+
+
+def _chaos_kw(row):
+    from fognetsimpp_tpu_torch.spec import Policy
+
+    over = dict(CHAOS_ROWS[row])
+    if "policy" in over:
+        over["policy"] = int(Policy[over["policy"]])
+    return {**bench_world(5e-3), **CHAOS_BENCH, **over}
+
+
+def _hier_kw(extra):
+    from fognetsimpp_tpu_torch.spec import Policy
+
+    kw = dict(bench_world(5e-3), **HIER_BENCH, **extra)
+    if "policy" in kw:
+        kw["policy"] = int(Policy[kw["policy"]])
+    return kw
+
+
+def cpu_jobs():
+    """Every CPU reference whose world is fixed before the run, in the
+    phases' order: key -> (kind, builder, run keywords); see
+    :func:`_cpu_reference` for the kinds."""
+    from fognetsimpp_tpu_torch.scenarios import cell_sum_inputs, pool_scan_inputs
+    from fognetsimpp_tpu_torch.spec import Policy
+
+    jobs = {"smoke": ("run", built_by(_smoke_world, dict(horizon=SMOKE_HORIZON)), {})}
+    for dt in (5e-3, 1e-3):
+        jobs[f"bench dt={dt}"] = ("run", built_by(_smoke_world, bench_world(dt)), {})
+    jobs["wide_fog"] = ("run", built_by(_smoke_world, WIDE_FOG), {})
+    jobs["tp"] = ("tp", built_by(_smoke_world, TP_WORLD), dict(
+        n_shards=TP_SHARDS, n_ticks=TP_CHECK_TICKS, exchange_window=TP_K_EX))
+    jobs["wireless"] = ("run", built_by(_wireless_world, dict(
+        cell_sum_inputs.wireless_kw(), horizon=WIRELESS_HORIZON)), {})
+    jobs["wireless_churn"] = ("run", built_by(_wireless_world, dict(
+        CHURN, policy=int(Policy.MIN_BUSY))), {})
+    jobs["rr_grid"] = ("run", built_by(_smoke_world, dict(RR_GRID, policy=int(Policy.ROUND_ROBIN))), {})
+    for name in POLICIES:
+        jobs[f"policies {name}"] = ("run", built_by(_policy_world, name), {})
+    for name, over in {**pool_scan_inputs.V1V2, "front_droptail": FRONT_DROPTAIL}.items():
+        jobs[name] = ("run", built_by(_smoke_world, dict(bench_world(5e-3), **over)), {})
+    jobs["wired_v1"] = ("run", built_by(_scenario_world, "wired_v1", dict(
+        horizon=WIRED_V1_HORIZON)), {})
+    jobs["example"] = ("split", built_by(_scenario_world, "example", dict(
+        horizon=EXAMPLE_HORIZON)), dict(from_tick=SCENARIO_FROM_TICK["example"]))
+    for row in CHAOS_ROWS:
+        jobs[f"chaos {row}"] = ("run", built_by(_smoke_world, _chaos_kw(row)), {})
+    for phase, extra in (("hier", HIER_UP), ("hier_domain_down", HIER_DOWN)):
+        jobs[phase] = ("run", built_by(_hier_world, _hier_kw(extra)), {})
+    tel_bench = dict(bench_world(5e-3), **TEL_FOGS)
+    jobs["telemetry bench"] = ("run", built_by(_smoke_world, dict(
+        tel_bench, **TELEMETRY, **TEL_JOURNEYS)), {})
+    jobs["telemetry chaos"] = ("run", built_by(_smoke_world, {
+        **bench_world(5e-3), **CHAOS_BENCH, **TEL_FOGS, **TELEMETRY}), {})
+    jobs["telemetry hier"] = ("run", built_by(_hier_world, _hier_kw(dict(HIER_UP, **TELEMETRY))), {})
+    for variant, window in (("ring", {"arrival_window": None}), ("window", {})):
+        jobs[f"tp_telemetry {variant}"] = ("tp", built_by(_smoke_world, dict(
+            tel_bench, **window, **TELEMETRY, **TEL_JOURNEYS)), dict(n_shards=TP_SHARDS))
+    return jobs
+
+
+def _cpu_worker_init():
+    """A worker yields the host's cores to the script's process, whose
+    host-bound card runs are timed."""
+    import os
+
+    import torch
+
+    os.nice(CPU_WORKER_NICE)
+    torch.set_num_threads(CPU_WORKER_THREADS)
+
+
+def _cpu_reference(kind, build, kw):
+    """A world's run on the CPU, in a worker: ``engine.run`` ("run"),
+    ``run_tp_sharded`` ("tp"), or ``engine.run`` to tick ``from_tick`` and
+    on to the horizon ("split").  Returns the final state's numpy leaves,
+    the split's middle state's (else None) and the seconds taken."""
+    from fognetsimpp_tpu_torch.core import engine
+    from fognetsimpp_tpu_torch.state import state_to_numpy
+
+    t0 = time.perf_counter()
+    spec, st, net, b = build("cpu")
+    mid = None
+    if kind == "tp":
+        from fognetsimpp_tpu_torch.parallel.taskshard import run_tp_sharded
+
+        final = run_tp_sharded(spec, st, net, b, **kw)[1]
+    elif kind == "split":
+        st, _ = engine.run(spec, st, net, b, n_ticks=kw["from_tick"])
+        mid = state_to_numpy(st)
+        final = engine.run(spec, st, net, b, n_ticks=spec.n_ticks - kw["from_tick"])[0]
+    else:
+        final = engine.run(spec, st, net, b, **kw)[0]
+    return state_to_numpy(final), mid, time.perf_counter() - t0
+
+
+class CpuReferences:
+    """The CPU references of :func:`cpu_jobs`, all queued at once on
+    ``CPU_WORKERS`` spawned worker processes: ``take(key)`` waits for one
+    (leaves, middle leaves, seconds) and ``builder(key)`` is its world's
+    builder, for the card's run of the same world."""
+
+    def __init__(self):
+        import concurrent.futures
+        import multiprocessing
+
+        self.jobs = cpu_jobs()
+        self._pool = concurrent.futures.ProcessPoolExecutor(
+            CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_cpu_worker_init)
+        self._futures = {k: self._pool.submit(_cpu_reference, *job)
+                         for k, job in self.jobs.items()}
+
+    def builder(self, key):
+        return self.jobs[key][1]
+
+    def take(self, key):
+        return self._futures.pop(key).result()
+
+    def close(self):
+        """Stops the workers, a job still running or queued included."""
+        import multiprocessing
+
+        self._pool.shutdown(wait=False, cancel_futures=True)
+        for p in multiprocessing.active_children():
+            p.terminate()
+            p.join(30)
+
+
+def phases(refs) -> int:
+    """Every phase in order (see the module docstring); ``refs`` holds the
+    worlds' CPU references."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from fognetsimpp_tpu_torch import benchmarks as bm
     from fognetsimpp_tpu_torch.core import engine
@@ -702,10 +1323,12 @@ def main() -> int:
     )
     from fognetsimpp_tpu_torch.runtime.signals import summarize
     from fognetsimpp_tpu_torch.scenarios import (
-        cell_sum_inputs, example, pool_scan_inputs, smoke, wired_v1, wireless,
+        cell_sum_inputs, pool_scan_inputs, smoke, wireless,
     )
-    from fognetsimpp_tpu_torch.spec import BugCompat, Policy
-    from fognetsimpp_tpu_torch.state import state_to_numpy, tree_leaves, tree_map
+    from fognetsimpp_tpu_torch.spec import Policy
+    from fognetsimpp_tpu_torch.state import (
+        state_from_numpy, state_to_numpy, tree_leaves, tree_map,
+    )
     # device ms by CUDA events behind a sleep kernel: the replica paths'
     # kernel rows (the profiler's trace of a call dropped launches there)
     # and the scan's
@@ -785,20 +1408,22 @@ def main() -> int:
             err = max(err, float(d.max()) if d.numel() else 0.0)
         return err
 
-    def device_us(fn, reps, names=("",)):
+    def device_us(fn, reps, names=("",), tries=6):
         """Device µs per call by kernel name, from ``torch.profiler``: the
         sum of the device events of ``reps`` calls (warm-up call first),
         over ``reps``, and the events per call by name.  Gaps between the
         launches are not counted.  A trace that holds no event named with
-        one of ``names`` is taken again, up to six times, a second apart:
-        the profiler on the card now and then returns no device events at
-        all, three traces running."""
+        one of ``names`` is taken again, up to ``tries`` traces in all, a
+        second apart: the profiler on the card now and then returns no
+        device events at all, three traces running.  A caller that times
+        by CUDA events reads the trace only for the launches a call, and
+        takes two."""
         fn()
         torch.cuda.synchronize()
-        for attempt in range(6):
+        for attempt in range(tries):
             if attempt:
                 time.sleep(1.0)
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(reps):
                     fn()
                 torch.cuda.synchronize()
@@ -874,7 +1499,10 @@ def main() -> int:
         finally:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
         want = run_p()
+        torch.cuda.synchronize()
+        first_plain_ms = (time.perf_counter() - t0) * 1e3
         equal = same_bits(got, want)
         err = max_abs_err(got, want)
         K = inp[0].shape[0]
@@ -884,7 +1512,7 @@ def main() -> int:
         # version's kernels, per call
         # each launch's mean time, summed over the call's launches: the
         # profiler now and then misses one call's events in a trace
-        us_k, n_k = device_us(run_k, reps[0], OUR_KERNELS)
+        us_k, n_k = device_us(run_k, reps[0], OUR_KERNELS, tries=2 if by_events else 6)
         dev_k = {k: v / n_k[k] for k, v in us_k.items()
                  if any(s in k for s in OUR_KERNELS)}
         launches = sum(v for k, v in n_k.items() if any(s in k for s in OUR_KERNELS))
@@ -895,8 +1523,10 @@ def main() -> int:
         b = bound(*inp[:2], F, fused)
         if by_events:
             # the plain version of an end-to-end window takes seconds a call:
-            # one timed run of it, and its wall time is that run's
-            plain_ms = stream_ms(run_p, reps[1], runs=1)
+            # one timed run of it, and its wall time is that run's; past
+            # SLOW_PLAIN_MS the compared call above is that run
+            plain_ms = (first_plain_ms if first_plain_ms > SLOW_PLAIN_MS
+                        else stream_ms(run_p, reps[1], runs=1))
             times = {"ms": stream_ms(run_k, reps[0]),
                      "plain_ms": plain_ms, "plain_wrapper_ms": plain_ms,
                      "library_ms": stream_ms(run_lib, reps[1]),
@@ -1111,8 +1741,12 @@ def main() -> int:
         return {**ak.LAUNCHES, **rk.LAUNCHES, **ck.LAUNCHES, **pk.LAUNCHES}
 
     def assert_same(card_state, cpu_state, what):
-        paths = [p for p, _ in tree_leaves(cpu_state)]
-        a_all, b_all = state_to_numpy(card_state), state_to_numpy(cpu_state)
+        """Every leaf equal; ``cpu_state`` a state or a worker's leaves."""
+        paths = [p for p, _ in tree_leaves(card_state)]
+        a_all = state_to_numpy(card_state)
+        b_all = cpu_state if isinstance(cpu_state, list) else state_to_numpy(cpu_state)
+        if len(a_all) != len(b_all):
+            raise SystemExit(f"{what}: {len(a_all)} leaves on the card, {len(b_all)} on the CPU")
         for p, a, b in zip(paths, a_all, b_all):
             if a.dtype != b.dtype or a.shape != b.shape or a.tobytes() != b.tobytes():
                 raise SystemExit(f"{what}: leaf {p} differs between card and CPU")
@@ -1131,10 +1765,6 @@ def main() -> int:
         wall = time.perf_counter() - t0
         launches = all_launches()
         return spec, final, wall, launches
-
-    def cpu_run(kw):
-        spec, st, net, b = smoke.build(device="cpu", **kw)
-        return engine.run(spec, st, net, b)[0]
 
     def static_cache(spec, st, net):
         return associate(net, st.nodes.pos, st.nodes.alive, spec.broker_index)
@@ -1161,7 +1791,7 @@ def main() -> int:
         for attempt in range(6):
             if attempt:
                 time.sleep(1.0)
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 for _ in range(PROFILE_TICKS):
                     st = tick(st)
@@ -1187,7 +1817,7 @@ def main() -> int:
     # ---- 4. smoke world --------------------------------------------------
     kw = dict(horizon=SMOKE_HORIZON)
     spec, card, wall, launches = timed_run(kw)
-    n_leaves = assert_same(card, cpu_run(kw), "smoke")
+    n_leaves = assert_same(card, refs.take("smoke")[0], "smoke")
     summ = summarize(card)
     emit({
         "phase": "smoke", "ticks": spec.n_ticks, "leaves_equal": n_leaves,
@@ -1203,7 +1833,7 @@ def main() -> int:
     for dt in (5e-3, 1e-3):
         kw = bench_world(dt)
         spec, card, wall, launches = timed_run(kw)
-        n_leaves = assert_same(card, cpu_run(kw), f"bench dt={dt}")
+        n_leaves = assert_same(card, refs.take(f"bench dt={dt}")[0], f"bench dt={dt}")
         summ = summarize(card)
         n_sched = summ["n_scheduled"]
         n_fused = launches["fused_arrival_plan"]
@@ -1229,7 +1859,7 @@ def main() -> int:
 
     # ---- 6. wide-fog world -----------------------------------------------
     spec, card, wall, launches = timed_run(WIDE_FOG)
-    n_leaves = assert_same(card, cpu_run(WIDE_FOG), "wide_fog")
+    n_leaves = assert_same(card, refs.take("wide_fog")[0], "wide_fog")
     summ = summarize(card)
     emit({
         "phase": "wide_fog", "n_users": spec.n_users, "n_fogs": spec.n_fogs,
@@ -1287,9 +1917,7 @@ def main() -> int:
     _, card, _ = tp_run(dev, TP_CHECK_TICKS)
     torch.cuda.synchronize()
     check_card_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    _, cpu, _ = tp_run("cpu", TP_CHECK_TICKS)
-    check_cpu_s = time.perf_counter() - t0
+    cpu, _, check_cpu_s = refs.take("tp")
     n_leaves = assert_same(card, cpu, "tp")
     del card, cpu
     # the whole horizon, timed
@@ -1349,7 +1977,7 @@ def main() -> int:
 
         ak.fused_arrival_plan = kept_plan
         try:
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 run_tp_sharded(spec, state, net, n_shards=TP_SHARDS,
                                n_ticks=n_prof, exchange_window=TP_K_EX)
@@ -1498,10 +2126,7 @@ def main() -> int:
     launches = all_launches()
     n_same = assert_same(card, stepped, "wireless (engine.run against the stepped run)")
     del stepped
-    t0 = time.perf_counter()
-    spec_c, st_c, net_c, b_c = wireless.wireless5(device="cpu", **w_kw)
-    cpu, _ = engine.run(spec_c, st_c, net_c, b_c)
-    cpu_s = time.perf_counter() - t0
+    cpu, _, cpu_s = refs.take("wireless")
     n_leaves = assert_same(card, cpu, "wireless")
     del cpu
     summ = summarize(card)
@@ -1547,7 +2172,11 @@ def main() -> int:
             got = run_k()
         finally:
             torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         want = run_p()
+        torch.cuda.synchronize()
+        first_plain_ms = (time.perf_counter() - t0) * 1e3
         equal = same_bits([got], [want])
         err = max_abs_err([got], [want])
         lib_out = torch.zeros((A + 1,), device=dev).index_add_(0, idx, vals)[:A]
@@ -1555,12 +2184,14 @@ def main() -> int:
             raise SystemExit(f"cell_sum_ordered ({case}) differs from its plain version")
         # each kernel and index_add_ timed by its launches' mean, as the
         # profiler now and then drops a call, summed over a call's kernels
-        us_k, n_k = device_us(run_k, reps[0], CELL_KERNELS)
+        us_k, n_k = device_us(run_k, reps[0], CELL_KERNELS, tries=2 if by_events else 6)
         ours = [k for k in us_k if any(s in k for s in CELL_KERNELS)]
         dev_k = {k: us_k[k] / n_k[k] for k in ours}
         clock = sm_clock_mhz()  # read beside the window
-        us_l, n_l = device_us(run_lib, reps[0], ("index",))
-        dev_l = {k: v / n_l[k] for k, v in us_l.items() if "index" in k}
+        dev_l = {}
+        if not by_events:  # else index_add_ is timed by CUDA events below
+            us_l, n_l = device_us(run_lib, reps[0], ("index",))
+            dev_l = {k: v / n_l[k] for k, v in us_l.items() if "index" in k}
         if (not dev_k or not dev_l) and not by_events:
             raise SystemExit("cell_sum_ordered: the profiler saw no device time "
                              "of the kernel or of index_add_")
@@ -1582,8 +2213,10 @@ def main() -> int:
             "library_ms": (stream_ms(run_lib, reps[0]) if by_events
                            else sum(dev_l.values()) / 1e3),
             # CUDA events around a call: the plain version waits once for
-            # the card (its round count), so its wall time is its time
-            "plain_ms": per_call_ms(run_p, reps[1]),
+            # the card (its round count), so its wall time is its time; past
+            # SLOW_PLAIN_MS the compared call above is its one timed run
+            "plain_ms": (first_plain_ms if first_plain_ms > SLOW_PLAIN_MS
+                         else per_call_ms(run_p, reps[1])),
             "wrapper_ms": per_call_ms(run_k, reps[0]),
             "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "bound_bytes": n_bytes,
@@ -1663,9 +2296,7 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = all_launches()
-    spec_c, st_c, net_c, b_c = wireless.wireless5(device="cpu", **c_kw)
-    cpu, _ = engine.run(spec_c, st_c, net_c, b_c)
-    n_leaves = assert_same(st, cpu, "wireless_churn")
+    n_leaves = assert_same(st, refs.take("wireless_churn")[0], "wireless_churn")
     emit({
         "phase": "wireless_churn", "n_users": U, "ticks": spec.n_ticks,
         "leaves_equal": n_leaves, "shutdowns": downs.tolist(),
@@ -1720,7 +2351,7 @@ def main() -> int:
     n_same = assert_same(card, stepped, "rr_grid (engine.run against the stepped run)")
     del stepped
     t0 = time.perf_counter()
-    n_leaves = assert_same(card, cpu_run(rr_kw), "rr_grid")
+    n_leaves = assert_same(card, refs.take("rr_grid")[0], "rr_grid")
     cpu_s = time.perf_counter() - t0
     summ = summarize(card)
     spec_p, st_p, net_p, b_p = smoke.build(device=dev, **rr_kw)
@@ -1746,30 +2377,12 @@ def main() -> int:
     del card
 
     # ---- 13. the compacted broker's policies on the bench world ----------
-    def policy_world(device, name):
-        pol, over = POLICIES[name]
-        pid = int(Policy[pol])
-        kw = bench_world(5e-3)
-        if "mips0_divisor" in over:
-            kw["bug_compat"] = BugCompat(mips0_divisor=over["mips0_divisor"])
-        learned = pol in ("UCB", "DUCB", "EXP3") or over.get("learn_in_dynamic", False)
-        if learned:
-            kw.update(horizon=LEARN_HORIZON,
-                      max_sends_per_user=int(LEARN_HORIZON / kw["send_interval"]) + 4)
-        kw.update(policy=pid, derive_acks=not learned,
-                  learn_in_dynamic=over.get("learn_in_dynamic", False))
-        spec, st, net, b = smoke.build(device=device, **kw)
-        if pid == int(Policy.DYNAMIC):
-            st = st.replace(broker=st.broker.replace(policy_id=torch.full(
-                (), int(Policy.EXP3), dtype=torch.int32, device=device)))
-        return spec, st, net, b
-
     policy_launches = {}
     for name in POLICIES:
-        spec, st, net, b = policy_world(dev, name)
+        spec, st, net, b = _policy_world(name, dev)
         engine.run(spec, st, net, b, n_ticks=REPLICA_WARM_TICKS)  # warm-up
         torch.cuda.synchronize()
-        spec, st, net, b = policy_world(dev, name)
+        spec, st, net, b = _policy_world(name, dev)
         torch.cuda.synchronize()
         reset_launches()
         t0 = time.perf_counter()
@@ -1777,14 +2390,11 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = all_launches()
-        t0 = time.perf_counter()
-        spec_c, st_c, net_c, b_c = policy_world("cpu", name)
-        cpu, _ = engine.run(spec_c, st_c, net_c, b_c)
-        cpu_s = time.perf_counter() - t0
+        cpu, _, cpu_s = refs.take(f"policies {name}")
         n_leaves = assert_same(card, cpu, f"policies {name}")
         del cpu
         summ = summarize(card)
-        spec_p, st_p, net_p, b_p = policy_world(dev, name)
+        spec_p, st_p, net_p, b_p = _policy_world(name, dev)
         prof_row, _ = tick_profile(spec_p, st_p, net_p, b_p, static_cache(spec_p, st_p, net_p))
         row = {
             "phase": "policies", "policy": name, "n_users": spec.n_users,
@@ -2245,16 +2855,14 @@ def main() -> int:
     # ---- 24. the v1/v2 apps and the full front with DropTail, full width --
     v1v2_bench = {**pool_scan_inputs.V1V2, "front_droptail": FRONT_DROPTAIL}
 
-    def v1v2_build(name):
-        return lambda device: smoke.build(
-            device=device, **dict(bench_world(5e-3), **v1v2_bench[name]))
-
-    def world_run(phase, build, need):
+    def world_run(phase, need):
         """A warm-up run of the first ticks, then the timed run (every
-        kernel input kept by a tap that refuses a CPU tensor), the same
-        world on the CPU, every leaf equal.  Returns the spec, the card's
-        final state, the kept calls, the launches, the wall, the CPU run's
-        seconds and the leaves compared."""
+        kernel input kept by a tap that refuses a CPU tensor) of the world
+        of ``phase``'s CPU reference, every leaf equal to that.  Returns
+        the spec, the card's final state, the kept calls, the launches, the
+        wall, the CPU run's seconds (in its worker) and the leaves
+        compared."""
+        build = refs.builder(phase)
         spec, st, net, b = build(dev)
         engine.run(spec, st, net, b, n_ticks=REPLICA_WARM_TICKS)  # warm-up
         torch.cuda.synchronize()
@@ -2278,10 +2886,7 @@ def main() -> int:
             cuda_build.TAPS.remove(tap)
         launches = all_launches()
         need_launches(phase, launches, need)
-        t0 = time.perf_counter()
-        spec_c, st_c, net_c, b_c = build("cpu")
-        cpu, _ = engine.run(spec_c, st_c, net_c, b_c)
-        cpu_s = time.perf_counter() - t0
+        cpu, _, cpu_s = refs.take(phase)
         n_leaves = assert_same(card, cpu, phase)
         return spec, card, calls, launches, wall, cpu_s, n_leaves
 
@@ -2396,9 +3001,9 @@ def main() -> int:
 
     v1v2_launches = {}
     for phase in v1v2_bench:
-        build = v1v2_build(phase)
+        build = refs.builder(phase)
         need = ("fused_arrival_plan",) + (("local_pool_scan",) if phase != "front_droptail" else ())
-        spec, card, calls, launches, wall, cpu_s, n_leaves = world_run(phase, build, need)
+        spec, card, calls, launches, wall, cpu_s, n_leaves = world_run(phase, need)
         if phase != "front_droptail" and launches["local_pool_scan"] != spec.n_ticks:
             raise SystemExit(f"{phase}: local_pool_scan launched "
                              f"{launches['local_pool_scan']} times in {spec.n_ticks} ticks")
@@ -2472,13 +3077,17 @@ def main() -> int:
         del card, calls
 
     # ---- 25. the scenario worlds: wired v1 and the v2 demo --------------
-    for phase, build, need in (
-        ("wired_v1", lambda d: wired_v1.build(device=d, horizon=WIRED_V1_HORIZON),
-         ("local_pool_scan", "fused_arrival_plan")),
-        ("example", lambda d: example.build(device=d, horizon=EXAMPLE_HORIZON),
-         ("local_pool_scan", "fused_arrival_plan", "cell_sum_ordered")),
+    for phase, need in (
+        ("wired_v1", ("local_pool_scan", "fused_arrival_plan")),
+        ("example", ("local_pool_scan", "fused_arrival_plan", "cell_sum_ordered")),
     ):
-        spec, st, net, b = build(dev)
+        spec, st, net, b = refs.builder(phase)(dev)
+        cpu, mid, cpu_s = refs.take(phase)
+        # the card takes the CPU's state at the phase's start tick (the
+        # example's idle wait for its link-up runs on the CPU only)
+        from_tick = SCENARIO_FROM_TICK[phase]
+        if from_tick:
+            st = state_from_numpy(mid, dev)  # a checkpoint's restore
         calls = []
 
         def keep(name, *args):  # every scan window, read after the run
@@ -2490,17 +3099,14 @@ def main() -> int:
         cuda_build.TAPS.append(keep)
         try:
             t0 = time.perf_counter()
-            card, _ = engine.run(spec, st, net, b)
+            card, _ = engine.run(spec, st, net, b, n_ticks=spec.n_ticks - from_tick)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         finally:
             cuda_build.TAPS.remove(keep)
         launches = all_launches()
         need_launches(phase, launches, need)
-        t0 = time.perf_counter()
-        spec_c, st_c, net_c, b_c = build("cpu")
-        n_leaves = assert_same(card, engine.run(spec_c, st_c, net_c, b_c)[0], phase)
-        cpu_s = time.perf_counter() - t0
+        n_leaves = assert_same(card, cpu, phase)
         args = first_call(calls, "local_pool_scan")
         r = check_pool_scan(f"{phase}, first real window", args[:6], bool(args[6]))
         kernel_rows[("local_pool_scan", "v2_bench" if args[6] else "v1_bench")][
@@ -2511,19 +3117,13 @@ def main() -> int:
               "n_published": int(m.n_published), "n_local": int(m.n_local),
               "n_scheduled": int(m.n_scheduled), "n_completed": int(m.n_completed),
               "n_rejected": int(m.n_rejected), "n_lost": int(m.n_lost),
-              "wall_s": wall, "ms_per_tick": wall / spec.n_ticks * 1e3,
+              "card_from_tick": from_tick, "wall_s": wall,
+              "ms_per_tick": wall / (spec.n_ticks - from_tick) * 1e3,
               "cpu_run_s": cpu_s, "launches": launches})
         v1v2_launches[phase] = launches
         del card
 
     # ---- 26. chaos: the bench world under faults --------------------------
-    def chaos_build(row):
-        kw = dict(bench_world(5e-3), **CHAOS_BENCH)
-        over = dict(CHAOS_ROWS[row])
-        if "policy" in over:
-            over["policy"] = int(Policy[over["policy"]])
-        return lambda device: smoke.build(device=device, **dict(kw, **over))
-
     def world_kernel(phase, calls, row_key):
         """``fused_arrival_plan`` against its plain version on the first
         window of the run that holds a row; its numbers go on ``row_key``'s
@@ -2536,9 +3136,9 @@ def main() -> int:
     fault_launches, fault_profiles = {}, {}
     for row in CHAOS_ROWS:
         phase = f"chaos {row}"
-        build = chaos_build(row)
+        build = refs.builder(phase)
         spec, card, calls, launches, wall, cpu_s, n_leaves = world_run(
-            phase, build, ("fused_arrival_plan",))
+            phase, ("fused_arrival_plan",))
         ch, m = card.chaos, card.metrics
         counts = {k: int(getattr(ch, k)) for k in (
             "n_crashes", "n_recovers", "n_reoffloaded", "n_lost_crash",
@@ -2574,7 +3174,7 @@ def main() -> int:
     def replicated(spec, batch, net, b, n_ticks=None, dyn_rows=None):
         return run_replicated(spec, batch, net, b, n_ticks=n_ticks, dyn_rows=dyn_rows), None
 
-    spec, st, net, b = chaos_build("min_busy")(dev)
+    spec, st, net, b = refs.builder("chaos min_busy")(dev)
     batch = replicate_state(spec, st, CHAOS_R, seed=0)
     if len({tuple(k.tolist()) for k in batch.chaos.key}) != CHAOS_R:
         raise SystemExit("chaos_replicas: two replicas share a chaos key")
@@ -2586,25 +3186,10 @@ def main() -> int:
     del batch, first
 
     # ---- 28. hier: the federated bench world, and its domain-down twin ---
-    from fognetsimpp_tpu_torch.hier import stamp_ownership
-
-    def hier_build(extra):
-        kw = dict(bench_world(5e-3), **HIER_BENCH, **extra)
-        if "policy" in kw:
-            kw["policy"] = int(Policy[kw["policy"]])
-
-        def build(device):
-            spec, st, net, b = smoke.build(device=device, **kw)
-            st = stamp_ownership(spec, st, user_broker=[0] * spec.n_users,
-                                 fog_broker=HIER_FOG_OWNER)
-            return spec, st, net, b
-
-        return build
-
-    for phase, extra in (("hier", HIER_UP), ("hier_domain_down", HIER_DOWN)):
-        build = hier_build(extra)
+    for phase in ("hier", "hier_domain_down"):
+        build = refs.builder(phase)
         spec, card, calls, launches, wall, cpu_s, n_leaves = world_run(
-            phase, build, ("fused_arrival_plan",))
+            phase, ("fused_arrival_plan",))
         h, m = card.hier, card.metrics
         if int(h.n_migrated) <= 0:
             raise SystemExit(f"{phase}: no task migrated")
@@ -2792,16 +3377,11 @@ def main() -> int:
 
     tel_launches = {}
     lat_sum_calls = []
-    tel_worlds = {
-        "bench": lambda d: tel_bench(d, **TELEMETRY, **TEL_JOURNEYS),
-        "chaos": lambda d: smoke.build(device=d, **{
-            **bench_world(5e-3), **CHAOS_BENCH, **TEL_FOGS, **TELEMETRY}),
-        "hier": hier_build(dict(HIER_UP, **TELEMETRY)),
-    }
-    for world, build in tel_worlds.items():
-        phase = f"telemetry {world}"
+    for tel_world in ("bench", "chaos", "hier"):
+        phase = f"telemetry {tel_world}"
+        build = refs.builder(phase)
         spec, card, calls, launches, wall, cpu_s, n_leaves = world_run(
-            phase, build, ("fused_arrival_plan", "cell_sum_ordered"))
+            phase, ("fused_arrival_plan", "cell_sum_ordered"))
         if launches["cell_sum_ordered"] != spec.n_ticks:
             raise SystemExit(f"{phase}: cell_sum_ordered launched "
                              f"{launches['cell_sum_ordered']} times in {spec.n_ticks} ticks")
@@ -2810,7 +3390,7 @@ def main() -> int:
         # the latency sums with due rows
         lat_sum_calls += [a for n, a in calls if n == "cell_sum_ordered"
                           and lat_due(a, True) > 0]
-        if world == "bench":
+        if tel_world == "bench":
             fa = first_call(calls, "fused_arrival_plan")
             r = check_arrival_kernel("fused_arrival_plan", fa[:3], fa[3], (20, 10, 50, 10),
                                      by_events=True)
@@ -2833,14 +3413,14 @@ def main() -> int:
                 "equals_phase7": off_bench["device_events_per_tick"] == bench_events,
                 "equals_pre_telemetry": (off_bench["device_events_per_tick"]
                                          == PRE_TELEMETRY_BENCH_EVENTS)}}
-        elif world == "chaos":
+        elif tel_world == "chaos":
             costs = {"on": cost(spec, build), "off_same_world": cost(
                 spec, lambda d: smoke.build(device=d, **{
                     **bench_world(5e-3), **CHAOS_BENCH, **TEL_FOGS}))}
         else:
             costs = {"on": cost(spec, build), "off_phase": fault_profiles["hier"]}
         emit({
-            "phase": "telemetry", "world": world, "policy": Policy(spec.policy).name,
+            "phase": "telemetry", "world": tel_world, "policy": Policy(spec.policy).name,
             "n_users": spec.n_users, "n_fogs": spec.n_fogs, "ticks": spec.n_ticks,
             "task_rows": spec.task_capacity, "leaves_equal": n_leaves,
             "wall_s": wall, "ms_per_tick": wall / spec.n_ticks * 1e3, "cpu_run_s": cpu_s,
@@ -2923,7 +3503,7 @@ def main() -> int:
         for attempt in range(6):
             if attempt:
                 time.sleep(1.0)
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 run_tp_sharded(spec, st, net, b, n_shards=TP_SHARDS, n_ticks=n)
                 torch.cuda.synchronize()
             dev_us, n_events, _ = device_events(prof)
@@ -2964,10 +3544,7 @@ def main() -> int:
         launches = all_launches()
         need_launches(phase, launches, ("fused_arrival_plan", "cell_sum_ordered") + (
             ("ring_all_gather",) if variant == "ring" else ()))
-        t0 = time.perf_counter()
-        spec_c, st_c, net_c, b_c = smoke.build(device="cpu", **kw)
-        _, cpu = run_tp_sharded(spec_c, st_c, net_c, b_c, n_shards=TP_SHARDS)
-        cpu_s = time.perf_counter() - t0
+        cpu, _, cpu_s = refs.take(phase)
         n_leaves = assert_same(got, cpu, f"{phase} (card against CPU)")
         n_acks = counted_acks(phase, int(got.telem.lat_hist.sum()))
         ex = exchange_summary(spec2, got)
@@ -3031,6 +3608,17 @@ def main() -> int:
 
     # 33. cli: the python -m entry point on the card, and main() counted
     cli_launches = cli_phase(reset_launches, all_launches, need_launches, smi)
+
+    # 34-36. the live health plane and the twin: serve, serve_tp, tenants
+    import os
+
+    serve_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_cli_out", "serve")
+    serve_launches, fork_launches = serve_phase(
+        dev, serve_root, reset_launches, all_launches, need_launches, assert_same, smi)
+    serve_tp_launches = serve_tp_phase(dev, TP_SHARDS, reset_launches, all_launches,
+                                       need_launches, assert_same, smi)
+    tenant_launches = tenants_phase(dev, reset_launches, all_launches, need_launches,
+                                    assert_same, smi)
 
     # each row's launches: the main paths' calls at that row's shape
     by_path = {
@@ -3099,6 +3687,20 @@ def main() -> int:
     by_path[("fused_arrival_plan", "v2_bench")]["cli_demo_v2"] = \
         cli_launches["demo_v2"]["fused_arrival_plan"]
     by_path[("fused_arrival_plan", "tp")]["cli_tp"] = cli_launches["tp"]["fused_arrival_plan"]
+    # the serving phases (34-36): the bench world's window served (and its
+    # what-if fork, four replicas end to end), the smoke world's ring
+    # under serve_tp, the tenants' smoke worlds
+    by_path[("fused_arrival_plan", "bench")].update(
+        serve=serve_launches["fused_arrival_plan"],
+        serve_whatif_fork=fork_launches["fused_arrival_plan"],
+        tenants=tenant_launches["fused_arrival_plan"])
+    by_path[("cell_sum_ordered", "lat_sum")].update(
+        serve=serve_launches["cell_sum_ordered"],
+        serve_whatif_fork=fork_launches["cell_sum_ordered"],
+        serve_tp=serve_tp_launches["cell_sum_ordered"],
+        tenants=tenant_launches["cell_sum_ordered"])
+    by_path[("fused_arrival_plan", "tp")]["serve_tp"] = serve_tp_launches["fused_arrival_plan"]
+    by_path[("ring_all_gather", "tp")]["serve_tp"] = serve_tp_launches["ring_all_gather"]
     for key, paths in by_path.items():
         kernel_rows[key]["launches"] = sum(paths.values())
         kernel_rows[key]["launches_by_path"] = paths
@@ -3111,6 +3713,19 @@ def main() -> int:
         "count": torch.cuda.device_count(),
     }})
     return 0
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    refs = CpuReferences()
+    try:
+        return phases(refs)
+    finally:
+        refs.close()
 
 
 if __name__ == "__main__":

@@ -11,10 +11,12 @@ builds the world from the config tier (:mod:`.config.ini`), runs it on
 the card (``--platform cpu`` on the CPU), persists the ``.sca.json`` /
 ``.vec.npz`` results and their Scave twins (:mod:`.runtime.recorder`) and
 prints a one-line JSON summary.  Flags, guard-rail messages and the
-summary's keys are ``python -m fognetsimpp_tpu``'s; the flags of modules
-still to port raise ``NotImplementedError`` naming their ``ROADMAP.md``
-item (:data:`NOT_PORTED`).  One function a run mode: :func:`_run_sweep`,
-:func:`_run_tp`, :func:`_run_fleet` and :func:`_run_single`.
+summary's keys are ``python -m fognetsimpp_tpu``'s; the one flag of a
+module still to port (``--mesh``) raises ``NotImplementedError`` naming its
+``ROADMAP.md`` item (:data:`NOT_PORTED`).  One function a run mode:
+:func:`_run_sweep`, :func:`_run_tp`, :func:`_run_tp_serve`,
+:func:`_run_serve` (the live health plane, the twin's ingest session and
+the tenant front door), :func:`_run_fleet` and :func:`_run_single`.
 """
 from __future__ import annotations
 
@@ -25,18 +27,6 @@ import time
 
 #: Flags whose modules are later items: ``(argparse dest, flag, what)``.
 NOT_PORTED = (
-    ("serve", "--serve", "the live health plane, telemetry/live.py (ROADMAP.md §1 item 29)"),
-    ("serve_chunk", "--serve-chunk", "the live health plane, telemetry/live.py (ROADMAP.md §1 item 29)"),
-    ("postmortem", "--postmortem", "the flight recorder, telemetry/live.py (ROADMAP.md §1 item 29)"),
-    ("trace_out", "--trace-out", "the Perfetto exporter, telemetry/timeline.py (ROADMAP.md §1 item 29)"),
-    ("trace_max_tasks", "--trace-max-tasks", "the Perfetto exporter, telemetry/timeline.py (ROADMAP.md §1 item 29)"),
-    ("ingest", "--ingest", "twin ingestion, twin/ingest.py (ROADMAP.md §1 item 16)"),
-    ("ingest_batch", "--ingest-batch", "twin ingestion, twin/ingest.py (ROADMAP.md §1 item 16)"),
-    ("arrival_log", "--arrival-log", "twin ingestion, twin/ingest.py (ROADMAP.md §1 item 16)"),
-    ("replay_arrivals", "--replay-arrivals", "twin ingestion, twin/ingest.py (ROADMAP.md §1 item 16)"),
-    ("whatif", "--whatif", "the twin's what-if fork, twin/whatif.py (ROADMAP.md §1 item 16)"),
-    ("tenants", "--tenants", "the twin's tenant front door, twin/front.py (ROADMAP.md §1 item 16)"),
-    ("tenant_cap", "--tenant-cap", "the twin's tenant front door, twin/front.py (ROADMAP.md §1 item 16)"),
     ("mesh", "--mesh", "replicas across cards, parallel/fleet.py and mesh.py (ROADMAP.md §1 item 27)"),
 )
 
@@ -75,21 +65,83 @@ def _parser() -> argparse.ArgumentParser:
                     "fractions, queue depths, per-phase work counters, a "
                     "bounded per-tick reservoir) through the run; "
                     "shorthand for spec.telemetry=true — adds the "
-                    "per-fog rows to .sca.json")
+                    "per-fog rows to .sca.json and the OpenMetrics "
+                    "output")
     ap.add_argument("--hist", action="store_true",
                     help="carry the device-resident streaming latency "
                     "histogram (per-fog log buckets of the task_time "
                     "signal); shorthand for spec.telemetry_hist=true "
-                    "(implies --telemetry) — adds lat_* rows to "
-                    ".sca.json and the quantiles to the summary")
+                    "(implies --telemetry) — adds '# TYPE histogram' "
+                    "series and p50/p95/p99 quantile gauges to the "
+                    "OpenMetrics output, lat_* rows to .sca.json and the "
+                    "quantiles to the summary")
     ap.add_argument("--journeys", type=int, metavar="N", default=None,
                     help="sample N task slots into device-resident "
                     "journey event rings (telemetry/journeys.py), decoded "
-                    "into .sca.json; shorthand for "
+                    "into .sca.json, fns_journey_* families and Perfetto "
+                    "flow chains in --trace-out; shorthand for "
                     "spec.telemetry_journeys=N (needs --telemetry)")
+    ap.add_argument("--serve", type=int, metavar="PORT", default=None,
+                    help="live health plane (telemetry/live.py): run "
+                    "the horizon in chunks behind an OpenMetrics pull "
+                    "endpoint (GET /metrics, GET /healthz) with an "
+                    "EWMA z-score watchdog on queue depth / drop rate "
+                    "/ busy fraction; 0 binds an ephemeral port; "
+                    "implies --telemetry")
+    ap.add_argument("--serve-chunk", type=int, metavar="N", default=1000,
+                    help="ticks per serving chunk (default 1000): the "
+                    "scrape/watchdog refresh granularity")
+    ap.add_argument("--ingest", type=int, nargs="?", const=1024,
+                    default=None, metavar="CAP",
+                    help="open the live ingestion door under --serve "
+                    "(twin/): POST /ingest + in-process arrivals land "
+                    "at chunk boundaries through the injector; CAP "
+                    "bounds the drop-counted queue (default 1024); "
+                    "implies spec.ingest")
+    ap.add_argument("--ingest-batch", type=int, metavar="B", default=None,
+                    help="max arrivals injected per chunk boundary "
+                    "(spec.ingest_batch, default 64)")
+    ap.add_argument("--arrival-log", metavar="JSON", default=None,
+                    help="write the session's recorded arrival log on "
+                    "exit (the replayable input record)")
+    ap.add_argument("--replay-arrivals", metavar="JSON", default=None,
+                    help="re-inject a recorded arrival log instead of "
+                    "serving the live queue: the session reproduces "
+                    "the original chunk state hashes bit-exactly")
+    ap.add_argument("--whatif", metavar="GRID", default=None,
+                    help="answer a promoted-knob grid from the final "
+                    "carry, e.g. 'uplink_loss_prob=0.05,0.1 "
+                    "ticks=400': K retunings forked from current "
+                    "state, H ticks ahead, one replica batch; one "
+                    "JSON line per run")
+    ap.add_argument("--tenants", type=int, metavar="N", default=None,
+                    help="multiplex N tenant sessions of the scenario "
+                    "(seeds seed..seed+N-1) behind one endpoint: "
+                    "round-robin chunks, per-tenant /t/<label>/metrics|"
+                    "healthz|ingest|whatif routing; needs --serve")
+    ap.add_argument("--tenant-cap", type=int, metavar="M", default=None,
+                    help="front-door admission bound (default: N); "
+                    "admitting past it is the one-line [TWIN-CAP] "
+                    "rejection")
     ap.add_argument("--slo", type=float, metavar="MS", default=None,
                     help="task-latency SLO in milliseconds: breaches "
-                    "derive from the streaming histogram (implies --hist)")
+                    "derive from the streaming histogram (implies "
+                    "--hist) and trip the flight recorder under "
+                    "--serve")
+    ap.add_argument("--postmortem", metavar="DIR", default=None,
+                    help="flight-recorder dump directory: on NaN, SLO "
+                    "breach, watchdog anomaly or crash the serving "
+                    "loop writes a post-mortem bundle here (inspect "
+                    "with tools/postmortem.py)")
+    ap.add_argument("--trace-out", metavar="JSON", default=None,
+                    help="export the run's task-lifecycle spans as "
+                    "Chrome/Perfetto trace-event JSON to this path "
+                    "(replica→pid, fog→tid; open in ui.perfetto.dev)")
+    ap.add_argument("--trace-max-tasks", type=int, metavar="N",
+                    default=100_000,
+                    help="cap on tasks per replica in the --trace-out "
+                    "export (default 100000: Perfetto chokes on "
+                    "multi-hundred-MB traces; 0 = unbounded)")
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="capture a torch.profiler trace of the run into "
                     "DIR/trace.json (phases show up as record_function "
@@ -106,7 +158,9 @@ def _parser() -> argparse.ArgumentParser:
                     "world's user/task axis into N shards on the card "
                     "(parallel/taskshard.run_tp_sharded); dense-broker "
                     "FIFO worlds only — composes with --policy/"
-                    "--telemetry/--hist; non-divisible populations are "
+                    "--telemetry/--hist and --serve (the sharded health "
+                    "plane: per-shard fns_tp_exchange_* gauges + "
+                    "defer-rate watchdog); non-divisible populations are "
                     "padded with inert users")
     ap.add_argument("--tp-window", type=int, metavar="K", default=None,
                     help="per-shard TP arrival-exchange window (slots "
@@ -157,7 +211,7 @@ def _parser() -> argparse.ArgumentParser:
                     "'policy=ucb explores=0.1,0.5 loads=...' instead "
                     "sweeps a learned policy's exploration-rate x load "
                     "grid")
-    # flags of modules still to port: parsed, then refused by name
+    # the flag of a module still to port: parsed, then refused by name
     for _, flag, what in NOT_PORTED:
         ap.add_argument(flag, nargs="?", const=True, default=None,
                         help=f"not ported yet: {what}")
@@ -202,6 +256,55 @@ def _guard(ap, args):
     elif args.tp_window is not None:
         ap.error("[CLI-TPWINDOW] --tp-window sizes the TP arrival "
                  "exchange; it needs --tp N")
+
+    # the twin's rails cite the gate module's [TWIN-*] clauses
+    if args.ingest is not None or args.replay_arrivals is not None:
+        from .twin.gates import ingest_needs_serve_error, ingest_reject_reason
+
+        if args.tp is not None:
+            ap.error(ingest_reject_reason("tp"))
+        if args.replicas is not None:
+            ap.error(ingest_reject_reason("fleet"))
+        if args.serve is None:
+            ap.error(ingest_needs_serve_error())
+        if args.ingest is not None and args.ingest < 1:
+            ap.error(f"--ingest queue capacity must be >= 1, got "
+                     f"{args.ingest}")
+    if args.whatif is not None:
+        from .dynspec import promote_default
+        from .twin.gates import whatif_reject_reason
+
+        reason = whatif_reject_reason(
+            fleet=args.replicas is not None, promote=promote_default(),
+        )
+        if reason:
+            ap.error(reason)
+        if args.sweep:
+            ap.error("[CLI-SWEEP-TWIN] --sweep builds every cell's "
+                     "world at t=0; --whatif forks a LIVE carry — they "
+                     "do not combine")
+    if args.tenants is not None:
+        from .twin.gates import front_reject_reason
+
+        if args.tenants < 1:
+            ap.error(f"--tenants must be >= 1, got {args.tenants}")
+        if args.tp is not None:
+            ap.error(front_reject_reason("tp"))
+        if args.replicas is not None:
+            ap.error(front_reject_reason("fleet"))
+        if args.serve is None:
+            ap.error(front_reject_reason("solo"))
+        if args.whatif is not None:
+            ap.error("[CLI-TENANTS-WHATIF] per-tenant what-ifs ride "
+                     "the front door's /t/<label>/whatif routes; the "
+                     "--whatif one-shot applies to single-session runs")
+        if args.replay_arrivals is not None or args.arrival_log:
+            ap.error("[CLI-TENANTS-REPLAY] arrival logs are per "
+                     "session; record/replay a tenant through the "
+                     "single-session --serve --ingest path")
+    elif args.tenant_cap is not None:
+        ap.error("[CLI-TENANTCAP] --tenant-cap bounds front-door "
+                 "admission; it needs --tenants N")
 
     if args.brokers is not None:
         if args.brokers < 1:
@@ -261,7 +364,8 @@ def _guard(ap, args):
                 file=sys.stderr,
             )
             return 2
-        if not (args.telemetry or args.hist or args.slo is not None):
+        if not (args.telemetry or args.hist or args.serve is not None
+                or args.slo is not None):
             print(
                 "error: [SPEC-JOURNEYS-TELEM] --journeys rides the "
                 "device-resident telemetry plane (the event rings live "
@@ -325,7 +429,11 @@ def _config_lines(ap, args):
         pre.append("spec.record_tick_series = true")
     if args.trails:
         pre.append("spec.record_trails = true")
-    if args.telemetry:
+    if args.ingest is not None or args.replay_arrivals is not None:
+        pre.append("spec.ingest = true")
+    if args.ingest_batch is not None:
+        pre.append(f"spec.ingest_batch = {args.ingest_batch}")
+    if args.telemetry or args.serve is not None:
         pre.append("spec.telemetry = true")
     if args.hist or args.slo is not None:
         pre.append("spec.telemetry = true")
@@ -388,8 +496,12 @@ def main(argv=None) -> int:
         "argv": sys.argv[1:] if argv is None else list(argv),
         "scenario": cfg.lookup("scenario", "smoke"),
     }
+    if args.tp is not None and args.serve is not None:
+        return _run_tp_serve(args, cfg, world, argv, dev)
     if args.tp is not None:
         return _run_tp(args, cfg, world, attrs, dev)
+    if args.serve is not None:
+        return _run_serve(ap, args, cfg, world, argv, dev)
     if args.replicas is not None:
         return _run_fleet(ap, args, cfg, world, attrs, dev)
     return _run_single(ap, args, cfg, world, attrs, dev)
@@ -419,11 +531,11 @@ def _run_sweep(ap, args, cfg, dev) -> int:
         ap.error("[CLI-SWEEP-SERIES] --sweep is incompatible with "
                  "--ticks/--trails (sweeps return counter grids, "
                  "not series)")
-    if args.telemetry or args.profile:
+    if args.telemetry or args.trace_out or args.profile:
         ap.error("[CLI-SWEEP-TELEM] --sweep returns counter grids, "
                  "not a final world; --telemetry/--trace-out/"
                  "--profile apply to single-scenario runs")
-    if args.slo is not None or args.hist:
+    if args.serve is not None or args.slo is not None or args.hist:
         ap.error("[CLI-SWEEP-SERVE] --sweep returns counter grids, "
                  "not a live world; --serve/--slo/--hist apply to "
                  "single-scenario runs")
@@ -545,6 +657,49 @@ def _run_sweep(ap, args, cfg, dev) -> int:
     return 0
 
 
+def _trace_key(out: dict, args, spec, final) -> None:
+    """``--trace-out``: the Perfetto export's path under ``trace``."""
+    if args.trace_out:
+        from .telemetry.timeline import export_trace
+
+        out["trace"] = export_trace(
+            spec, final, args.trace_out, max_tasks=args.trace_max_tasks or None,
+        )
+
+
+def _whatif_extra(args, spec, carry, net, bounds) -> dict:
+    """``--whatif``: the knob grid answered from the run's final carry
+    (``{}`` without the flag); raises ``ValueError`` with the grid's and
+    the knobs' one-line errors."""
+    if args.whatif is None:
+        return {}
+    from .twin.whatif import _json_safe, parse_grid, run_whatif
+
+    knobs, ticks = parse_grid(args.whatif)
+    return {"whatif": _json_safe(run_whatif(spec, carry, net, bounds, knobs, ticks))}
+
+
+def _tp_whatif(args, spec, final, net, bounds) -> dict:
+    """``--whatif`` from a TP run's carry, re-described unsharded."""
+    if args.whatif is None:
+        return {}
+    from .parallel.taskshard import unstamp_tp_carry
+
+    sp_w, carry = unstamp_tp_carry(spec, final)
+    return _whatif_extra(args, sp_w, carry, net, bounds)
+
+
+def _prepad_for_whatif(args, world):
+    """Pads the population to the shard count before a TP run that a
+    ``--whatif`` forks, so the fork's net is the padded world's."""
+    spec, state, net, bounds = world
+    if args.whatif is not None and spec.n_users % args.tp:
+        from .parallel.taskshard import pad_users_to_multiple
+
+        spec, state, net = pad_users_to_multiple(spec, state, net, args.tp)
+    return spec, state, net, bounds
+
+
 def _run_tp(args, cfg, world, attrs, dev) -> int:
     """``--tp N``: one world's task table in N shards on the card."""
     from .parallel.taskshard import run_tp_sharded
@@ -552,7 +707,7 @@ def _run_tp(args, cfg, world, attrs, dev) -> int:
     from .runtime.signals import summarize
     from .telemetry.profile import profile_trace
 
-    spec, state, net, bounds = world
+    spec, state, net, bounds = _prepad_for_whatif(args, world)
     t0 = time.perf_counter()
     try:
         with profile_trace(args.profile) as prof:
@@ -565,22 +720,230 @@ def _run_tp(args, cfg, world, attrs, dev) -> int:
         # e.g. a policy outside the dense-broker TP family: one line
         print(f"error: {e}", file=sys.stderr)
         return 2
+    wall = time.perf_counter() - t0
+    try:
+        wi = _tp_whatif(args, spec, final, net, bounds)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     out = {
         "scenario": cfg.lookup("scenario", "smoke"),
-        "wall_s": round(time.perf_counter() - t0, 3),
+        "wall_s": round(wall, 3),
         "tp_shards": args.tp,
         "n_users": spec.n_users,  # post-padding population
+        **wi,
     }
     outdir = _outdir(args, cfg)
     if outdir:
         run_id = args.run_id or cfg.lookup("output.run_id", "General-0")
         out.update(record_run(outdir, spec, final, run_id=run_id,
                               attrs={**attrs, "tp_shards": args.tp}))
+    _trace_key(out, args, spec, final)
     _profile_keys(out, args, prof)
     s = summarize(final)
     out.update(n_published=s["n_published"], n_completed=s["n_completed"])
     print(json.dumps(out))
     return 0
+
+
+def _announce(health) -> None:
+    """One status line a served chunk (the Cmdenv progress analog)."""
+    print(json.dumps(health), flush=True)
+
+
+def _finish_serve(args, cfg, argv, spec, final, status, t0, prof, extra=None) -> int:
+    """The ``--serve`` epilogue of every serving branch: the summary line,
+    the recording, the trace and profile keys, the server closed."""
+    from .runtime.recorder import record_run
+    from .runtime.signals import summarize
+
+    out = {
+        "scenario": cfg.lookup("scenario", "smoke"),
+        "wall_s": round(time.perf_counter() - t0, 3),
+        **(extra or {}),
+        "port": status["port"],
+        "chunks": status["chunks"],
+        "anomalies": status["anomalies"],
+        "slo_breaches": status["slo_breaches"],
+        "dumps": status["dumps"],
+    }
+    outdir = _outdir(args, cfg)
+    if outdir:
+        run_id = args.run_id or cfg.lookup("output.run_id", "General-0")
+        out.update(record_run(
+            outdir, spec, final, run_id=run_id,
+            attrs={
+                "argv": sys.argv[1:] if argv is None else list(argv),
+                "scenario": cfg.lookup("scenario", "smoke"),
+                "served_port": status["port"],
+                **{k: v for k, v in (extra or {}).items() if k == "tp_shards"},
+            },
+        ))
+    _trace_key(out, args, spec, final)
+    _profile_keys(out, args, prof)
+    s = summarize(final)
+    out.update(n_published=s["n_published"], n_completed=s["n_completed"])
+    if status["server"] is not None:
+        status["server"].close()
+    print(json.dumps(out))
+    return 0
+
+
+def _retune_door(args, spec):
+    """The ``POST /reconfigure`` door and its server (promoted runners
+    only), or ``(None, None)``."""
+    from .dynspec import promote_default
+    from .telemetry.live import HealthServer, ReconfigDoor
+
+    if not promote_default():
+        return None, None
+    door = ReconfigDoor(spec)
+    server = HealthServer(port=args.serve)
+    server.set_handler(door.handle_http)
+    return door, server
+
+
+def _run_tp_serve(args, cfg, world, argv, dev) -> int:
+    """``--serve --tp N``: the sharded health plane (``serve_tp_run``)."""
+    from .telemetry.live import serve_tp_run
+    from .telemetry.profile import profile_trace
+
+    t0 = time.perf_counter()
+    spec, state, net, bounds = _prepad_for_whatif(args, world)
+    door, server = _retune_door(args, spec)
+    try:
+        with profile_trace(args.profile) as prof:
+            spec, final, status = serve_tp_run(
+                spec, state, net, bounds, n_shards=args.tp,
+                exchange_window=args.tp_window,
+                chunk_ticks=args.serve_chunk,
+                port=args.serve,
+                slo_ms=args.slo,
+                dump_dir=args.postmortem,
+                on_chunk=_announce,
+                server=server,
+                **({"reconfigure": door.as_reconfigure()} if door is not None else {}),
+            )
+    except ValueError as e:
+        if server is not None:
+            server.close()
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    try:
+        wi = _tp_whatif(args, spec, final, net, bounds)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    return _finish_serve(
+        args, cfg, argv, spec, final, status, t0, prof,
+        extra={
+            "tp_shards": args.tp,
+            "n_users": spec.n_users,  # post-padding population
+            **({"reconfigured": door.applied_batches} if door is not None else {}),
+            **wi,
+        },
+    )
+
+
+def _run_serve(ap, args, cfg, world, argv, dev) -> int:
+    """``--serve PORT``: the tenant front door (``--tenants``), the twin's
+    ingest session (``--ingest`` / ``--replay-arrivals``) or the plain
+    serving loop with its retune door."""
+    from .telemetry.profile import profile_trace
+
+    if args.progress or args.ticks or args.trails:
+        ap.error("[CLI-SERVE-SERIES] --serve owns the chunking "
+                 "(--serve-chunk); --progress/--ticks/--trails do "
+                 "not apply")
+    if args.replicas is not None:
+        ap.error("[CLI-SERVE-FLEET] --serve is a single-world loop; "
+                 "fleet serving is a follow-up (run --replicas "
+                 "without --serve)")
+    spec, state, net, bounds = world
+    if args.tenants is not None:
+        from .config.ini import build_from_config
+        from .twin.front import FrontDoor
+
+        t0 = time.perf_counter()
+        cap = args.tenant_cap if args.tenant_cap is not None else args.tenants
+        door = FrontDoor(capacity=cap, chunk_ticks=args.serve_chunk, port=args.serve)
+        try:
+            for i in range(args.tenants):
+                sp_i, st_i, net_i, b_i = build_from_config(
+                    cfg, seed=(args.seed or 0) + i, device=dev)
+                door.admit(f"t{i}", sp_i, st_i, net_i, b_i,
+                           ingest_capacity=args.ingest or 1024)
+        except ValueError as e:
+            # a duplicate label, a telemetry-less spec, [TWIN-CAP]
+            door.close()
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        rounds = -(-spec.n_ticks // args.serve_chunk)
+        ticks = door.serve(rounds)
+        out = {
+            "scenario": cfg.lookup("scenario", "smoke"),
+            "tenants": args.tenants,
+            "tenant_cap": cap,
+            "port": door.server.port if door.server else None,
+            "rounds": rounds,
+            "ticks": ticks,
+            "published": {r["label"]: r["n_published"] for r in door.tenant_rows()},
+            "wall_s": round(time.perf_counter() - t0, 3),
+        }
+        door.close()
+        print(json.dumps(out))
+        return 0
+
+    t0 = time.perf_counter()
+    if args.ingest is not None or args.replay_arrivals is not None:
+        from .twin.ingest import load_log, serve_ingest_run
+
+        replay = load_log(args.replay_arrivals) if args.replay_arrivals else None
+        with profile_trace(args.profile) as prof:
+            final, status = serve_ingest_run(
+                spec, state, net, bounds,
+                capacity=args.ingest or 1024,
+                chunk_ticks=args.serve_chunk,
+                port=args.serve,
+                replay_log=replay,
+                slo_ms=args.slo,
+                dump_dir=args.postmortem,
+                on_chunk=_announce,
+            )
+        if args.arrival_log:
+            with open(args.arrival_log, "w") as f:
+                json.dump({"capacity": status["ingest"]["capacity"],
+                           "entries": status["arrival_log"]}, f, indent=1)
+        try:
+            wi = _whatif_extra(args, spec, final, net, bounds)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        return _finish_serve(args, cfg, argv, spec, final, status, t0, prof,
+                             extra={"ingest": status["ingest"], **wi})
+
+    from .telemetry.live import serve_run
+
+    door, server = _retune_door(args, spec)
+    with profile_trace(args.profile) as prof:
+        final, status = serve_run(
+            spec, state, net, bounds,
+            chunk_ticks=args.serve_chunk,
+            port=args.serve,
+            slo_ms=args.slo,
+            dump_dir=args.postmortem,
+            on_chunk=_announce,
+            server=server,
+            **({"reconfigure": door.as_reconfigure()} if door is not None else {}),
+        )
+    try:
+        wi = _whatif_extra(args, spec, final, net, bounds)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if door is not None:
+        wi = {"reconfigured": door.applied_batches, **wi}
+    return _finish_serve(args, cfg, argv, spec, final, status, t0, prof, extra=wi)
 
 
 def _run_fleet(ap, args, cfg, world, attrs, dev) -> int:
@@ -634,6 +997,7 @@ def _run_fleet(ap, args, cfg, world, attrs, dev) -> int:
             outdir, spec, final, series=series, run_id=run_id,
             attrs={**attrs, "n_devices": n_devices}, scalars=fs,
         ))
+    _trace_key(out, args, spec, final)
     _profile_keys(out, args, prof)
     print(json.dumps(out))
     return 0
@@ -684,6 +1048,7 @@ def _run_single(ap, args, cfg, world, attrs, dev) -> int:
         from .runtime.trails import render_trails_svg
 
         out["trails"] = render_trails_svg(spec, final, series, args.trails, net=net)
+    _trace_key(out, args, spec, final)
     _profile_keys(out, args, prof)
     s = summarize(final)
     out.update(
@@ -703,6 +1068,11 @@ def _run_single(ap, args, cfg, world, attrs, dev) -> int:
         if args.slo is not None:
             out["slo_ms"] = args.slo
             out["slo_breaches"] = slo_breach_count(spec, final, args.slo, summ=hist)
+    try:
+        out.update(_whatif_extra(args, spec, final, net, bounds))
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     print(json.dumps(out))
     return 0
 

@@ -608,6 +608,94 @@ def _phase_spawn(spec, state, net, cache, buf, t0, t1, dv: DynSpec, tp=None):
     return state.replace(users=users, tasks=tasks, metrics=metrics, key=key), buf
 
 
+def _phase_inject(spec, state, cache, batch=None):
+    """Chunk-boundary arrival injection, the twin's input phase
+    (``engine._phase_inject``).
+
+    ``batch`` maps ``user`` (i32 ``(spec.ingest_batch,)``, -1 a padding
+    row) and ``mips`` (f32, each request's MIPSRequired).  Row j for user
+    u claims slot ``u * S + send_count[u] + rank``, ``rank`` the count of
+    earlier rows for u (the (B, B) lower triangle), so a batch may carry
+    several requests a user.  The publish is stamped at ``state.t`` and
+    reaches the broker at ``state.t + d2b[u]``.  Draw-free: no key is
+    split, no loss drawn, so a recorded arrival log replays bit for bit.
+    Rows for a dead or disconnected user, or past its ``S`` send slots,
+    are rejected and write nothing (the drop-mode scatter of slot ``T``).
+    Returns ``(state, n_injected, n_rejected)``, the counts int32 tensors.
+    JAX's phase also books the publishes into a ``TickBuf`` for its
+    contract trace, which its host entry discards; the port keeps none.
+    """
+    U, T, S = spec.n_users, spec.task_capacity, spec.max_sends_per_user
+    B = spec.ingest_batch
+    users, tasks = state.users, state.tasks
+    dev = state.t.device
+    alive_u = state.nodes.alive[:U]
+    if batch is None:  # an all-padding batch
+        uid = torch.full((B,), -1, dtype=_I32, device=dev)
+        mips = torch.zeros((B,), dtype=_F32, device=dev)
+    else:
+        uid = batch["user"].to(_I32)
+        mips = batch["mips"].to(_F32)
+    ok0 = (uid >= 0) & (uid < U)
+    ui = torch.clamp(uid, 0, max(U - 1, 0)).long()
+    same = (uid[:, None] == uid[None, :]) & ok0[:, None] & ok0[None, :]
+    rank = _isum(torch.tril(same, diagonal=-1), 1)
+    slot_k = users.send_count[ui] + rank
+    ok = ok0 & alive_u[ui] & users.connected[ui] & (slot_k < S)
+    t_now = state.t
+    t_arrive = t_now + cache.d2b[:U][ui]
+    slot = torch.where(ok, ui.to(_I32) * S + torch.clamp(slot_k, 0, S - 1),
+                       torch.full_like(slot_k, T))
+    tasks = tasks.replace(
+        stage=set_drop(tasks.stage, slot, torch.full((B,), _ST_PUB_INFLIGHT,
+                                                     dtype=torch.int8, device=dev)),
+        mips_req=set_drop(tasks.mips_req, slot, mips),
+        t_create=set_drop(tasks.t_create, slot, t_now.expand(B)),
+        t_at_broker=set_drop(tasks.t_at_broker, slot, t_arrive),
+    )
+    usafe = torch.where(ok, ui.to(_I32), torch.full_like(uid, U))
+    ones = torch.ones((B,), dtype=_I32, device=dev)
+    users = users.replace(send_count=add_drop(users.send_count, usafe, ones))
+    n_inj = _isum(ok)
+    metrics = state.metrics.replace(n_published=state.metrics.n_published + n_inj)
+    state = state.replace(users=users, tasks=tasks, metrics=metrics)
+    return state, n_inj, _isum(ok0 & ~ok)
+
+
+def inject_arrivals(
+    spec: WorldSpec, state: WorldState, net: NetParams, user, mips,
+) -> Tuple[WorldState, int, int]:
+    """Host entry of the chunk-boundary injector (``engine.inject_arrivals``,
+    the twin's drain): pads ``user`` / ``mips`` (at most
+    ``spec.ingest_batch`` rows) to the batch width and applies
+    :func:`_phase_inject` on the state's device.  The association is the
+    contracted one (``fused=True``), as JAX's jitted injector computes it.
+    Returns ``(state, n_injected, n_rejected)`` as Python ints."""
+    if not spec.ingest:
+        raise ValueError(
+            "inject_arrivals needs the ingestion gate: build the world "
+            "with spec.ingest=True (the injection phase is compiled "
+            "out otherwise)"
+        )
+    B = spec.ingest_batch
+    u = np.full((B,), -1, np.int32)
+    m = np.zeros((B,), np.float32)
+    n = len(user)
+    if n > B:
+        raise ValueError(
+            f"injection batch of {n} rows exceeds spec.ingest_batch="
+            f"{B}: drain at most ingest_batch rows per boundary"
+        )
+    u[:n] = np.asarray(user, np.int32)
+    m[:n] = np.asarray(mips, np.float32)
+    dev = state.t.device
+    cache = associate(net, state.nodes.pos, state.nodes.alive, spec.broker_index,
+                      fused=True)
+    batch = {"user": torch.from_numpy(u).to(dev), "mips": torch.from_numpy(m).to(dev)}
+    state, n_inj, n_rej = _phase_inject(spec, state, cache, batch)
+    return state, int(n_inj), int(n_rej)
+
+
 def _phase_spawn_multi(spec, state, net, cache, buf, t0, t1, dv: DynSpec, tp=None):
     """Up to ``max_sends_per_tick`` publishes per user per tick, send ``j``
     at ``max(next_send, t0) + j * interval``; per-send MIPS and uplink
@@ -2567,6 +2655,9 @@ def run_chunked(
     ``callback`` stays as it was handed over.  ``telemetry_stream(rows,
     ticks_done)`` (a telemetry-on spec only) gets the reservoir rows each
     chunk completed (:func:`..telemetry.metrics.reservoir_progress`).
+    ``inject(state, ticks_done)``, called at every interior boundary after
+    the others, returns the state the next chunk starts from (the twin's
+    drain hands its queue to :func:`inject_arrivals` there).
     """
     if promote is None:
         promote = promote_default()
@@ -2579,11 +2670,6 @@ def run_chunked(
         raise ValueError(
             "run_chunked does not collect per-tick series; run() per chunk "
             "or record snapshots via the callback"
-        )
-    if inject is not None:
-        raise NotImplementedError(
-            "not ported yet: inject, the twin's chunk-boundary arrivals "
-            "(ROADMAP.md §1 item 16)"
         )
     if telemetry_stream is not None and not spec.telemetry:
         raise ValueError(
@@ -2611,6 +2697,8 @@ def run_chunked(
             if knobs:
                 live_spec = apply_knobs(live_spec, knobs)
                 dyn = dyn_to_device(dyn_of(live_spec), dev)
+        if inject is not None and done < total:
+            state = inject(state, done)
     return state
 
 

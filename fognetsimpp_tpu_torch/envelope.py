@@ -26,9 +26,10 @@ def broker_dense_ok(spec: WorldSpec) -> bool:
 
 
 def slice_reject_reason(spec: WorldSpec, net=None) -> Optional[str]:
-    """Why the port cannot run ``spec`` (and ``net``) yet; None = it can."""
-    if spec.ingest:
-        return "twin ingestion (ROADMAP.md §1 item 16)"
+    """Why the port cannot run ``spec`` (and ``net``) yet; None = it can.
+    Every spec field is ported: what is left (``ROADMAP.md`` §1 items 21,
+    22 and 27) are runners across cards, refused where they are asked for
+    (:func:`check_one_card`)."""
     return None
 
 

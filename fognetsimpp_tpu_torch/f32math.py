@@ -176,7 +176,8 @@ def kept_tensor(values: tuple, dtype: torch.dtype, device) -> torch.Tensor:
     key = (values, dtype, torch.device(device))
     t = _TABLES.get(key)
     if t is None:
-        t = _TABLES[key] = torch.tensor(values, dtype=dtype, device=device)
+        # setdefault is atomic: two threads that race here keep one copy
+        t = _TABLES.setdefault(key, torch.tensor(values, dtype=dtype, device=device))
     return t
 
 

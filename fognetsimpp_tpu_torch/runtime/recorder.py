@@ -13,13 +13,14 @@ persisted as
   * ``<run>.vec.npz`` — the per-task signal vectors
     (:func:`~.signals.extract_signals`) plus any per-tick series from
     ``spec.record_tick_series`` under ``tick.<name>``;
+  * ``<run>.om.txt`` — the OpenMetrics exposition
+    (:mod:`..telemetry.openmetrics`);
   * with ``scave=True`` the OMNeT++ text twins (:mod:`.scave`).
 
-The keys and values are JAX's, with two parts left out: the
-``compile_cache`` section (XLA's program cache, which has no PyTorch
-counterpart) and the OpenMetrics ``<run>.om.txt`` file, which comes with
-the telemetry exporters (``ROADMAP.md`` §1 item 29).  A finished state is
-read back to the host once, at the top of each writer.
+The keys and values are JAX's, with one
+part left out by design: the ``compile_cache`` section (XLA's program
+cache, which has no PyTorch counterpart).  A finished state is read back
+to the host once, at the top of each writer.
 """
 from __future__ import annotations
 
@@ -375,6 +376,13 @@ def record_run(
             vectors[k] = np.asarray(v)
     np.savez_compressed(vec_path, **vectors)
     paths = {"sca": sca_path, "vec": vec_path}
+    # the OpenMetrics exposition, always written: the run counters exist
+    # on every run, the per-fog gauges join with spec.telemetry
+    from ..telemetry.openmetrics import write_openmetrics
+
+    paths["om"] = write_openmetrics(
+        os.path.join(outdir, f"{run_id}.om.txt"), spec, final, hist=hist
+    )
     if scave:
         from .scave import NETWORK_NAMES, export_scave
 
@@ -423,6 +431,32 @@ def fleet_scalars(spec: WorldSpec, final_batch: WorldState) -> Dict:
     }
 
 
+def fleet_busy_fractions_per_replica(
+    spec: WorldSpec, final_batch: WorldState
+) -> Optional[np.ndarray]:
+    """Per-replica per-fog busy fractions ``(R, F)``
+    (``parallel/fleet.fleet_busy_fractions_per_replica``); None with
+    ``spec.telemetry`` off."""
+    if not spec.telemetry:
+        return None
+    busy = final_batch.telem.busy_ticks.detach().cpu().numpy().astype(np.float64)
+    ticks = np.maximum(
+        final_batch.telem.ticks.detach().cpu().numpy().astype(np.float64), 1.0
+    )
+    return busy / ticks[:, None]
+
+
+def fleet_phase_work(
+    spec: WorldSpec, final_batch: WorldState
+) -> Optional[np.ndarray]:
+    """Per-replica per-phase work counters ``(R, P)``
+    (``parallel/fleet.fleet_phase_work``); None with ``spec.telemetry``
+    off."""
+    if not spec.telemetry:
+        return None
+    return final_batch.telem.phase_work.detach().cpu().numpy().astype(np.int64)
+
+
 def record_fleet_run(
     outdir: str,
     spec: WorldSpec,
@@ -445,8 +479,9 @@ def record_fleet_run(
 
     ``scalars``: a precomputed :func:`fleet_scalars` dict — pass it when
     the caller already gathered the counters (the CLI does, for its JSON
-    summary) so the host gather is not repeated.  The OpenMetrics
-    ``.fleet.om.txt`` comes with the exporters (``ROADMAP.md`` §1 item 29).
+    summary) so the host gather is not repeated.  Beside them
+    ``<run_id>.fleet.om.txt``, the OpenMetrics exposition: the aggregated
+    counters and each replica's per-fog busy fractions and phase work.
     """
     from ..telemetry.health import hist_summary
 
@@ -483,6 +518,19 @@ def record_fleet_run(
         json.dump(_json_sanitize(sca), f, indent=1, default=str,
                   allow_nan=False)
     paths = {"sca": sca_path}
+    from ..telemetry.openmetrics import render_fleet_openmetrics
+
+    # .fleet.-namespaced, so a record_run into the same directory and
+    # run id never overwrites it
+    om_path = os.path.join(outdir, f"{run_id}.fleet.om.txt")
+    with open(om_path, "w") as f:
+        f.write(render_fleet_openmetrics(
+            sca["fleet"],
+            fleet_busy_fractions_per_replica(spec, final_batch),
+            hist=hist,
+            phase_work=fleet_phase_work(spec, final_batch),
+        ))
+    paths["om"] = om_path
     if series is not None:
         vec_path = os.path.join(outdir, f"{run_id}.fleet.vec.npz")
         np.savez_compressed(

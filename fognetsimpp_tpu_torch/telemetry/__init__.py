@@ -9,10 +9,16 @@
   (``spec.telemetry_hist``) and its quantiles.
 * Journeys, :mod:`.journeys`: rings of sampled tasks' lifecycle events
   (``spec.telemetry_journeys``).
-* Plane 3, :mod:`.profile`: the profiler and dispatch timing.
+* Plane 2, :mod:`.timeline`: task lifecycles as Perfetto trace-event
+  JSON.
+* Plane 3, :mod:`.profile` (the profiler and dispatch timing) and
+  :mod:`.openmetrics` (the OpenMetrics text exposition).
+* The live health plane's host half, :mod:`.live`: the serving loop over
+  ``run_chunked`` and its TP twin, the pull endpoint, the EWMA watchdog
+  and the flight recorder.
 
-The host exporters of the JAX package (Perfetto timeline, OpenMetrics,
-the live server) are not ported yet (``ROADMAP.md`` §1).
+The exporters' modules import nothing of the state at their top, so the
+state module's import of :mod:`.metrics` does not cycle through them.
 """
 from .health import (  # noqa: F401
     QUANTILES,
@@ -29,3 +35,19 @@ from .metrics import (  # noqa: F401
     init_telemetry_state,
     telemetry_summary,
 )
+from .live import (  # noqa: F401
+    Ewma,
+    FlightRecorder,
+    HealthServer,
+    ReconfigDoor,
+    Watchdog,
+    serve_run,
+    serve_tp_run,
+)
+from .openmetrics import (  # noqa: F401
+    render_fleet_openmetrics,
+    render_openmetrics,
+    render_twin_openmetrics,
+    write_openmetrics,
+)
+from .timeline import build_trace, export_trace  # noqa: F401

@@ -186,8 +186,30 @@ def test_refusals_match_jax_and_name_their_items():
         assert set(g) == set(w)
         for k in w:
             assert g[k].tobytes() == np.asarray(w[k]).tobytes(), k
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tengine.run_chunked(spec, st, net, b, inject=lambda s, d: s)
+    # the twin's inject hook (item 16) is ported: an injection at each
+    # interior boundary, after reconfigure, equals JAX's
+    kw = dict(SMOKE, ingest=True, ingest_batch=4)
+    spec, st, net, b = tsmoke.build(device="cpu", **kw)
+    jspec, jst, jnet, jb = jsmoke.build(**kw)
+    rows = {40: ([0, 1, 1], [500.0, 250.5, 90.0]), 80: ([2], [1000.0])}
+    seen = []
+
+    def hook(inject_fn, sp, nt):
+        def inject(s, done):
+            seen.append(done)
+            if done not in rows:
+                return s
+            return inject_fn(sp, s, nt, *rows[done])[0]
+        return inject
+
+    got = tengine.run_chunked(spec, st, net, b, 40,
+                              inject=hook(tengine.inject_arrivals, spec, net))
+    want = jengine.run_chunked(jspec, jst, jnet, jb, 40, callback=lambda s, d: None,
+                               inject=hook(jengine.inject_arrivals, jspec, jnet))
+    assert seen == [40, 80] * 2  # interior boundaries, each run
+    assert _differing(got, _jleaves(want)) == []
+    assert int(got.metrics.n_published) > int(
+        tengine.run_chunked(spec, st, net, b, 40).metrics.n_published)
 
 
 #: A learned world whose credits land and whose reward scale 0.3 is not a

@@ -47,7 +47,7 @@ def test_cli_run_matches_jax(name, tmp_path, capsys):
     assert jrc == trc == 0
     jsum, tsum = assert_same_summary(jout, tout)
     keys = assert_same_files(jsum, tsum, jdir, tdir)
-    assert len(keys) == 5
+    assert len(keys) == 6
     assert tsum["n_published"] > 0
     if name == "telemetry_hist_journeys":
         assert "lat_quantiles_ms" in tsum and "slo_breaches" in tsum

@@ -3,7 +3,8 @@
 Each guard rail of ``tests/test_cli_errors.py`` that the port serves,
 run through both ``main``s on the same argv: the same exit code and the
 same ``error:`` lines (``ap.error``'s usage line names each package's own
-program).  Each flag of a module still to port raises
+program), the serving loop's and the twin's ``[TWIN-*]`` rails among them.
+The one flag of a module still to port, ``--mesh``, raises
 ``NotImplementedError`` naming its ``ROADMAP.md`` item.  The ini tier:
 values, first-match wildcards, ``build_from_config`` on the shipped
 smoke config (its ``fog.*.mips`` tier re-primes the first adverts) and
@@ -86,6 +87,29 @@ CASES = {
     "progress_with_ticks": S + ["--progress", "10", "--ticks"] + SHORT,
     "fleet_with_progress": S + ["--replicas", "2", "--progress", "10"] + SHORT,
     "fleet_with_trails": S + ["--replicas", "2", "--trails", "x.svg"] + SHORT,
+    # the live health plane and the twin (the serve and [TWIN-*] rails)
+    "ingest_with_tp": S + ["--ingest", "8", "--tp", "8"],
+    "ingest_with_replicas": S + ["--ingest", "8", "--replicas", "8"],
+    "ingest_requires_serve": S + ["--ingest", "8"],
+    "replay_arrivals_requires_serve": S + ["--replay-arrivals", "log.json"],
+    "ingest_capacity_below_one": S + ["--serve", "0", "--ingest", "0"],
+    "whatif_with_replicas": S + ["--whatif", "uplink_loss_prob=0.1", "--replicas", "8"],
+    "whatif_conflicts_with_sweep": S + ["--whatif", "uplink_loss_prob=0.1"] + SWEEP,
+    "tenants_with_tp": S + ["--tenants", "2", "--tp", "8"],
+    "tenants_with_replicas": S + ["--tenants", "2", "--replicas", "8"],
+    "tenants_requires_serve": S + ["--tenants", "2"],
+    "tenants_below_one": S + ["--tenants", "0", "--serve", "0"],
+    "tenants_conflicts_with_whatif_flag": S + ["--tenants", "2", "--serve", "0",
+                                               "--whatif", "uplink_loss_prob=0.1"],
+    "tenants_conflicts_with_replay": S + ["--tenants", "2", "--serve", "0",
+                                          "--replay-arrivals", "log.json"],
+    "tenant_cap_requires_tenants": S + ["--tenant-cap", "2"],
+    "serve_with_ticks": S + ["--serve", "0", "--ticks"] + SHORT,
+    "serve_with_replicas": S + ["--serve", "0", "--replicas", "2"] + SHORT,
+    "sweep_with_serve": S + ["--serve", "0"] + SWEEP,
+    "sweep_with_trace_out": S + ["--trace-out", "x.json"] + SWEEP,
+    "whatif_unknown_knob": S + ["--whatif", "warp_factor=0.1,0.2"] + SHORT,
+    "whatif_malformed_grid": S + ["--whatif", "uplink_loss_prob"] + SHORT,
 }
 
 
@@ -119,10 +143,22 @@ def test_guard_rail_matches_jax(name, tmp_path, capsys):
 
 @pytest.mark.parametrize("flag", [f for _, f, _ in NOT_PORTED])
 def test_later_item_flags_raise_naming_their_item(flag, capsys):
+    assert [f for _, f, _ in NOT_PORTED] == ["--mesh"]  # items 29 and 16 are ported
     item = next(w for _, f, w in NOT_PORTED if f == flag).split("item ")[-1].rstrip(")")
-    assert item in ("16", "27", "29")
+    assert item == "27"
     with pytest.raises(NotImplementedError, match=rf"{flag}.*item {item}\)"):
         tmain(S + [flag, "1", "--platform", "cpu"])
+
+
+def test_whatif_on_the_static_spec_path_matches_jax(monkeypatch, capsys):
+    """``FNS_SPEC_PROMOTE=0`` turns the promoted runners off: the what-if
+    one-shot is then refused with JAX's ``[TWIN-WHATIF-STATIC]`` line."""
+    monkeypatch.setenv("FNS_SPEC_PROMOTE", "0")
+    (jrc, _, jerr, _), (trc, _, terr, _) = run_both(
+        S + ["--whatif", "uplink_loss_prob=0.1"], capsys)
+    assert jrc == trc == 2
+    assert _error_lines(terr) == _error_lines(jerr) != []
+    assert "[TWIN-WHATIF-STATIC]" in terr
 
 
 def test_cli_runs_on_the_card_by_default(capsys):

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from tests.torch_cli_support import run_both, summary_lines
+from tests.torch_exporter_support import without_compile_families
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -32,8 +33,8 @@ def test_replicas_match_jax_fleet(tmp_path, capsys):
     assert jrc == trc == 0
     want, got = summary_lines(jout)[-1], summary_lines(tout)[-1]
     assert want.pop("n_devices") == 8 and got.pop("n_devices") == 1
-    assert list(got) == [k for k in want if k != "om"]
-    keep = {k for k in got if k not in ("wall_s", "sca", "vec")}
+    assert list(got) == list(want)
+    keep = {k for k in got if k not in ("wall_s", "sca", "vec", "om")}
     assert {k: got[k] for k in keep} == {k: want[k] for k in keep}
     assert got["n_published_sum"] > 0
     a = json.loads(open(want["sca"]).read().replace(str(jdir), "OUT"))
@@ -42,6 +43,7 @@ def test_replicas_match_jax_fleet(tmp_path, capsys):
         d.pop("recorded_at")
         d["attrs"].pop("n_devices")
     assert b == a
+    assert open(got["om"]).read() == without_compile_families(open(want["om"]).read())
     va, vb = np.load(want["vec"]), np.load(got["vec"])
     assert sorted(vb.files) == sorted(va.files) and "tick.q_len" in vb.files
     for f in va.files:

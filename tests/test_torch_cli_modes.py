@@ -53,5 +53,5 @@ def test_run_modes_match_jax(argv, tmp_path, capsys):
     (jrc, jout, _, jdir), (trc, tout, _, tdir) = run_both(argv, capsys, tmp_path)
     assert jrc == trc == 0
     jsum, tsum = assert_same_summary(jout, tout)
-    assert len(assert_same_files(jsum, tsum, jdir, tdir)) == 5
+    assert len(assert_same_files(jsum, tsum, jdir, tdir)) == 6
     assert tsum["n_published"] > 0

@@ -3,8 +3,9 @@
 Every name ``fognetsimpp_tpu/__init__.py`` exports (its ``from ... import``
 lists, read from its syntax tree) is an attribute of
 ``fognetsimpp_tpu_torch``, from the port's own modules, and so are the
-``chaos``, ``hier``, ``telemetry``, ``runtime`` and ``config`` subpackages'
-names, and the public names of the ``messages`` module and the CLI module.
+``chaos``, ``hier``, ``telemetry``, ``runtime``, ``config`` and ``twin``
+subpackages' names, and the public names of the ``messages`` module, the
+CLI module, the telemetry exporters and the twin's modules.
 Importing the package builds no kernel.
 """
 import ast
@@ -42,7 +43,7 @@ def _exported(init: pathlib.Path):
     return names
 
 
-@pytest.mark.parametrize("pkg", ["", "chaos", "hier", "telemetry", "runtime", "config"])
+@pytest.mark.parametrize("pkg", ["", "chaos", "hier", "telemetry", "runtime", "config", "twin"])
 def test_every_jax_public_name_is_in_the_port(pkg):
     names = _exported(REPO / "fognetsimpp_tpu" / pkg / "__init__.py")
     assert names
@@ -69,11 +70,14 @@ def _defined(path: pathlib.Path):
     return {n for n in names if not n.startswith("_")}
 
 
-@pytest.mark.parametrize("mod", ["messages", "__main__"])
+@pytest.mark.parametrize("mod", [
+    "messages", "__main__", "telemetry/openmetrics", "telemetry/timeline",
+    "telemetry/live", "twin/gates", "twin/ingest", "twin/whatif", "twin/front",
+])
 def test_every_jax_module_name_is_in_the_port(mod):
     names = _defined(REPO / "fognetsimpp_tpu" / f"{mod}.py")
     assert names
-    port_mod = __import__(f"fognetsimpp_tpu_torch.{mod}", fromlist=["_"])
+    port_mod = __import__(f"fognetsimpp_tpu_torch.{mod.replace('/', '.')}", fromlist=["_"])
     assert sorted(n for n in names if not hasattr(port_mod, n)) == []
 
 

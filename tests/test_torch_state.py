@@ -156,13 +156,14 @@ def test_entry_points_need_a_device_when_cuda_is_absent():
 )
 def test_specs_outside_the_slice_raise(kw, item):
     """Specs of items still to port raise, naming the item.  The telemetry
-    planes (item 14) and the per-tick series (item 15) are ported: those
-    specs build, run and equal JAX on every leaf (and every series key)."""
+    planes (item 14), the per-tick series (item 15) and the twin's ingest
+    gate (item 16) are ported: those specs build, run and equal JAX on
+    every leaf (and every series key); the gate changes no tick."""
     spec = TWorldSpec(
         n_users=2, n_fogs=2, send_interval=0.05, horizon=0.05,
         max_sends_per_user=5, **kw,
     ).validate()
-    if item in ("item 14", "item 15"):
+    if item in ("item 14", "item 15", "item 16"):
         assert envelope.slice_reject_reason(spec) is None
         spec, st, net, b = tsmoke.build(device="cpu", horizon=0.05, **kw)
         final, series = tengine.run(spec, st, net, b)
@@ -172,6 +173,12 @@ def test_specs_outside_the_slice_raise(kw, item):
         got = state_to_numpy(final)
         assert [a.dtype for a in got] == [a.dtype for a in ref]
         assert all(a.tobytes() == b.tobytes() for a, b in zip(got, ref))
+        if item == "item 16":
+            assert series is None and jseries is None and spec.ingest
+            plain, _ = tengine.run(*tsmoke.build(device="cpu", horizon=0.05))
+            assert all(a.tobytes() == b.tobytes()
+                       for a, b in zip(got, state_to_numpy(plain)))
+            return
         if item == "item 14":
             assert series is None and jseries is None
             assert int(final.telem.ticks) == spec.n_ticks

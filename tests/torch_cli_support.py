@@ -9,6 +9,7 @@ import numpy as np
 
 from fognetsimpp_tpu.__main__ import main as jmain
 from fognetsimpp_tpu_torch.__main__ import main as tmain
+from tests.torch_exporter_support import without_compile_families
 
 #: Summary keys that hold a file path or a wall time, which differ.
 VARYING = {"wall_s", "sweep_wall_s", "sca", "vec", "om", "sca_txt", "vec_txt",
@@ -45,13 +46,12 @@ def summary_lines(stdout):
 
 
 def assert_same_summary(jax_out, port_out):
-    """The printed JSON lines: the same keys in the same order, JAX's
-    OpenMetrics path ``om`` aside (the exporters are a later item), and
-    the same values but for wall times and paths."""
+    """The printed JSON lines: the same keys in the same order, and the
+    same values but for wall times and paths."""
     want, got = summary_lines(jax_out), summary_lines(port_out)
     assert len(got) == len(want) >= 1
     for w, g in zip(want, got):
-        assert list(g) == [k for k in w if k != "om"]
+        assert list(g) == list(w)
         assert {k: v for k, v in g.items() if k not in VARYING} == {
             k: v for k, v in w.items() if k not in VARYING}
     return want[-1], got[-1]
@@ -65,9 +65,10 @@ def _text(path, outdir):
 def assert_same_files(jsum, tsum, jdir, tdir):
     """Every results file the port wrote equals JAX's of the same key:
     ``.sca.json`` key for key without ``compile_cache`` and the run
-    stamp, ``.npz`` array for array, text twins byte for byte with the
-    stamps masked; the output directory reads as one name."""
-    keys = [k for k in ("sca", "vec", "sca_txt", "vec_txt", "anf") if k in tsum]
+    stamp, ``.npz`` array for array, the OpenMetrics text byte for byte
+    without JAX's ``fns_compile_*`` families, text twins byte for byte
+    with the stamps masked; the output directory reads as one name."""
+    keys = [k for k in ("sca", "vec", "om", "sca_txt", "vec_txt", "anf") if k in tsum]
     assert keys and all(k in jsum for k in keys)
     for k in keys:
         jp, tp = jsum[k], tsum[k]
@@ -76,6 +77,8 @@ def assert_same_files(jsum, tsum, jdir, tdir):
             assert sorted(b.files) == sorted(a.files), k
             for f in a.files:
                 assert b[f].dtype == a[f].dtype and b[f].tobytes() == a[f].tobytes(), (k, f)
+        elif k == "om":
+            assert open(tp).read() == without_compile_families(open(jp).read()), k
         elif jp.endswith(".json"):
             a = json.loads(open(jp).read().replace(str(jdir), "OUT"))
             b = json.loads(open(tp).read().replace(str(tdir), "OUT"))
