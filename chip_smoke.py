@@ -261,6 +261,30 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    1, plane 1 and the histogram) on ``127.0.0.1:0``, 2 rounds of 25 ticks:
    card against CPU tenant by tenant (every leaf, its page, its ring) and
    the aggregate page.
+37. fleet: ``benchmarks.py::config3``'s 64 replicas (1,000 users x 24
+   fogs) cut to 20 ticks through ``parallel.fleet.run_fleet`` on a
+   one-slot and a four-slot mesh (one batch either way, 1,536 fogs end to
+   end: ``pairwise_rank``), the two equal on every leaf and to the CPU's
+   fleet, and one slot's 16 replicas alone (384 fogs:
+   ``fused_arrival_plan``) equal to those rows of the whole batch, each
+   timed after a warm-up; ``run_fleet_series`` in chunks of 7 on the four
+   slots (final state and series against the CPU's); ``fleet_decisions``
+   on 2 keys (against the CPU's pair); ``fused_arrival_plan`` against its
+   plain version on the slot's rows' first non-empty window; then
+   ``python -m fognetsimpp_tpu_torch
+   --replicas 8 --mesh 4 --ticks`` as a subprocess, through ``main()``
+   counted, and on the CPU, its files equal;
+38. node_sharded: ``parallel.taskshard.run_node_sharded`` over 4 slots
+   on the bench world without an arrival window (the task-sharded tick:
+   ``ring_all_gather``) and on config 4's one-replica world (the engine:
+   ``cell_sum_ordered``), 20 ticks each, card against CPU every leaf;
+   ``sharded_min_busy`` at K = 4,096 tasks over 1,024 fogs on 4 slots
+   against ``ops/sched.schedule_batch`` and the CPU, timed, and the ring
+   against its plain version and ``torch.cat`` on its gathered blocks;
+39. multihost: a one-rank NCCL process group on the card
+   (``parallel.multihost.initialize``), ``run_sharded`` and
+   ``fleet_decisions`` over ``global_mesh`` (2 slots, 4 replicas of a
+   256-user smoke world) against the CPU, the group destroyed after.
    Every phase from 18 on resets the wrapper counts before its path and
    fails if a kernel of the path was launched no time;
 
@@ -1102,6 +1126,369 @@ def tenants_phase(dev, reset_launches, all_launches, need_launches, assert_same,
     return launches
 
 
+# ---- 37-39: the slot mesh, the node-sharded entry, the process group ----
+#: ``fleet`` (37): ``benchmarks.py::config3``'s 64 replicas (1,000 users x
+#: 24 fogs, K = 256) cut to 20 of its 250 ticks, over a one-slot and a
+#: four-slot mesh (1,536 fogs end to end: ``pairwise_rank``) and one slot's
+#: 16 replicas alone (384 fogs: ``fused_arrival_plan``); ``run_fleet_series``
+#: in chunks of 7 on the four slots; ``fleet_decisions`` on 2 keys.
+FLEET_R, FLEET_SLOTS, FLEET_HORIZON, FLEET_CHUNK, FLEET_KEY_SEED = 64, 4, 0.02, 7, 7
+#: The fleet's CLI call: 8 replicas of the ``--tp 4`` smoke world of
+#: ``cli`` over 4 slots, with their series.
+CLI_FLEET = ["-s", "smoke", "--set", "scenario.n_users=1024", "--set", "scenario.n_fogs=32",
+             "--set", f"fog.*.mips={TEL_FOGS['fog_mips'][0]:g}",
+             "--set", "scenario.send_interval=10ms", "--set", "scenario.horizon=0.01",
+             "--replicas", "8", "--mesh", "4", "--ticks"]
+#: ``node_sharded`` (38): ``run_node_sharded`` over 4 slots of the bench
+#: world without an arrival window (the task-sharded tick's ring) and of
+#: config 4's one-replica world (mobile: the engine; 10,000 users and
+#: 90,000 task rows divide by 4), each 20 ticks of 5 ms; ``sharded_min_busy``
+#: at K = 4,096 tasks over 1,024 fogs on 4 slots.
+NODE_SLOTS, NODE_WIRELESS_HORIZON = 4, 0.1
+MIN_BUSY_K, MIN_BUSY_F = 4096, 1024
+#: ``multihost`` (39): a one-rank NCCL group, 2 slots, 4 replicas of a
+#: 256-user smoke world on 80,000-MIPS fogs, 20 ticks.
+MULTIHOST_WORLD = dict(n_users=256, n_fogs=8, fog_mips=TEL_FOGS["fog_mips"], horizon=0.02)
+
+
+def _fleet_world(device):
+    """Config 3's world cut to ``FLEET_HORIZON``."""
+    from fognetsimpp_tpu_torch import benchmarks as bm
+
+    spec, st, net, b = bm.config3_world(device)
+    return dataclasses.replace(spec, horizon=FLEET_HORIZON).validate(), st, net, b
+
+
+def _equal_leaves(a: list, b: list, what: str) -> int:
+    """Two lists of numpy leaves equal in dtype, shape and bits."""
+    if len(a) != len(b) or any(x.dtype != y.dtype or x.shape != y.shape
+                               or x.tobytes() != y.tobytes() for x, y in zip(a, b)):
+        raise SystemExit(f"{what}: the leaves differ")
+    return len(a)
+
+
+def fleet_phase(dev, refs, h) -> dict:
+    """Phase 37 (see the module docstring); ``h`` holds the launch-count
+    helpers, ``assert_same``, ``smi`` and, when the phase runs inside the
+    script, ``first_window_row`` (a kernel row from a kept window).
+    Returns each run's launches."""
+    import os
+
+    import torch
+
+    from fognetsimpp_tpu_torch.ops import cuda_build
+    from fognetsimpp_tpu_torch.parallel import fleet, make_mesh, replicate_state
+    from fognetsimpp_tpu_torch.parallel.replicas import strict_vmap
+    from fognetsimpp_tpu_torch.random import PRNGKey, split
+    from fognetsimpp_tpu_torch.state import state_to_numpy, tree_map
+
+    spec, st, net, b = _fleet_world(dev)
+    batch = replicate_state(spec, st, FLEET_R, seed=0)
+    slot_r = FLEET_R // FLEET_SLOTS
+    meshes = {"one_slot": make_mesh(1, device=dev),
+              "four_slots": make_mesh(FLEET_SLOTS, device=dev)}
+    runs = {"one_slot": (meshes["one_slot"], batch, "pairwise_rank"),
+            "four_slots": (meshes["four_slots"], batch, "pairwise_rank"),
+            "slot_rows": (meshes["one_slot"], tree_map(lambda x: x[:slot_r], batch),
+                          "fused_arrival_plan")}
+    finals, walls, launches, first = {}, {}, {}, {}
+    for label, (mesh, rows, kernel) in runs.items():
+        kept = []
+
+        def tap(name, *args, kept=kept):
+            if args[0].device.type != mesh.device.type:
+                raise SystemExit(f"fleet: {name} ran off the mesh's device")
+            if not kept and name in ("fused_arrival_plan", "pairwise_rank") and bool(args[0].any()):
+                kept.append((name, [a.clone() for a in args[:3]]))
+
+        with strict_vmap():
+            fleet.run_fleet(spec, rows, net, b, mesh, n_ticks=REPLICA_WARM_TICKS)
+            torch.cuda.synchronize()
+            h.reset_launches()
+            cuda_build.TAPS.append(tap)
+            try:
+                t0 = time.perf_counter()
+                finals[label] = fleet.run_fleet(spec, rows, net, b, mesh)
+                torch.cuda.synchronize()
+                walls[label] = time.perf_counter() - t0
+            finally:
+                cuda_build.TAPS.remove(tap)
+        launches[label] = h.all_launches()
+        h.need_launches(f"fleet {label}", launches[label], [kernel])
+        other = "pairwise_rank" if kernel == "fused_arrival_plan" else "fused_arrival_plan"
+        if launches[label][kernel] != spec.n_ticks or launches[label][other]:
+            raise SystemExit(f"fleet {label}: launches {launches[label]} in {spec.n_ticks} ticks")
+        first[label] = kept[0] if kept else None
+    # one slot's rows alone (fused) against the same rows of the whole
+    # batch (pairwise); the four-slot fleet against the one-slot fleet
+    _equal_leaves(state_to_numpy(finals.pop("slot_rows")),
+                  state_to_numpy(tree_map(lambda x: x[:slot_r], finals["one_slot"])),
+                  "fleet: a slot's rows alone against the whole batch's")
+    one = state_to_numpy(finals.pop("one_slot"))
+    n_leaves = _equal_leaves(state_to_numpy(finals.pop("four_slots")), one,
+                             "fleet: four slots against one slot")
+    cpu_final, cpu_series, cpu_s = refs.take("fleet series")
+    _equal_leaves(one, cpu_final, "fleet: one slot (card) against the CPU")
+    spec_rec = dataclasses.replace(spec, record_tick_series=True)
+    h.reset_launches()
+    t0 = time.perf_counter()
+    with strict_vmap():
+        rec, series = fleet.run_fleet_series(spec_rec, batch, net, b, meshes["four_slots"],
+                                             chunk_ticks=FLEET_CHUNK)
+    torch.cuda.synchronize()
+    series_wall = time.perf_counter() - t0
+    launches["series"] = h.all_launches()
+    h.need_launches("fleet series", launches["series"], ["pairwise_rank"])
+    _equal_leaves(state_to_numpy(rec), cpu_final, "fleet series: final (card against CPU)")
+    if sorted(series) != sorted(cpu_series) or any(
+            series[k].tobytes() != cpu_series[k].tobytes() for k in series):
+        raise SystemExit("fleet series: the series differ between card and CPU")
+    del rec
+    keys = split(PRNGKey(FLEET_KEY_SEED, dev), 2)
+    h.reset_launches()
+    t0 = time.perf_counter()
+    with strict_vmap():
+        d, dm = fleet.fleet_decisions(spec, batch, net, b, keys, meshes["four_slots"])
+    d, dm = int(d), int(dm)  # the one fetch
+    decisions_s = time.perf_counter() - t0
+    launches["decisions"] = h.all_launches()
+    h.need_launches("fleet decisions", launches["decisions"], ["pairwise_rank"])
+    cpu_pair, _, cpu_dec_s = refs.take("fleet decisions")
+    if [d, dm] != cpu_pair or d <= 0:
+        raise SystemExit(f"fleet decisions: ({d}, {dm}) on the card, {cpu_pair} on the CPU")
+    # a slot's rows' first non-empty window, a shape no other phase has
+    # (the whole batch's is config3's)
+    if getattr(h, "first_window_row", None) is not None and first["slot_rows"] is not None:
+        name, args = first["slot_rows"]
+        h.first_window_row(name, args, "fleet_slot_rows", slot_r * spec.n_fogs)
+    # the python -m entry point with --mesh, as a subprocess; then the same
+    # argv through main() counted and on the CPU
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {k: os.path.join(root, "_cli_out", "fleet", k) for k in ("card", "main", "cpu")}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "fognetsimpp_tpu_torch", *CLI_FLEET,
+                           "--out", out["card"]], cwd=root, capture_output=True, text=True,
+                          timeout=600)
+    cli_wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SystemExit(f"fleet cli: exit {proc.returncode}: {proc.stderr[-2000:]}")
+    card = json.loads(proc.stdout.strip().splitlines()[-1])
+    h.reset_launches()
+    counted = _main_json(CLI_FLEET + ["--out", out["main"]], "fleet cli")
+    torch.cuda.synchronize()
+    launches["cli"] = h.all_launches()
+    h.need_launches("fleet cli", launches["cli"], ["fused_arrival_plan"])
+    cpu = _main_json(CLI_FLEET + ["--platform", "cpu", "--out", out["cpu"]], "fleet cli")
+    _cli_files_equal(card, counted, "fleet (subprocess against main())")
+    files = _cli_files_equal(card, cpu, "fleet (card against CPU)")
+    if card["n_devices"] != 4 or card["n_completed_sum"] <= 0 or any(
+            card[k] != cpu[k] for k in ("n_published_sum", "n_completed_sum",
+                                        "n_completed_minmax")):
+        raise SystemExit(f"fleet cli: {card} on the card, {cpu} on the CPU")
+    n = spec.n_ticks
+    emit({
+        "phase": "fleet", "replicas": FLEET_R, "n_users": spec.n_users, "n_fogs": spec.n_fogs,
+        "window": spec.window, "ticks": n, "slots": {k: m.size for k, m in meshes.items()},
+        "slot_rows_replicas": slot_r, "ms_per_tick": {k: w / n * 1e3 for k, w in walls.items()},
+        "four_over_one": walls["four_slots"] / walls["one_slot"],
+        "leaves_equal": n_leaves, "cpu_run_s": cpu_s,
+        "series": {"chunk_ticks": FLEET_CHUNK, "wall_s": series_wall,
+                   "ms_per_tick": series_wall / n * 1e3, "keys": sorted(series),
+                   "bytes": int(sum(v.nbytes for v in series.values()))},
+        "decisions": {"keys": 2, "total": d, "deferred_max": dm, "s_a_call": decisions_s,
+                      "decisions_per_sec": d / decisions_s, "cpu_run_s": cpu_dec_s},
+        "cli": {"argv": CLI_FLEET, "subprocess_wall_s": cli_wall, "run_wall_s": card["wall_s"],
+                "summary": {k: v for k, v in card.items() if k not in ("sca", "vec", "om")},
+                **files},
+        "launches": launches, "nvidia_smi": h.smi,
+    })
+    return launches
+
+
+def _main_json(argv, what):
+    """The port's ``main(argv)`` in this process: its summary line."""
+    import contextlib
+    import io
+
+    from fognetsimpp_tpu_torch.__main__ import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    if rc != 0:
+        raise SystemExit(f"{what}: main() returned {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def _min_busy_inputs(device):
+    """``sharded_min_busy``'s inputs at ``MIN_BUSY_K`` x ``MIN_BUSY_F``
+    from seed 0: 70 % of tasks decided, one fog in 16 unregistered."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    K, F = MIN_BUSY_K, MIN_BUSY_F
+    arrays = (rng.random(K) < 0.7, (200 + rng.random(K) * 700).astype(np.float32),
+              (rng.random(F) * 2).astype(np.float32),
+              (100 + rng.random(F) * 3900).astype(np.float32), rng.random(F) >= 1 / 16)
+    return [torch.from_numpy(a).to(device) for a in arrays]
+
+
+def node_sharded_phase(dev, refs, h) -> dict:
+    """Phase 38 (see the module docstring); returns each run's launches,
+    and ``h.ring_row`` (when set) receives ``sharded_min_busy``'s
+    gathered blocks for a kernel row."""
+    import torch
+
+    from fognetsimpp_tpu_torch.core.engine import tp_ok
+    from fognetsimpp_tpu_torch.ops import sched
+    from fognetsimpp_tpu_torch.parallel import make_mesh, run_node_sharded, sharded_min_busy
+    from fognetsimpp_tpu_torch.parallel import shards as tshards
+    from fognetsimpp_tpu_torch.random import PRNGKey
+    from fognetsimpp_tpu_torch.spec import Policy
+
+    launches, walls, leaves, cpu_s, ticks = {}, {}, {}, {}, {}
+    for label, build, need in (
+        ("bench_ring", built_by(_smoke_world, _node_bench_kw()), ("ring_all_gather",
+                                                                  "fused_arrival_plan")),
+        ("config4", built_by(_node_wireless_world), ("cell_sum_ordered", "fused_arrival_plan")),
+    ):
+        spec, st, net, b = build(dev)
+        if tp_ok(spec) != (label == "bench_ring"):
+            raise SystemExit(f"node_sharded {label}: tp_ok is {tp_ok(spec)}")
+        mesh = make_mesh(NODE_SLOTS, axis_name="node", device=dev)
+        h.reset_launches()
+        t0 = time.perf_counter()
+        got = run_node_sharded(spec, st, net, b, mesh)
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+        ticks[label] = spec.n_ticks
+        launches[label] = h.all_launches()
+        h.need_launches(f"node_sharded {label}", launches[label], need)
+        cpu, _, cpu_s[label] = refs.take(f"node {label}")
+        leaves[label] = h.assert_same(got, cpu, f"node_sharded {label} (card against CPU)")
+        if int(got.metrics.n_scheduled) <= 0:
+            raise SystemExit(f"node_sharded {label}: nothing scheduled")
+        del got
+    inp = _min_busy_inputs(dev)
+    mesh = make_mesh(NODE_SLOTS, axis_name="fog", device=dev)
+    blocks = []
+    ring = tshards.ring_all_gather
+
+    def keep(bl):
+        if not blocks:
+            blocks.append([x.clone() for x in bl])
+        return ring(bl)
+
+    h.reset_launches()
+    tshards.ring_all_gather = keep
+    try:
+        got = sharded_min_busy(mesh, *inp, axis_name="fog")
+        torch.cuda.synchronize()
+    finally:
+        tshards.ring_all_gather = ring
+    launches["sharded_min_busy"] = h.all_launches()
+    h.need_launches("sharded_min_busy", launches["sharded_min_busy"], ["ring_all_gather"])
+    F = MIN_BUSY_F
+    plain, _ = sched.schedule_batch(
+        int(Policy.MIN_BUSY), *inp, torch.ones(F, dtype=torch.bool, device=dev),
+        torch.ones(F, device=dev), torch.zeros(F, device=dev),
+        torch.zeros((), dtype=torch.int32, device=dev), PRNGKey(0, dev), mips0_divisor=False)
+    cpu = sharded_min_busy(make_mesh(NODE_SLOTS, axis_name="fog", device="cpu"),
+                           *[x.cpu() for x in inp], axis_name="fog")
+    if not torch.equal(got, plain) or not torch.equal(got.cpu(), cpu):
+        raise SystemExit("sharded_min_busy differs from schedule_batch or from the CPU")
+    from fognetsimpp_tpu_torch.tools.ab import stream_ms
+
+    call_ms = stream_ms(lambda: sharded_min_busy(mesh, *inp, axis_name="fog"), 20)
+    plain_ms = stream_ms(lambda: sched.schedule_batch(
+        int(Policy.MIN_BUSY), *inp, torch.ones(F, dtype=torch.bool, device=dev),
+        torch.ones(F, device=dev), torch.zeros(F, device=dev),
+        torch.zeros((), dtype=torch.int32, device=dev), PRNGKey(0, dev), mips0_divisor=False), 20)
+    if getattr(h, "ring_row", None) is not None:
+        h.ring_row(blocks[0], "sharded_min_busy")
+    emit({
+        "phase": "node_sharded", "slots": NODE_SLOTS, "wall_s": walls,
+        "ms_per_tick": {k: w / ticks[k] * 1e3 for k, w in walls.items()},
+        "leaves_equal": leaves, "cpu_run_s": cpu_s,
+        "sharded_min_busy": {"K": MIN_BUSY_K, "F": MIN_BUSY_F, "slots": NODE_SLOTS,
+                             "decided": int((got >= 0).sum()),
+                             "ms_a_call": call_ms, "schedule_batch_ms": plain_ms,
+                             "timed_by": "CUDA events behind a sleep kernel"},
+        "launches": launches, "nvidia_smi": h.smi,
+    })
+    return launches
+
+
+def _node_bench_kw():
+    """The bench world (dt 5 ms) without an arrival window."""
+    return dict(bench_world(5e-3), arrival_window=None)
+
+
+def _node_wireless_world(device):
+    """Config 4's one-replica world cut to ``NODE_WIRELESS_HORIZON``."""
+    from fognetsimpp_tpu_torch import benchmarks as bm
+
+    return bm.config4_world(horizon=NODE_WIRELESS_HORIZON, device=device)
+
+
+def multihost_phase(dev, h) -> dict:
+    """Phase 39 (see the module docstring): a one-rank NCCL group on the
+    card; ``run_sharded`` and ``fleet_decisions`` over ``global_mesh``
+    against the CPU; the group destroyed at the end."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from fognetsimpp_tpu_torch.parallel import (
+        fleet_decisions, global_mesh, initialize, make_mesh, replicate_state, run_sharded,
+    )
+    from fognetsimpp_tpu_torch.random import PRNGKey, split
+    from fognetsimpp_tpu_torch.scenarios import smoke
+    from fognetsimpp_tpu_torch.state import state_to_numpy
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    if initialize(f"127.0.0.1:{port}", 1, 0) != 1:
+        raise SystemExit("multihost: the group does not hold one rank")
+    try:
+        init_s = time.perf_counter() - t0
+        backend = dist.get_backend()
+        mesh = global_mesh(local_slots=2)
+        if backend != "nccl" or mesh.device.type != "cuda" or mesh.group_size != 1:
+            raise SystemExit(f"multihost: backend {backend}, mesh {mesh}")
+        spec, st, net, b = smoke.build(device=mesh.device, **MULTIHOST_WORLD)
+        batch = replicate_state(spec, st, 4, seed=0)
+        h.reset_launches()
+        rows = run_sharded(spec, batch, net, b, mesh)
+        d, dm = fleet_decisions(spec, batch, net, b, split(PRNGKey(5, mesh.device), 2), mesh)
+        d, dm = int(d), int(dm)
+        torch.cuda.synchronize()
+        launches = h.all_launches()
+        h.need_launches("multihost", launches, ["fused_arrival_plan"])
+    finally:
+        dist.destroy_process_group()
+    cspec, cst, cnet, cb = smoke.build(device="cpu", **MULTIHOST_WORLD)
+    cbatch = replicate_state(cspec, cst, 4, seed=0)
+    cmesh = make_mesh(2, device="cpu")
+    n_leaves = _equal_leaves(state_to_numpy(rows.state),
+                             state_to_numpy(run_sharded(cspec, cbatch, cnet, cb, cmesh)),
+                             "multihost: rows (card against CPU)")
+    cd, cdm = fleet_decisions(cspec, cbatch, cnet, cb, split(PRNGKey(5), 2), cmesh)
+    if (rows.start, rows.stop) != (0, 4) or [d, dm] != [int(cd), int(cdm)] or d <= 0:
+        raise SystemExit(f"multihost: rows {rows.start}:{rows.stop}, ({d}, {dm}) on the "
+                         f"card, ({int(cd)}, {int(cdm)}) on the CPU")
+    emit({
+        "phase": "multihost", "backend": backend, "ranks": 1, "slots": mesh.size,
+        "init_s": init_s, "rows": [rows.start, rows.stop], "leaves_equal": n_leaves,
+        "decisions": d, "deferred_max": dm, "launches": launches, "nvidia_smi": h.smi,
+    })
+    return launches
+
+
 # ---- the CPU references, run in worker processes ------------------------
 #: Worker processes that run each world's CPU reference while the card
 #: runs the phases before it (spawned, so the card stays the parent's),
@@ -1225,6 +1612,10 @@ def cpu_jobs():
     for variant, window in (("ring", {"arrival_window": None}), ("window", {})):
         jobs[f"tp_telemetry {variant}"] = ("tp", built_by(_smoke_world, dict(
             tel_bench, **window, **TELEMETRY, **TEL_JOURNEYS)), dict(n_shards=TP_SHARDS))
+    jobs["fleet series"] = ("fleet_series", _fleet_world, {})
+    jobs["fleet decisions"] = ("fleet_decisions", _fleet_world, {})
+    jobs["node bench_ring"] = ("node", built_by(_smoke_world, _node_bench_kw()), {})
+    jobs["node config4"] = ("node", _node_wireless_world, {})
     return jobs
 
 
@@ -1241,16 +1632,35 @@ def _cpu_worker_init():
 
 def _cpu_reference(kind, build, kw):
     """A world's run on the CPU, in a worker: ``engine.run`` ("run"),
-    ``run_tp_sharded`` ("tp"), or ``engine.run`` to tick ``from_tick`` and
-    on to the horizon ("split").  Returns the final state's numpy leaves,
-    the split's middle state's (else None) and the seconds taken."""
+    ``run_tp_sharded`` ("tp"), ``engine.run`` to tick ``from_tick`` and
+    on to the horizon ("split"), ``run_node_sharded`` over ``NODE_SLOTS``
+    ("node"), or the fleet of ``FLEET_R`` replicas on one slot with its
+    series ("fleet_series") or its ``fleet_decisions`` ("fleet_decisions").
+    Returns the final state's numpy leaves (the decisions' pair), the
+    split's middle state's or the series (else None) and the seconds
+    taken."""
     from fognetsimpp_tpu_torch.core import engine
+    from fognetsimpp_tpu_torch.parallel import (
+        fleet_decisions, make_mesh, replicate_state, run_fleet_series, run_node_sharded,
+    )
+    from fognetsimpp_tpu_torch.random import PRNGKey, split
     from fognetsimpp_tpu_torch.state import state_to_numpy
 
     t0 = time.perf_counter()
     spec, st, net, b = build("cpu")
     mid = None
-    if kind == "tp":
+    if kind == "fleet_decisions":
+        d, dm = fleet_decisions(spec, replicate_state(spec, st, FLEET_R, seed=0), net, b,
+                                split(PRNGKey(FLEET_KEY_SEED), 2), make_mesh(1, device="cpu"))
+        return [int(d), int(dm)], None, time.perf_counter() - t0
+    if kind == "fleet_series":
+        batch = replicate_state(spec, st, FLEET_R, seed=0)
+        final, mid = run_fleet_series(dataclasses.replace(spec, record_tick_series=True), batch,
+                                      net, b, make_mesh(1, device="cpu"), chunk_ticks=FLEET_CHUNK)
+    elif kind == "node":
+        final = run_node_sharded(spec, st, net, b,
+                                 make_mesh(NODE_SLOTS, axis_name="node", device="cpu"))
+    elif kind == "tp":
         from fognetsimpp_tpu_torch.parallel.taskshard import run_tp_sharded
 
         final = run_tp_sharded(spec, st, net, b, **kw)[1]
@@ -1264,16 +1674,17 @@ def _cpu_reference(kind, build, kw):
 
 
 class CpuReferences:
-    """The CPU references of :func:`cpu_jobs`, all queued at once on
+    """The CPU references of :func:`cpu_jobs` (those of ``keys``, default
+    all), queued at once on
     ``CPU_WORKERS`` spawned worker processes: ``take(key)`` waits for one
     (leaves, middle leaves, seconds) and ``builder(key)`` is its world's
     builder, for the card's run of the same world."""
 
-    def __init__(self):
+    def __init__(self, keys=None):
         import concurrent.futures
         import multiprocessing
 
-        self.jobs = cpu_jobs()
+        self.jobs = {k: v for k, v in cpu_jobs().items() if keys is None or k in keys}
         self._pool = concurrent.futures.ProcessPoolExecutor(
             CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"),
             initializer=_cpu_worker_init)
@@ -3620,6 +4031,48 @@ def phases(refs) -> int:
     tenant_launches = tenants_phase(dev, reset_launches, all_launches, need_launches,
                                     assert_same, smi)
 
+    # 37-39. the slot mesh: the fleet, the node-sharded entry, the group
+    def first_window_row(name, args, path, flat_fogs):
+        """An arrival kernel against its plain version on a path's first
+        non-empty end-to-end window, a row of the kernels line."""
+        r = check_arrival_kernel(name, args, flat_fogs, (10, 2, 10, 1), by_events=True)
+        emit_kernel(r, f"{path}, first non-empty end-to-end window")
+        kernel_rows[(name, path)] = kernel_row(r, path, "real, a slot's replicas end to end")
+
+    def ring_row(blocks, path):
+        """The ring all-gather against its plain version and ``torch.cat``
+        on a path's gathered blocks, timed by CUDA events, a row of the
+        kernels line."""
+        want = rk.ring_all_gather_plain(blocks)
+        got = rk.ring_all_gather(blocks)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise SystemExit(f"{path}: ring_all_gather differs from its plain version")
+        n, (K, C) = len(blocks), blocks[0].shape
+        outs = [torch.empty((n * K, C), dtype=torch.int32, device=dev) for _ in range(n)]
+        n_bytes = (n * n + n) * K * C * 4
+        kernel_rows[("ring_all_gather", path)] = {
+            "name": "ring_all_gather", "route": "cuda", "source": SOURCES["ring_all_gather"],
+            "replaces": REPLACES["ring_all_gather"], "launches": 0,
+            "max_abs_err": max_abs_err(got, want),
+            "ms": stream_ms(lambda: rk.ring_all_gather(blocks), 50),
+            "plain_ms": stream_ms(lambda: rk.ring_all_gather_plain(blocks), 50),
+            "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": stream_ms(lambda: [torch.cat(blocks, out=o) for o in outs], 50),
+            "library": "torch.cat(blocks, out=) a shard",
+            "shape": {"n": n, "K": K, "C": C}, "shape_of": path, "bound_bytes": n_bytes,
+            "timed_by": "CUDA events behind a sleep kernel",
+        }
+
+    import types
+
+    h = types.SimpleNamespace(
+        reset_launches=reset_launches, all_launches=all_launches,
+        need_launches=need_launches, assert_same=assert_same, smi=smi,
+        first_window_row=first_window_row, ring_row=ring_row)
+    fleet_launches = fleet_phase(dev, refs, h)
+    node_launches = node_sharded_phase(dev, refs, h)
+    multihost_launches = multihost_phase(dev, h)
+
     # each row's launches: the main paths' calls at that row's shape
     by_path = {
         ("fused_arrival_plan", "bench"): {
@@ -3701,6 +4154,29 @@ def phases(refs) -> int:
         tenants=tenant_launches["cell_sum_ordered"])
     by_path[("fused_arrival_plan", "tp")]["serve_tp"] = serve_tp_launches["fused_arrival_plan"]
     by_path[("ring_all_gather", "tp")]["serve_tp"] = serve_tp_launches["ring_all_gather"]
+    # the slot mesh (37-39): config 3's whole batch on one and on four
+    # slots, a slot's rows alone (and the CLI's 8-replica fleet on 4
+    # slots), the node-sharded
+    # bench ring and config 4's single world, sharded_min_busy's gather,
+    # the one-rank group's smoke batch
+    key = ("pairwise_rank", "config3")
+    by_path[key] = dict(kernel_rows[key]["launches_by_path"], **{
+        f"fleet_{k}": fleet_launches[k]["pairwise_rank"]
+        for k in ("one_slot", "four_slots", "series", "decisions")})
+    if ("fused_arrival_plan", "fleet_slot_rows") in kernel_rows:
+        by_path[("fused_arrival_plan", "fleet_slot_rows")] = {
+            f"fleet_{k}": fleet_launches[k]["fused_arrival_plan"]
+            for k in ("slot_rows", "cli")}
+    by_path[("fused_arrival_plan", "tp")]["node_sharded"] = \
+        node_launches["bench_ring"]["fused_arrival_plan"]
+    by_path[("ring_all_gather", "tp")]["node_sharded"] = \
+        node_launches["bench_ring"]["ring_all_gather"]
+    for name in ("fused_arrival_plan", "cell_sum_ordered"):
+        by_path[(name, "wireless")]["node_sharded"] = node_launches["config4"][name]
+    by_path[("ring_all_gather", "sharded_min_busy")] = {
+        "sharded_min_busy": node_launches["sharded_min_busy"]["ring_all_gather"]}
+    by_path[("fused_arrival_plan", "bench")]["multihost"] = \
+        multihost_launches["fused_arrival_plan"]
     for key, paths in by_path.items():
         kernel_rows[key]["launches"] = sum(paths.values())
         kernel_rows[key]["launches_by_path"] = paths

@@ -11,9 +11,8 @@ builds the world from the config tier (:mod:`.config.ini`), runs it on
 the card (``--platform cpu`` on the CPU), persists the ``.sca.json`` /
 ``.vec.npz`` results and their Scave twins (:mod:`.runtime.recorder`) and
 prints a one-line JSON summary.  Flags, guard-rail messages and the
-summary's keys are ``python -m fognetsimpp_tpu``'s; the one flag of a
-module still to port (``--mesh``) raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item (:data:`NOT_PORTED`).  One function a run mode:
+summary's keys are ``python -m fognetsimpp_tpu``'s (``--mesh D`` is D
+slots on the card, :mod:`.parallel.mesh`).  One function a run mode:
 :func:`_run_sweep`, :func:`_run_tp`, :func:`_run_tp_serve`,
 :func:`_run_serve` (the live health plane, the twin's ingest session and
 the tenant front door), :func:`_run_fleet` and :func:`_run_single`.
@@ -25,10 +24,9 @@ import json
 import sys
 import time
 
-#: Flags whose modules are later items: ``(argparse dest, flag, what)``.
-NOT_PORTED = (
-    ("mesh", "--mesh", "replicas across cards, parallel/fleet.py and mesh.py (ROADMAP.md §1 item 27)"),
-)
+def _fleet(args) -> bool:
+    """A fleet run: ``--replicas`` or ``--mesh``."""
+    return args.replicas is not None or args.mesh is not None
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -169,8 +167,13 @@ def _parser() -> argparse.ArgumentParser:
                     "specs only")
     ap.add_argument("--replicas", type=int, default=None, metavar="R",
                     help="Monte-Carlo fleet: advance R replica worlds "
-                    "(per-replica PRNG streams) on the card in one batch "
-                    "(parallel/replicas.run_replicated)")
+                    "(per-replica PRNG streams) split over the mesh's "
+                    "slots on the card (parallel/fleet.py); R must "
+                    "divide evenly over the mesh")
+    ap.add_argument("--mesh", type=int, default=None, metavar="D",
+                    help="slots of the replica mesh on the card (default "
+                    "1), each advancing R/D replicas as one batch; "
+                    "implies --replicas D when --replicas is omitted")
     ap.add_argument("--brokers", type=int, metavar="B", default=None,
                     help="federated multi-broker hierarchy (hier/): "
                     "partition users and fogs into B broker domains "
@@ -211,10 +214,6 @@ def _parser() -> argparse.ArgumentParser:
                     "'policy=ucb explores=0.1,0.5 loads=...' instead "
                     "sweeps a learned policy's exploration-rate x load "
                     "grid")
-    # the flag of a module still to port: parsed, then refused by name
-    for _, flag, what in NOT_PORTED:
-        ap.add_argument(flag, nargs="?", const=True, default=None,
-                        help=f"not ported yet: {what}")
     return ap
 
 
@@ -243,7 +242,7 @@ def _guard(ap, args):
     ``[CLI-*]`` / ``[TP-*]`` cells, else an exit code for the one-line
     ``error:`` refusals, or None to go on."""
     if args.tp is not None:
-        if args.replicas is not None:
+        if _fleet(args):
             ap.error("[CLI-TP-FLEET] --tp shards ONE world's task table "
                      "over the mesh; --replicas/--mesh fan out "
                      "independent worlds — pick one parallel axis per run")
@@ -263,7 +262,7 @@ def _guard(ap, args):
 
         if args.tp is not None:
             ap.error(ingest_reject_reason("tp"))
-        if args.replicas is not None:
+        if _fleet(args):
             ap.error(ingest_reject_reason("fleet"))
         if args.serve is None:
             ap.error(ingest_needs_serve_error())
@@ -275,7 +274,7 @@ def _guard(ap, args):
         from .twin.gates import whatif_reject_reason
 
         reason = whatif_reject_reason(
-            fleet=args.replicas is not None, promote=promote_default(),
+            fleet=_fleet(args), promote=promote_default(),
         )
         if reason:
             ap.error(reason)
@@ -290,7 +289,7 @@ def _guard(ap, args):
             ap.error(f"--tenants must be >= 1, got {args.tenants}")
         if args.tp is not None:
             ap.error(front_reject_reason("tp"))
-        if args.replicas is not None:
+        if _fleet(args):
             ap.error(front_reject_reason("fleet"))
         if args.serve is None:
             ap.error(front_reject_reason("solo"))
@@ -318,7 +317,7 @@ def _guard(ap, args):
             ap.error("[TP-HIER] --brokers federates ONE world's decide "
                      "phase; the TP sharded tick does not carry the "
                      "hierarchy yet — pick one of --brokers/--tp per run")
-        if args.replicas is not None:
+        if _fleet(args):
             ap.error("[FLEET-HIER] --brokers federates ONE world; the "
                      "fleet runner does not carry the hierarchy yet — "
                      "run federated worlds without --replicas/--mesh")
@@ -448,9 +447,6 @@ def main(argv=None) -> int:
 
     ap = _parser()
     args = ap.parse_args(argv)
-    for dest, flag, what in NOT_PORTED:
-        if getattr(args, dest) is not None:
-            raise NotImplementedError(f"not ported yet: {flag}, {what}")
     if args.policy is not None:
         try:
             args.policy = int(policy_from_name(args.policy))
@@ -502,7 +498,7 @@ def main(argv=None) -> int:
         return _run_tp(args, cfg, world, attrs, dev)
     if args.serve is not None:
         return _run_serve(ap, args, cfg, world, argv, dev)
-    if args.replicas is not None:
+    if _fleet(args):
         return _run_fleet(ap, args, cfg, world, attrs, dev)
     return _run_single(ap, args, cfg, world, attrs, dev)
 
@@ -539,7 +535,7 @@ def _run_sweep(ap, args, cfg, dev) -> int:
         ap.error("[CLI-SWEEP-SERVE] --sweep returns counter grids, "
                  "not a live world; --serve/--slo/--hist apply to "
                  "single-scenario runs")
-    if args.replicas is not None:
+    if _fleet(args):
         ap.error("[CLI-SWEEP-FLEET] --sweep owns its own replica "
                  "fan-out (reps=); --replicas/--mesh apply to "
                  "single-scenario runs")
@@ -855,7 +851,7 @@ def _run_serve(ap, args, cfg, world, argv, dev) -> int:
         ap.error("[CLI-SERVE-SERIES] --serve owns the chunking "
                  "(--serve-chunk); --progress/--ticks/--trails do "
                  "not apply")
-    if args.replicas is not None:
+    if _fleet(args):
         ap.error("[CLI-SERVE-FLEET] --serve is a single-world loop; "
                  "fleet serving is a follow-up (run --replicas "
                  "without --serve)")
@@ -947,12 +943,11 @@ def _run_serve(ap, args, cfg, world, argv, dev) -> int:
 
 
 def _run_fleet(ap, args, cfg, world, attrs, dev) -> int:
-    """``--replicas R``: R replica worlds in one batch on the card (JAX's
-    ``run_fleet`` on a one-device mesh, which equals its
-    ``run_replicated``), promoted as ``run_fleet`` is by default."""
-    from .core.engine import run_batched
-    from .dynspec import dyn_rows, promote_default, split_spec
-    from .parallel import replicate_state
+    """``--replicas R`` / ``--mesh D``: R replica worlds over a mesh of D
+    slots on the card (``run_fleet``; ``run_fleet_series`` with
+    ``--ticks``), promoted as ``run_fleet`` is by default."""
+    from .parallel import make_mesh, replicate_state
+    from .parallel.fleet import run_fleet, run_fleet_series
     from .runtime.recorder import fleet_scalars, record_fleet_run
     from .telemetry.profile import profile_trace
 
@@ -965,17 +960,27 @@ def _run_fleet(ap, args, cfg, world, attrs, dev) -> int:
                  "movement; slice a replica out of a fleet run "
                  "instead")
     spec, state, net, bounds = world
-    n_devices = 1
-    n_replicas = args.replicas
+    try:
+        mesh = make_mesh(args.mesh, device=dev)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    n_devices = mesh.size
+    n_replicas = args.replicas if args.replicas is not None else n_devices
     batch = replicate_state(spec, state, n_replicas, seed=args.seed or 0)
-    run_spec, rows = spec, None
-    if promote_default():
-        run_spec, dyn = split_spec(spec)
-        rows = dyn_rows([dyn], dev, repeats=n_replicas)
     t0 = time.perf_counter()
-    with profile_trace(args.profile) as prof:
-        final, series = run_batched(run_spec, batch, net, bounds, dyn_rows=rows)
-        _sync(dev)
+    try:
+        with profile_trace(args.profile) as prof:
+            if args.ticks:
+                final, series = run_fleet_series(spec, batch, net, bounds, mesh)
+            else:
+                final = run_fleet(spec, batch, net, bounds, mesh)
+                series = None
+            _sync(dev)
+    except ValueError as e:
+        # e.g. a replica count that does not divide over the mesh
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     wall = time.perf_counter() - t0
     fs = fleet_scalars(spec, final)
     out = {

@@ -182,7 +182,7 @@ def tp_reject_reason(spec: WorldSpec) -> Optional[str]:
             "run_chunked)"
         )
     if spec.hier_active:
-        return hier_reject_reason(spec)
+        return hier_reject_reason(spec, "TP")
     if spec.fog_model != int(FogModel.FIFO):
         return (
             "[TP-POOL] TP tick covers FIFO fogs only (POOL pools are "

@@ -27,9 +27,9 @@ def broker_dense_ok(spec: WorldSpec) -> bool:
 
 def slice_reject_reason(spec: WorldSpec, net=None) -> Optional[str]:
     """Why the port cannot run ``spec`` (and ``net``) yet; None = it can.
-    Every spec field is ported: what is left (``ROADMAP.md`` §1 items 21,
-    22 and 27) are runners across cards, refused where they are asked for
-    (:func:`check_one_card`)."""
+    Every spec field is ported: what is left (``ROADMAP.md`` §1 item 21)
+    is shards and slots on distinct cards, refused where they are asked
+    for (``ops/ring_kernels.py``, ``parallel/mesh.make_mesh``)."""
     return None
 
 
@@ -38,15 +38,6 @@ def check_slice(spec: WorldSpec, net=None) -> None:
     why = slice_reject_reason(spec, net)
     if why is not None:
         raise NotImplementedError(f"not ported yet: {why}")
-
-
-def check_one_card(mesh) -> None:
-    """The sweeps run on one card: a device mesh is refused."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "not ported yet: replicas across cards, mesh= (run_sharded, "
-            "shard_replicas, parallel/fleet.py; ROADMAP.md §1 item 27)"
-        )
 
 
 def check_tp_slice(spec: WorldSpec, net=None) -> None:

@@ -107,14 +107,15 @@ def stamp_ownership(
     return state.replace(hier=h)
 
 
-def hier_reject_reason(spec: WorldSpec) -> Optional[str]:
-    """Why a federated spec cannot run on the task-sharded tick (None when
-    the hierarchy is off), with the reference's ``[TP-HIER]`` ID and
+def hier_reject_reason(spec: WorldSpec, runner: str = "TP") -> Optional[str]:
+    """Why a federated spec cannot run on a sharded runner, ``runner``
+    the task-sharded tick (``"TP"``) or the fleet (``"fleet"``); None when
+    the hierarchy is off.  The reference's ``[{RUNNER}-HIER]`` IDs and
     words."""
     if not spec.hier_active:
         return None
     return (
-        "[TP-HIER] the TP runner does not carry the "
+        f"[{runner.upper()}-HIER] the {runner} runner does not carry the "
         "multi-broker hierarchy yet (per-domain decide masks and the "
         "migrate phase need cross-shard load summaries); run "
         f"n_brokers={spec.n_brokers} worlds on single-device "

@@ -14,8 +14,10 @@ Any promoted knob (:data:`..dynspec.DYN_FIELDS`) is data as well:
 their cell's DynSpec row, and :func:`sweep_dyn_from` forks a live state
 onto such a grid (the what-if).
 
-``mesh=`` (replicas across cards) is ``ROADMAP.md`` §1 item 27: it
-raises.
+``mesh=`` splits a grid's batch over the slots of a :class:`.mesh.Mesh`
+(:func:`.mesh.run_sharded`; :func:`.fleet.run_fleet` for a knob grid);
+the counters equal the unsplit grid's.  The
+grid's replica count must divide the mesh size.
 """
 from __future__ import annotations
 
@@ -28,9 +30,10 @@ import torch
 
 from ..chaos.faults import init_chaos_state, refold_chaos_state
 from ..dynspec import DYN_FIELDS, dyn_of, dyn_rows, shape_key
-from ..envelope import check_one_card
 from ..spec import ARGMIN_FAMILY, LEARNED_POLICIES, Policy, WorldSpec
 from ..state import WorldState, tree_map
+from .fleet import run_fleet
+from .mesh import make_mesh, run_sharded
 from .replicas import (
     broadcast_state, fold_replica_chaos_keys, replica_counters, replicate_state,
     run_replicated,
@@ -67,6 +70,12 @@ def _split_grid(counters: Dict[str, np.ndarray], keys, n_loads: int, n_rep: int)
         }
         for i, k in enumerate(keys)
     }
+
+
+def _advance(spec: WorldSpec, batch: WorldState, net, bounds, mesh, n_ticks):
+    """A grid's batch advanced over ``mesh`` (default: one slot)."""
+    mesh = mesh or make_mesh(device=batch.t.device)
+    return run_sharded(spec, batch, net, bounds, mesh, n_ticks=n_ticks)
 
 
 def policy_batches(
@@ -135,15 +144,16 @@ def sweep_policies(
     policy id a replica's data (the argmin family, plus the learned ids
     with ``learn_in_dynamic``).
 
+    ``mesh`` splits each batch over the mesh's slots (:func:`.mesh.run_sharded`).
+
     Returns ``{policy: {counter: (n_loads, n_replicas) array}}``.
     """
-    check_one_card(mesh)
     out: Dict[int, Dict[str, np.ndarray]] = {}
     for pols, spec, batch, net, bounds in policy_batches(
         build, policies, load_intervals, n_replicas_per_load, seed, dynamic,
         **build_kwargs,
     ):
-        final = run_replicated(spec, batch, net, bounds, n_ticks=n_ticks)
+        final = _advance(spec, batch, net, bounds, mesh, n_ticks)
         out.update(_split_grid(
             replica_counters(final), pols, len(load_intervals), n_replicas_per_load
         ))
@@ -176,7 +186,6 @@ def sweep_explore(
             f"sweep_explore sweeps the learned policies ({names}); got "
             f"policy id {int(policy)}"
         )
-    check_one_card(mesh)
     n_loads, n_rep = len(load_intervals), n_replicas_per_load
     nlr = n_loads * n_rep
     build_kwargs.setdefault("send_interval", min(load_intervals))
@@ -185,7 +194,7 @@ def sweep_explore(
     exp_col = _f32_col(explore_rates, state.t.device).repeat_interleave(nlr)
     batch = batch.replace(learn=batch.learn.replace(explore=exp_col))
     batch = _with_loads(batch, load_intervals, n_rep)
-    final = run_replicated(spec, batch, net, bounds, n_ticks=n_ticks)
+    final = _advance(spec, batch, net, bounds, mesh, n_ticks)
     counters = replica_counters(final)
     cnt = final.learn.lat_cnt.cpu().numpy()
     counters["lat_cnt"] = cnt
@@ -284,16 +293,22 @@ def sweep_dyn(
     ``(i + 1) * n_replicas_per_cell - 1``, keyed as :func:`.replicate_state`
     keys one cell.
 
+    ``mesh`` splits the batch over the mesh's slots
+    (:func:`.fleet.run_fleet`, promoted with these rows).
+
     Returns ``[{knob: value, ..., "counters": {name: (n_rep,) array}}]``
     in grid order.
     """
-    check_one_card(mesh)
     grid, key0, batch, net, bounds, rows = dyn_batch(
         build, knobs, n_replicas_per_cell, seed, **build_kwargs
     )
     if not grid:
         return []
-    final = run_replicated(key0, batch, net, bounds, n_ticks=n_ticks, dyn_rows=rows)
+    if mesh is not None:
+        final = run_fleet(key0, batch, net, bounds, mesh=mesh, n_ticks=n_ticks,
+                          promote=True, dyn_rows=rows)
+    else:
+        final = run_replicated(key0, batch, net, bounds, n_ticks=n_ticks, dyn_rows=rows)
     counters = replica_counters(final)
     nrc = int(n_replicas_per_cell)
     return [

@@ -70,7 +70,9 @@ from ..core.engine import (
     _phase_spawn,
     _phase_spawn_multi,
     _PhaseBook,
+    _run,
     _span,
+    tp_ok,
     tp_reject_reason,
 )
 from ..dynspec import (
@@ -89,6 +91,7 @@ from ..telemetry.journeys import journey_tick_tp
 from ..telemetry.metrics import (
     PHASE_INDEX, PHASES, accumulate_exchange, accumulate_tick, init_exchange_leaves,
 )
+from .mesh import Mesh, on_device
 from .shards import ShardGroup
 
 _METRIC_FIELDS = tuple(f.name for f in dataclasses.fields(Metrics))
@@ -600,11 +603,11 @@ def _tp_telemetry_fold(spec, tp, state, t1, ph, exg: ExgStats, hist):
 # set-up and the runners
 # ----------------------------------------------------------------------
 
-def _tp_setup(spec, state, net, n_shards, exchange_window, pad):
+def _tp_setup(spec, state, net, n_shards, exchange_window, pad, stamp=True):
     """Gate, pad, stamp a telemetry-on world's shard axis
-    (:func:`stamp_tp_telemetry`) and size the exchange: ``(spec, state,
-    net, k_exchange, window_k)`` (``taskshard._tp_setup``, less
-    placement)."""
+    (:func:`stamp_tp_telemetry`, unless not ``stamp``) and size the
+    exchange: ``(spec, state, net, k_exchange, window_k)``
+    (``taskshard._tp_setup``, less placement)."""
     spec.validate()
     reason = tp_reject_reason(spec)
     if reason is not None:
@@ -635,7 +638,8 @@ def _tp_setup(spec, state, net, n_shards, exchange_window, pad):
     else:
         window_k = None
         k_ex = cap if exchange_window is None else max(1, min(exchange_window, cap))
-    spec, state = stamp_tp_telemetry(spec, state, n)
+    if stamp:
+        spec, state = stamp_tp_telemetry(spec, state, n)
     return spec, state, net, k_ex, window_k
 
 
@@ -689,6 +693,7 @@ def run_tp_shards(
     exchange_window: Optional[int] = None,
     pad: bool = True,
     promote: Optional[bool] = None,
+    stamp: bool = True,
 ) -> Tuple[WorldSpec, List[WorldState]]:
     """Run the sharded horizon and return every shard's final LOCAL state
     (its rows, and its own copy of the replicated leaves), with the
@@ -696,7 +701,7 @@ def run_tp_shards(
     shards run the padded spec's shape key with its knobs as one device
     operand, read by every shard."""
     spec, state, net, k_ex, window_k = _tp_setup(
-        spec, state, net, n_shards, exchange_window, pad
+        spec, state, net, n_shards, exchange_window, pad, stamp
     )
     if promote is None:
         promote = promote_default()
@@ -740,6 +745,7 @@ def run_tp_sharded(
     exchange_window: Optional[int] = None,
     pad: bool = True,
     promote: Optional[bool] = None,
+    stamp: bool = True,
 ) -> Tuple[WorldSpec, WorldState]:
     """Advance ONE world whose user and task rows span ``n_shards``
     shards, on the state's device (``taskshard.run_tp_sharded``).
@@ -754,11 +760,14 @@ def run_tp_sharded(
     takes no ``exchange_window``.  ``bounds`` is unused: the TP family is
     static.  ``promote`` (default :func:`..dynspec.promote_default`):
     the knobs ride a device operand; ``promote=False`` folds the spec's
-    values as host constants.
+    values as host constants.  ``stamp=False`` leaves a telemetry-on spec
+    unstamped: the caller's spec describes the returned state (no
+    per-shard exchange leaves; the phase brackets and the histogram still
+    book).
     """
     del bounds
     spec, finals = run_tp_shards(
-        spec, state, net, n_shards, n_ticks, exchange_window, pad, promote
+        spec, state, net, n_shards, n_ticks, exchange_window, pad, promote, stamp
     )
     U_loc = spec.n_users // int(n_shards)
 
@@ -862,3 +871,65 @@ def unstamp_tp_carry(spec: WorldSpec, state: WorldState) -> Tuple[WorldSpec, Wor
                 **init_exchange_leaves(spec, state.t.device)
             ))
     return spec, state
+
+
+# ----------------------------------------------------------------------
+# the node-sharded entry (``taskshard.run_node_sharded``)
+# ----------------------------------------------------------------------
+
+#: The mesh axis of a node-sharded world.
+NODE_AXIS = "node"
+
+
+def shard_state_by_node(
+    spec: WorldSpec, state: WorldState, mesh: Mesh, axis_name: str = NODE_AXIS,
+) -> WorldState:
+    """The world on the mesh's device, once the mesh axis is known to
+    divide its user and task rows (``ValueError`` otherwise, in JAX's
+    words).  JAX splits those rows over the devices and replicates the
+    rest; here every slot is on one device, so the state moves whole."""
+    n = mesh.shape[axis_name]
+    if spec.n_users % n or spec.task_capacity % n:
+        raise ValueError(
+            f"the {n}-device mesh axis must divide n_users "
+            f"({spec.n_users}) and task capacity ({spec.task_capacity}) — "
+            "pad_users_to_multiple(spec, state, net, n) pads with inert "
+            "users"
+        )
+    return on_device(state, mesh.device)
+
+
+def run_node_sharded(
+    spec: WorldSpec,
+    state: WorldState,
+    net: NetParams,
+    bounds: Optional[MobilityBounds],
+    mesh: Mesh,
+    n_ticks: Optional[int] = None,
+    axis_name: str = NODE_AXIS,
+) -> WorldState:
+    """Advance a world over the mesh's axis on the mesh's device (the
+    state, ``net`` and ``bounds`` move there); returns the final state.
+
+    A TP-admissible spec (:func:`..core.engine.tp_ok`) runs the task-sharded
+    tick at ``mesh.size`` shards, unpadded and unstamped, so ``spec`` keeps
+    describing the result; any other spec, once the axis divides its rows
+    (:func:`shard_state_by_node`), runs the engine unmodified, as JAX's
+    GSPMD fallback does: one jitted ``run``, whose static link cache is
+    built fused.  Both equal the single-device engine.
+    """
+    tp, n = tp_ok(spec), mesh.shape[axis_name]
+    if tp and spec.n_users % n:
+        raise ValueError(
+            f"the {n}-device mesh axis must divide n_users "
+            f"({spec.n_users}) — pad_users_to_multiple(spec, state, "
+            "net, n) pads with inert users (pad=True does it for you)"
+        )
+    state = on_device(state, mesh.device) if tp else shard_state_by_node(
+        spec, state, mesh, axis_name)
+    net, bounds = on_device(net, mesh.device), on_device(bounds, mesh.device)
+    if tp:
+        return run_tp_sharded(
+            spec, state, net, bounds, n_shards=n, n_ticks=n_ticks, pad=False, stamp=False,
+        )[1]
+    return _run(spec, state, net, bounds, n_ticks, None, fused_cache=True)[0]

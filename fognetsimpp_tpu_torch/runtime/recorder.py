@@ -33,6 +33,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from ..spec import WorldSpec
+from ..parallel.fleet import fleet_busy_fractions_per_replica, fleet_phase_work
 from ..state import WorldState, tree_map
 from .signals import extract_signals, summarize
 
@@ -429,32 +430,6 @@ def fleet_scalars(spec: WorldSpec, final_batch: WorldState) -> Dict:
         "per_replica": per_replica,
         "aggregate": aggregate,
     }
-
-
-def fleet_busy_fractions_per_replica(
-    spec: WorldSpec, final_batch: WorldState
-) -> Optional[np.ndarray]:
-    """Per-replica per-fog busy fractions ``(R, F)``
-    (``parallel/fleet.fleet_busy_fractions_per_replica``); None with
-    ``spec.telemetry`` off."""
-    if not spec.telemetry:
-        return None
-    busy = final_batch.telem.busy_ticks.detach().cpu().numpy().astype(np.float64)
-    ticks = np.maximum(
-        final_batch.telem.ticks.detach().cpu().numpy().astype(np.float64), 1.0
-    )
-    return busy / ticks[:, None]
-
-
-def fleet_phase_work(
-    spec: WorldSpec, final_batch: WorldState
-) -> Optional[np.ndarray]:
-    """Per-replica per-phase work counters ``(R, P)``
-    (``parallel/fleet.fleet_phase_work``); None with ``spec.telemetry``
-    off."""
-    if not spec.telemetry:
-        return None
-    return final_batch.telem.phase_work.detach().cpu().numpy().astype(np.int64)
 
 
 def record_fleet_run(

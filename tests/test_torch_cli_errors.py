@@ -4,13 +4,14 @@ Each guard rail of ``tests/test_cli_errors.py`` that the port serves,
 run through both ``main``s on the same argv: the same exit code and the
 same ``error:`` lines (``ap.error``'s usage line names each package's own
 program), the serving loop's and the twin's ``[TWIN-*]`` rails among them.
-The one flag of a module still to port, ``--mesh``, raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item.  The ini tier:
+``--mesh`` (the last flag that raised ``NotImplementedError`` naming a
+``ROADMAP.md`` item) runs, and its rails are JAX's.  The ini tier:
 values, first-match wildcards, ``build_from_config`` on the shipped
 smoke config (its ``fog.*.mips`` tier re-primes the first adverts) and
 the tier's error texts, all against JAX's.
 """
 import dataclasses
+import json
 
 import jax
 import numpy as np
@@ -18,7 +19,7 @@ import pytest
 import torch
 
 from fognetsimpp_tpu.config import ini as jini
-from fognetsimpp_tpu_torch.__main__ import NOT_PORTED
+import fognetsimpp_tpu_torch.__main__ as tcli
 from fognetsimpp_tpu_torch.__main__ import main as tmain
 from fognetsimpp_tpu_torch.config import ini as tini
 from fognetsimpp_tpu_torch.state import state_to_numpy
@@ -110,6 +111,12 @@ CASES = {
     "sweep_with_trace_out": S + ["--trace-out", "x.json"] + SWEEP,
     "whatif_unknown_knob": S + ["--whatif", "warp_factor=0.1,0.2"] + SHORT,
     "whatif_malformed_grid": S + ["--whatif", "uplink_loss_prob"] + SHORT,
+    # the slot mesh (--mesh)
+    "fleet_replicas_not_dividing_mesh": S + ["--replicas", "3", "--mesh", "2"] + SHORT,
+    "tp_conflicts_with_mesh": S + ["--tp", "8", "--mesh", "8"],
+    "mesh_conflicts_with_sweep": S + ["--mesh", "2"] + SWEEP,
+    "serve_with_mesh": S + ["--serve", "0", "--mesh", "2"] + SHORT,
+    "brokers_with_mesh": S + ["--brokers", "2", "--mesh", "2"],
 }
 
 
@@ -141,13 +148,15 @@ def test_guard_rail_matches_jax(name, tmp_path, capsys):
     assert "Traceback" not in terr
 
 
-@pytest.mark.parametrize("flag", [f for _, f, _ in NOT_PORTED])
+@pytest.mark.parametrize("flag", ["--mesh"])
 def test_later_item_flags_raise_naming_their_item(flag, capsys):
-    assert [f for _, f, _ in NOT_PORTED] == ["--mesh"]  # items 29 and 16 are ported
-    item = next(w for _, f, w in NOT_PORTED if f == flag).split("item ")[-1].rstrip(")")
-    assert item == "27"
-    with pytest.raises(NotImplementedError, match=rf"{flag}.*item {item}\)"):
-        tmain(S + [flag, "1", "--platform", "cpu"])
+    """No flag is refused as a later item any more: ``--mesh`` (item 27)
+    runs a fleet over its slots, ``--replicas`` defaulting to the mesh."""
+    assert not hasattr(tcli, "NOT_PORTED")
+    assert tmain(S + [flag, "2", "--platform", "cpu", "--set", "scenario.n_users=4"]
+                 + SHORT) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["n_devices"] == out["n_replicas"] == 2 and out["n_published_sum"] > 0
 
 
 def test_whatif_on_the_static_spec_path_matches_jax(monkeypatch, capsys):

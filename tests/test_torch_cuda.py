@@ -612,6 +612,43 @@ def test_batched_tick_does_not_synchronise(cuda, name):
     assert int(batch.metrics.n_published.sum()) > 0
 
 
+@pytest.mark.parametrize("name", ["min_latency", "ucb"])
+def test_fleet_slot_tick_does_not_synchronise(cuda, name):
+    """The fleet's mesh waits for the card nowhere: a process's rows cut
+    from the batch, its rows of the promoted knobs, the folded keys of a
+    ``fleet_decisions`` fleet and a tick of those rows; and the two-slot
+    fleet equals the one-slot fleet, every leaf."""
+    from fognetsimpp_tpu_torch.parallel import fleet, mesh
+    from fognetsimpp_tpu_torch.parallel.replicas import strict_vmap
+    from fognetsimpp_tpu_torch.random import PRNGKey
+
+    spec, batch, net, b = _replica_world(cuda, name)
+    R = batch.t.shape[0]
+    two = mesh.make_mesh(2, device=cuda)
+    with strict_vmap():
+        rows, net, b = mesh.shard_world(batch, net, b, two)
+        run_spec, knobs = fleet._run_rows(spec, two, R, rows, True)
+        tick, _ = engine.batched_tick(run_spec, net, b, rows.state, knobs)
+        state = rows.state
+        for _ in range(8):
+            state = tick(state)
+        key = PRNGKey(5, cuda)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            rows, _, _ = mesh.shard_world(batch, net, b, two)
+            _, knobs = fleet._run_rows(spec, two, R, rows, True)
+            keys = fleet.fold_replica_keys(key, R)
+            state = tick(rows.state.replace(key=keys[rows.start:rows.stop]))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        one = fleet.run_fleet(spec, batch, net, b, mesh.make_mesh(1, device=cuda), n_ticks=10)
+        split = fleet.run_fleet(spec, batch, net, b, two, n_ticks=10)
+    assert int(state.metrics.n_published.sum()) > 0
+    for x, y in zip(state_to_numpy(one), state_to_numpy(split)):
+        assert x.tobytes() == y.tobytes()
+
+
 # ----------------------------------------------------------------------
 # the promoted knobs on the card
 # ----------------------------------------------------------------------

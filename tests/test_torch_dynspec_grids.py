@@ -14,12 +14,14 @@ import torch
 from fognetsimpp_tpu import Policy
 from fognetsimpp_tpu import dynspec as jdyn
 from fognetsimpp_tpu.core import engine as jengine
+from fognetsimpp_tpu.parallel import mesh as jmesh
 from fognetsimpp_tpu.parallel import replicas as jreplicas
 from fognetsimpp_tpu.parallel import sweep as jsweep
 from fognetsimpp_tpu.scenarios import smoke as jsmoke
 from fognetsimpp_tpu.scenarios import wireless as jw
 from fognetsimpp_tpu_torch import dynspec as tdyn
 from fognetsimpp_tpu_torch.core import engine as tengine
+from fognetsimpp_tpu_torch.parallel import mesh as tmesh
 from fognetsimpp_tpu_torch.parallel import replicas as treplicas
 from fognetsimpp_tpu_torch.parallel import sweep as tsweep
 from fognetsimpp_tpu_torch.scenarios import smoke as tsmoke
@@ -105,9 +107,14 @@ def test_sweep_dyn_refusals_equal_jax():
             tsweep.sweep_dyn(tsmoke.build, knobs, device="cpu", **kw)
         assert str(te.value) == str(je.value)
     assert tsweep.sweep_dyn(tsmoke.build, {"uplink_loss_prob": []}, device="cpu") == []
-    with pytest.raises(NotImplementedError, match="item 27"):
-        tsweep.sweep_dyn(tsmoke.build, {"uplink_loss_prob": [0.1]}, mesh=object(),
-                         device="cpu", **kw)
+    # a grid that does not divide the mesh, in JAX's words (item 27 is ported)
+    with pytest.raises(ValueError, match="divide") as je:
+        jsweep.sweep_dyn(jsmoke.build, {"uplink_loss_prob": [0.1]}, mesh=jmesh.make_mesh(2),
+                         **kw)
+    with pytest.raises(ValueError, match="divide") as te:
+        tsweep.sweep_dyn(tsmoke.build, {"uplink_loss_prob": [0.1]},
+                         mesh=tmesh.make_mesh(2, device="cpu"), device="cpu", **kw)
+    assert str(te.value) == str(je.value)
 
 
 def test_sweep_dyn_from_a_live_carry_matches_jax():

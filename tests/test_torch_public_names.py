@@ -3,8 +3,8 @@
 Every name ``fognetsimpp_tpu/__init__.py`` exports (its ``from ... import``
 lists, read from its syntax tree) is an attribute of
 ``fognetsimpp_tpu_torch``, from the port's own modules, and so are the
-``chaos``, ``hier``, ``telemetry``, ``runtime``, ``config`` and ``twin``
-subpackages' names, and the public names of the ``messages`` module, the
+``chaos``, ``hier``, ``telemetry``, ``runtime``, ``config``, ``twin`` and
+``parallel`` subpackages' names, and the public names of the ``messages`` module, the
 CLI module, the telemetry exporters and the twin's modules.
 Importing the package builds no kernel.
 """
@@ -43,7 +43,9 @@ def _exported(init: pathlib.Path):
     return names
 
 
-@pytest.mark.parametrize("pkg", ["", "chaos", "hier", "telemetry", "runtime", "config", "twin"])
+@pytest.mark.parametrize("pkg", [
+    "", "chaos", "hier", "telemetry", "runtime", "config", "twin", "parallel",
+])
 def test_every_jax_public_name_is_in_the_port(pkg):
     names = _exported(REPO / "fognetsimpp_tpu" / pkg / "__init__.py")
     assert names

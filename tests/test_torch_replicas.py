@@ -27,6 +27,7 @@ from fognetsimpp_tpu_torch.core import engine as tengine
 from fognetsimpp_tpu_torch.ops import arrival_kernels as ak
 from fognetsimpp_tpu_torch.ops import cell_kernels as ck
 from fognetsimpp_tpu_torch.ops import cuda_build
+from fognetsimpp_tpu_torch.parallel import mesh as tmesh
 from fognetsimpp_tpu_torch.parallel import replicas as treplicas
 from fognetsimpp_tpu_torch.parallel import sweep as tsweep
 from fognetsimpp_tpu_torch.scenarios import smoke as tsmoke
@@ -260,7 +261,8 @@ def test_cell_sum_rule_equals_per_replica_plain_and_xla(in_dims):
 def test_refusals_name_their_items():
     """Promoted-knob rows and chaos batches run (items 11 and 12 are
     ported: ``tests/test_torch_dynspec.py`` and ``tests/test_torch_chaos.py``
-    hold them against JAX); replicas across cards still raise."""
+    hold them against JAX), and so do grids over a slot mesh (item 27,
+    ``tests/test_torch_mesh.py``) whose replica count divides it."""
     spec, state, net, bounds = tsmoke.build(device="cpu", n_users=4, n_fogs=2, horizon=0.01)
     batch = treplicas.replicate_state(spec, state, 2)
     key = tdyn.shape_key(spec)
@@ -274,11 +276,14 @@ def test_refusals_name_their_items():
     assert grid[0]["counters"]["n_published"].shape == (1,)
     cells, fork = tsweep.sweep_dyn_from(spec, state, net, bounds, {"learn_discount": [0.9]}, 5)
     assert cells == [{"learn_discount": 0.9}] and fork.t.shape == (1,)
-    with pytest.raises(NotImplementedError, match="item 27"):
-        tsweep.sweep_policies(tsmoke.build, [0], [0.05], mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 27"):
+    # replicas over a slot mesh run (item 27); a grid that does not
+    # divide the mesh is refused
+    with pytest.raises(ValueError, match="divide"):
+        tsweep.sweep_policies(tsmoke.build, [0], [0.05], mesh=tmesh.make_mesh(2, device="cpu"),
+                              device="cpu")
+    with pytest.raises(ValueError, match="divide"):
         tsweep.sweep_explore(tsmoke.build, int(Policy.UCB), [0.1], [0.05],
-                             mesh=object(), device="cpu")
+                             mesh=tmesh.make_mesh(2, device="cpu"), device="cpu")
     # a chaos batch runs (item 12): each replica keys its own schedule
     # (``tests/test_torch_chaos.py`` holds such batches against JAX)
     cspec, cstate, cnet, cbounds = tsmoke.build(
