@@ -285,6 +285,24 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    (``parallel.multihost.initialize``), ``run_sharded`` and
    ``fleet_decisions`` over ``global_mesh`` (2 slots, 4 replicas of a
    256-user smoke world) against the CPU, the group destroyed after.
+40. checkify: the runtime sanitizer and the carry contracts on the bench
+   world of phase 5 (dt 5 ms, its 20 ticks): ``run_checkified(errors=
+   "div")`` equal on every leaf to the card's plain ``engine.run``, with
+   one host synchronisation in the whole run (torch's sync debug mode
+   counts them, checked on one ``.item()`` first), and ms a tick beside
+   the plain tick's; ``errors="nan"`` raises ``CheckifyError``;
+   ``check_step_contract`` and ``check_fleet_contract`` (4 replicas) on
+   the card's state, shapes only, together in under ``CONTRACT_MAX_S``
+   seconds, and a planted int8 + int32 promotion raising
+   ``ContractError``; then ``python -m fognetsimpp_tpu_torch --checkify``
+   as two subprocesses on the tests' smoke world (seed 7, cut to 0.1 s):
+   exit 0 under ``div`` and 1 under ``nan``;
+41. card_tests: ``python -m pytest --noconftest -p no:cacheprovider -q
+   tests/test_torch_cuda.py``: its tests collected once and dealt to
+   ``CARD_TEST_PROCS`` subprocesses of the same command (every test
+   once), ``CARD_TESTS_TIMEOUT`` seconds at most; the junit counts and
+   seconds; a failure, an error, a skip, a test not run, a nonzero exit
+   or the timeout fails the run.
    Every phase from 18 on resets the wrapper counts before its path and
    fails if a kernel of the path was launched no time;
 
@@ -1487,6 +1505,226 @@ def multihost_phase(dev, h) -> dict:
         "decisions": d, "deferred_max": dm, "launches": launches, "nvidia_smi": h.smi,
     })
     return launches
+
+
+# ---- 40-41: the sanitizer and the contracts, then the card-only tests ---
+#: The sanitized CLI calls' world: ``tests/test_engine_smoke.py``'s, its
+#: 0.3 s cut to 0.1 s.
+CHECKIFY_CLI = ["-s", "smoke", "--set", "spec.horizon=0.1", "--seed", "7"]
+#: Replicas of the bench world in the fleet contract's batch.
+CONTRACT_REPLICAS = 4
+#: Most seconds the step and fleet contracts may take together.
+CONTRACT_MAX_S = 5.0
+#: The card test file's command, its time limit (seconds) and the pytest
+#: processes its tests are dealt to.
+CARD_TESTS = ["-m", "pytest", "--noconftest", "-p", "no:cacheprovider", "-q",
+              "tests/test_torch_cuda.py"]
+CARD_TESTS_TIMEOUT, CARD_TEST_PROCS = 420, 8
+
+
+#: The warning torch's sync debug mode gives a synchronising CUDA call.
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+def _sync_count(fn):
+    """``(fn(), host synchronisations it made)``: torch's sync debug mode
+    warns once a synchronising CUDA call, and each warning is counted."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum(SYNC_WARNING in str(w.message) for w in caught)
+
+
+def checkify_phase(dev, h) -> dict:
+    """Phase 40 (see the module docstring); returns the sanitized run's
+    launches."""
+    import os
+
+    import torch
+
+    from fognetsimpp_tpu_torch.core import contracts, engine
+    from fognetsimpp_tpu_torch.core.sanitizer import CheckifyError
+    from fognetsimpp_tpu_torch.parallel import replicate_state
+    from fognetsimpp_tpu_torch.scenarios import smoke
+    from fognetsimpp_tpu_torch.state import state_to_numpy
+
+    t_phase = time.perf_counter()
+    _, n_cal = _sync_count(lambda: torch.ones((), device=dev).item())
+    if n_cal != 1:
+        raise SystemExit(f"checkify: one .item() counted {n_cal} synchronisations")
+    kw = bench_world(5e-3)
+    spec, st, net, b = smoke.build(device=dev, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain, _ = engine.run(spec, st, net, b)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+
+    spec, st, net, b = smoke.build(device=dev, **kw)
+    torch.cuda.synchronize()
+    h.reset_launches()
+    t0 = time.perf_counter()
+    (final, _), n_sync = _sync_count(
+        lambda: engine.run_checkified(spec, st, net, b, errors="div"))
+    torch.cuda.synchronize()
+    div_s = time.perf_counter() - t0
+    launches = h.all_launches()
+    h.need_launches("checkify", launches, ["fused_arrival_plan"])
+    if n_sync != 1:
+        raise SystemExit(f"checkify: the sanitized run synchronised {n_sync} times, not once")
+    n_leaves = _equal_leaves(state_to_numpy(final), state_to_numpy(plain),
+                             "checkify div (sanitized against plain, on the card)")
+
+    spec, st, net, b = smoke.build(device=dev, **kw)
+    t0 = time.perf_counter()
+    try:
+        engine.run_checkified(spec, st, net, b, errors="nan")
+    except CheckifyError as e:
+        nan_trip = str(e)
+    else:
+        raise SystemExit("checkify: the nan set did not trip on the bench world")
+    nan_s = time.perf_counter() - t0
+
+    # the contracts on the card's state: shapes only
+    t0 = time.perf_counter()
+    contracts.check_step_contract(spec, st, net, b)
+    step_s = time.perf_counter() - t0
+    batch = replicate_state(spec, st, CONTRACT_REPLICAS, seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    contracts.check_fleet_contract(spec, batch, net, b)
+    fleet_s = time.perf_counter() - t0
+    if step_s + fleet_s > CONTRACT_MAX_S:
+        raise SystemExit(f"checkify: the contracts took {step_s + fleet_s:.2f} s")
+    step = engine.make_step(spec)
+
+    def promoted(s, n, bb):
+        out = step(s, n, bb)
+        stage = out.tasks.stage
+        return out.replace(tasks=out.tasks.replace(
+            stage=stage + torch.ones_like(stage, dtype=torch.int32)))
+
+    try:
+        contracts.check_step_contract(spec, st, net, b, step=promoted)
+    except contracts.ContractError as e:
+        if "stage" not in str(e):
+            raise SystemExit(f"checkify: the planted promotion's error names no stage: {e}")
+    else:
+        raise SystemExit("checkify: a planted int8 + int32 promotion passed the contract")
+    del batch
+
+    # the CLI, both calls at once
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = {
+        sets: subprocess.Popen(
+            [sys.executable, "-m", "fognetsimpp_tpu_torch", *CHECKIFY_CLI, "--checkify", sets],
+            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for sets in ("div", "nan")
+    }
+    cli = {}
+    try:
+        for sets, p in procs.items():
+            out, err = p.communicate(timeout=600)
+            cli[sets] = {"rc": p.returncode, "stdout": out.strip().splitlines()[-1:],
+                         "stderr": err.strip().splitlines()[-1:]}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    cli_s = time.perf_counter() - t0
+    if cli["div"]["rc"] != 0 or cli["nan"]["rc"] != 1 or not \
+            cli["nan"]["stderr"][0].startswith("error: checkify: nan: "):
+        raise SystemExit(f"checkify: the CLI calls gave {cli}")
+    n = spec.n_ticks
+    emit({
+        "phase": "checkify", "n_users": spec.n_users, "n_fogs": spec.n_fogs,
+        "window": spec.window, "ticks": n, "leaves_equal": n_leaves,
+        "host_syncs": n_sync, "plain_s": plain_s, "div_s": div_s, "nan_s": nan_s,
+        "plain_ms_per_tick": plain_s / n * 1e3, "div_ms_per_tick": div_s / n * 1e3,
+        "div_over_plain": div_s / plain_s, "nan_trip": nan_trip,
+        "step_contract_s": step_s, "fleet_contract_s": fleet_s,
+        "fleet_contract_replicas": CONTRACT_REPLICAS, "cli": cli, "cli_s": cli_s,
+        "seconds": time.perf_counter() - t_phase, "launches": launches,
+        "nvidia_smi": h.smi,
+    })
+    return launches
+
+
+def card_tests_phase(h) -> dict:
+    """Phase 41 (see the module docstring): the card test file's tests,
+    collected once and run in ``CARD_TEST_PROCS`` pytest processes
+    (every test once; each process runs torch on one CPU thread, the
+    file's own fixture); returns the summed counts."""
+    import os
+    import xml.etree.ElementTree as ET
+
+    import torch
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(root, "_cli_out", "card_tests")  # git-ignored
+    os.makedirs(out, exist_ok=True)
+    torch.cuda.empty_cache()  # the test processes' memory
+    t0 = time.perf_counter()
+    coll = subprocess.run([sys.executable, *CARD_TESTS, "--collect-only"], cwd=root,
+                          capture_output=True, text=True, timeout=300)
+    ids = [ln.strip() for ln in coll.stdout.splitlines() if "::" in ln]
+    if coll.returncode != 0 or not ids:
+        raise SystemExit(f"card_tests: collection failed ({coll.returncode}):\n"
+                         f"{coll.stdout[-3000:]}\n{coll.stderr[-2000:]}")
+    procs = []
+    for k in range(CARD_TEST_PROCS):
+        shard = ids[k::CARD_TEST_PROCS]
+        xml = os.path.join(out, f"shard{k}.xml")
+        if os.path.exists(xml):
+            os.remove(xml)
+        log = open(os.path.join(out, f"shard{k}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, *CARD_TESTS[:-1], f"--junitxml={xml}", *shard], cwd=root,
+            stdout=log, stderr=subprocess.STDOUT, text=True), xml, log))
+    deadline = t0 + CARD_TESTS_TIMEOUT
+    try:
+        for p, _, _ in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        raise SystemExit(f"card_tests: past its {CARD_TESTS_TIMEOUT} s") from None
+    finally:
+        for p, _, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    secs = time.perf_counter() - t0
+    counts = {"tests": 0, "failures": 0, "errors": 0, "skipped": 0}
+    for _, xml, _ in procs:
+        if os.path.exists(xml):
+            suite = ET.parse(xml).getroot()
+            suite = suite if suite.tag == "testsuite" else suite.find("testsuite")
+            for k in counts:
+                counts[k] += int(suite.get(k, 0))
+    row = {
+        "phase": "card_tests", "command": " ".join(["python", *CARD_TESTS]),
+        "collected": len(ids), "processes": CARD_TEST_PROCS,
+        "passed": counts["tests"] - counts["failures"] - counts["errors"] - counts["skipped"],
+        "failed": counts["failures"], "errors": counts["errors"],
+        "skipped": counts["skipped"], "rcs": [p.returncode for p, _, _ in procs],
+        "seconds": secs, "nvidia_smi": h.smi,
+    }
+    emit(row)
+    if any(row["rcs"]) or row["failed"] or row["errors"] or row["skipped"] \
+            or row["passed"] != len(ids):
+        tails = "".join(open(log.name).read()[-3000:] for _, _, log in procs)
+        raise SystemExit(f"card_tests: {row}\n{tails}")
+    return row
 
 
 # ---- the CPU references, run in worker processes ------------------------
@@ -4073,6 +4311,11 @@ def phases(refs) -> int:
     node_launches = node_sharded_phase(dev, refs, h)
     multihost_launches = multihost_phase(dev, h)
 
+    # 40-41. the sanitizer and the contracts, then the card-only tests
+    # (after every timed phase: pytest's CPU work sits under none)
+    checkify_launches = checkify_phase(dev, h)
+    card_tests_phase(h)
+
     # each row's launches: the main paths' calls at that row's shape
     by_path = {
         ("fused_arrival_plan", "bench"): {
@@ -4177,6 +4420,9 @@ def phases(refs) -> int:
         "sharded_min_busy": node_launches["sharded_min_busy"]["ring_all_gather"]}
     by_path[("fused_arrival_plan", "bench")]["multihost"] = \
         multihost_launches["fused_arrival_plan"]
+    # the sanitized bench run (40)
+    by_path[("fused_arrival_plan", "bench")]["checkify"] = \
+        checkify_launches["fused_arrival_plan"]
     for key, paths in by_path.items():
         kernel_rows[key]["launches"] = sum(paths.values())
         kernel_rows[key]["launches_by_path"] = paths

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -30,8 +31,8 @@ def _fleet(args) -> bool:
 
 
 def _parser() -> argparse.ArgumentParser:
-    """``python -m fognetsimpp_tpu``'s flags (``--checkify``, a run under
-    ``jax.experimental.checkify``, has no PyTorch counterpart)."""
+    """``python -m fognetsimpp_tpu``'s flags; ``--checkify`` runs the
+    world under the port's runtime sanitizer (``core/sanitizer.py``)."""
     from .spec import ARGMIN_FAMILY, LEARNED_POLICIES, Policy
 
     _policy_catalogue = ", ".join(f"{p.name.lower()}={int(p)}" for p in Policy)
@@ -200,6 +201,14 @@ def _parser() -> argparse.ArgumentParser:
                     "'fog:td:tu;...' text form); needs --chaos")
     ap.add_argument("--platform", default=None,
                     help="'cpu' runs on the CPU; default the CUDA card")
+    ap.add_argument("--checkify", nargs="?", const="div", default=None,
+                    metavar="SETS",
+                    help="debug SLOW PATH: run under the runtime sanitizer "
+                    "with the named error sets (comma-joined from "
+                    "nan,div,oob, or 'all'; default div — "
+                    "engine.CHECKIFY_SETS documents why nan/oob are not "
+                    "the default); also enabled by FNS_CHECKIFY=1 or "
+                    "FNS_CHECKIFY=<SETS>")
     ap.add_argument("--analyze", metavar="DIR", default=None,
                     help="analyse recorded runs in DIR and exit (.anf analog)")
     _dyn_names = ", ".join(
@@ -241,6 +250,23 @@ def _guard(ap, args):
     """JAX's guard rails for the paths the port runs: ``ap.error`` for the
     ``[CLI-*]`` / ``[TP-*]`` cells, else an exit code for the one-line
     ``error:`` refusals, or None to go on."""
+    # the opt-in runtime sanitizer: --checkify wins, else the
+    # FNS_CHECKIFY env knob ("1"/set names; "0"/"" = off)
+    if args.checkify is None:
+        env = os.environ.get("FNS_CHECKIFY", "")
+        if env.lower() not in ("", "0", "off", "false", "no"):
+            args.checkify = env
+    if args.checkify is not None and (
+        args.serve is not None
+        or args.replicas is not None
+        or args.mesh is not None
+        or args.tp is not None
+        or args.sweep
+        or args.progress
+    ):
+        ap.error("[CLI-CHECKIFY-SOLO] --checkify/FNS_CHECKIFY is the "
+                 "single-world debug slow path; it does not combine with "
+                 "--serve/--replicas/--mesh/--tp/--sweep/--progress")
     if args.tp is not None:
         if _fleet(args):
             ap.error("[CLI-TP-FLEET] --tp shards ONE world's task table "
@@ -1010,8 +1036,10 @@ def _run_fleet(ap, args, cfg, world, attrs, dev) -> int:
 
 def _run_single(ap, args, cfg, world, attrs, dev) -> int:
     """One world: ``engine.run`` (series with ``--ticks``/``--trails``),
-    or ``run_chunked`` with a progress line a chunk (``--progress``)."""
-    from .core.engine import run, run_chunked
+    ``run_chunked`` with a progress line a chunk (``--progress``), or
+    ``run_checkified`` (``--checkify``)."""
+    from .core.engine import _checkify_errors, run, run_checkified, run_chunked
+    from .core.sanitizer import CheckifyError
     from .runtime.recorder import record_run
     from .runtime.signals import summarize
     from .telemetry.profile import profile_trace
@@ -1038,6 +1066,21 @@ def _run_single(ap, args, cfg, world, attrs, dev) -> int:
             final = run_chunked(spec, state, net, bounds,
                                 chunk_ticks=args.progress, callback=_cb)
             series = None
+        elif args.checkify is not None:
+            try:
+                _checkify_errors(args.checkify)  # unknown set names
+            except ValueError as e:
+                print(f"error: checkify: {e}", file=sys.stderr)
+                return 1
+            try:
+                final, series = run_checkified(
+                    spec, state, net, bounds, errors=args.checkify
+                )
+            except CheckifyError as e:
+                # a tripped check: one line naming the set and the
+                # operator; any other error keeps its traceback
+                print(f"error: checkify: {e}", file=sys.stderr)
+                return 1
         else:
             final, series = run(spec, state, net, bounds)
         _sync(dev)

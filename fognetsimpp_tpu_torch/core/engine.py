@@ -31,9 +31,11 @@ a float32 tensor (:func:`~fognetsimpp_tpu_torch.f32math.const`); a
 ``mode="drop"`` go through :mod:`..ops.scatter`.  Integer sums ask for
 int32 explicitly (torch would widen them to int64).
 
-A spec that enables anything outside this slice raises
-``NotImplementedError`` naming the ``ROADMAP.md`` item that will port it
-(:mod:`..envelope`).
+Every spec field is ported.  The carry contracts (:mod:`.contracts`)
+hold every phase and the whole tick to the state's shapes and dtypes,
+and :func:`run_checkified` runs :func:`run` under the runtime sanitizer
+(:mod:`.sanitizer`), a debug run that stops at the first integer
+division by zero, NaN or out-of-range index.
 """
 from __future__ import annotations
 
@@ -48,7 +50,7 @@ from ..dynspec import (
     promote_default, split_spec,
 )
 from ..chaos.faults import rtt_factor, step_lifecycle
-from ..envelope import broker_dense_ok, check_slice
+from ..envelope import broker_dense_ok
 from ..f32math import const, fma, kept_tensor, xla_sum
 from ..hier.federation import hier_reject_reason
 from ..learn.bandits import arms_view, exp3_probs
@@ -2183,7 +2185,6 @@ def make_step(spec: WorldSpec, with_aux: bool = False):
     reads the spec's own values as host constants.  The two differ where
     the reference divides by a knob (:func:`..dynspec.div_knob`)."""
     spec.validate()
-    check_slice(spec)
     dv_spec = dyn_of(spec)
 
     def step(
@@ -2431,7 +2432,6 @@ def _finalize_derived_acks(
 
 def _runner_setup(spec: WorldSpec, net: NetParams, dev, bounds, n_ticks):
     """``run``'s checks and defaults: ``(bounds, n_ticks)``."""
-    check_slice(spec, net)
     if spec.derive_acks and not spec.assume_static:
         raise ValueError("derive_acks needs assume_static (one static link cache)")
     if spec.assume_static and net.mac_loss_tab.shape[0] > 0:
@@ -2716,3 +2716,67 @@ def run_jit(
         key_spec, dyn = _promoted(spec, state.t.device)
         return _run(key_spec, state, net, bounds, None, dyn, fused_cache=True)[0]
     return _run(spec, state, net, bounds, None, None, fused_cache=True)[0]
+
+
+#: ``FNS_CHECKIFY`` / ``--checkify`` set names (:mod:`.sanitizer`).
+#: ``div`` is the default: ``nan`` trips on the engine's deliberate
+#: inf-sentinel arithmetic in masked lanes (the ack columns subtract
+#: ``inf - inf`` there by design, as JAX's do), and ``oob`` is kept for
+#: targeted debugging (the port's drop-mode scatters stay in range, so
+#: unlike JAX's it is clean on the stock engine).
+CHECKIFY_SETS = ("nan", "div", "oob")
+
+
+def _checkify_errors(names: Optional[str]) -> Tuple[str, ...]:
+    """The sets ``names`` picks, in JAX's spellings: None, ``""``,
+    ``"1"``, ``"on"``, ``"true"`` and ``"div"`` mean ``div``; ``"all"``
+    means every set; otherwise a comma-joined list of
+    :data:`CHECKIFY_SETS`.  A ``"0"`` reaching here is a ``--checkify
+    0`` that meant "off" (the env layer treats 0 as disabled): rejected
+    loudly, not run on the default set."""
+    if names is None or names in ("", "1", "on", "true", "div"):
+        return ("div",)
+    if names == "all":
+        return CHECKIFY_SETS
+    picked = [t.strip() for t in names.split(",") if t.strip()]
+    bad = sorted(set(picked) - set(CHECKIFY_SETS))
+    if bad:
+        raise ValueError(
+            f"unknown checkify set(s) {bad} "
+            f"(have {list(CHECKIFY_SETS)} or 'all')"
+        )
+    return tuple(dict.fromkeys(picked))
+
+
+def run_checkified(
+    spec: WorldSpec,
+    state: WorldState,
+    net: NetParams,
+    bounds: Optional[MobilityBounds] = None,
+    n_ticks: Optional[int] = None,
+    errors: Optional[str] = None,
+) -> Tuple[WorldState, Optional[dict]]:
+    """The opt-in runtime sanitizer: :func:`run` under
+    :class:`.sanitizer.Sanitizer` with the sets ``errors`` names
+    (:func:`_checkify_errors`; default ``div``).
+
+    SLOW PATH, debug runs only: every operator of the run goes through a
+    Python dispatch mode, and each checked one launches a few more
+    kernels; never benchmark or gate on it.  Enabled by
+    ``FNS_CHECKIFY=1`` or the CLI's ``--checkify``.  On the card the
+    checks keep their flags on the device and the run waits for them
+    once, at its end (plus the per-tick series' copies, where the spec
+    records them); on the CPU it runs the tensor route, which the
+    dispatcher sees.  Raises :class:`.sanitizer.CheckifyError` naming the
+    set and the operator that tripped first; else returns :func:`run`'s
+    ``(final, series)``, every leaf equal to a plain run's."""
+    from ..device import host_routes
+    from .sanitizer import Sanitizer
+
+    sets = _checkify_errors(errors)
+    if bounds is None:
+        bounds = default_bounds(device=state.t.device)
+    with host_routes(False), Sanitizer(sets, state.t.device) as sanitizer:
+        final, series = run(spec, state, net, bounds, n_ticks=n_ticks)
+    sanitizer.throw()
+    return final, series

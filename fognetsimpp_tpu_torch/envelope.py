@@ -1,9 +1,6 @@
-"""What the port runs today: the one place that knows the slice's limits.
-
-A spec that enables a branch not yet ported raises ``NotImplementedError``
-naming the ``ROADMAP.md`` §1 item that will port it; nothing runs down a
-wrong path silently.
-"""
+"""The port's envelope: the dense broker's gate and what the port cannot
+run (nothing, since every spec field is ported: what is left,
+``ROADMAP.md`` §1 item 21, is refused where it is asked for)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -31,17 +28,3 @@ def slice_reject_reason(spec: WorldSpec, net=None) -> Optional[str]:
     is shards and slots on distinct cards, refused where they are asked
     for (``ops/ring_kernels.py``, ``parallel/mesh.make_mesh``)."""
     return None
-
-
-def check_slice(spec: WorldSpec, net=None) -> None:
-    """Raise ``NotImplementedError`` for a spec outside the port's slice."""
-    why = slice_reject_reason(spec, net)
-    if why is not None:
-        raise NotImplementedError(f"not ported yet: {why}")
-
-
-def check_tp_slice(spec: WorldSpec, net=None) -> None:
-    """The task-sharded runner's envelope: the single-device slice (the
-    telemetry planes included).  The TP family itself is the JAX gate's
-    (``engine.tp_reject_reason``)."""
-    check_slice(spec, net)

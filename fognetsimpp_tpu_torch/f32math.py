@@ -40,6 +40,12 @@ def _bitcast_vmap(info, in_dims, x, dtype):
     return _bitcast_op(x, dtype), in_dims[0]
 
 
+@_bitcast_op.register_fake
+def _bitcast_fake(x, dtype):
+    """The shape and dtype alone (``core/contracts.py``)."""
+    return x.new_empty(x.shape, dtype=dtype)
+
+
 #: Whether this PyTorch has a batching rule for a dtype view (2.13 on).
 _VIEW_BATCHES = tuple(int(v) for v in torch.__version__.split(".")[:2]) >= (2, 13)
 

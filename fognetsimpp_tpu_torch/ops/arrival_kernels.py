@@ -66,20 +66,33 @@ def pairwise_rank_plain(
 ) -> torch.Tensor:
     """(K,) i32 within-fog rank, -1 where masked out: the O(K^2) pairwise
     compare and row sum of ``ops/queues.plan_arrivals``, taken
-    ``_PLAIN_ROWS`` rows at a time so that a wide window fits in memory."""
+    ``_PLAIN_ROWS`` rows at a time so that a wide window fits in memory.
+    On the CPU only the masked rows and columns are compared (a
+    masked-out row's rank is -1 and a masked-out column counts for no
+    row: the same result); on the card the whole window is, with no wait
+    for its mask."""
     K = mask.shape[0]
     ids = torch.arange(K, dtype=torch.int32, device=mask.device)
+    col_mask = mask if mask.is_cuda else None
+    if col_mask is None:
+        ids, fog_key, t_key = ids[mask], fog_key[mask], t_key[mask]
     parts = []
-    for r0 in range(0, K, _PLAIN_ROWS):
+    for r0 in range(0, ids.shape[0], _PLAIN_ROWS):
         r = slice(r0, r0 + _PLAIN_ROWS)
         same = fog_key[None, :] == fog_key[r, None]
         earlier = (t_key[None, :] < t_key[r, None]) | (
             (t_key[None, :] == t_key[r, None]) & (ids[None, :] < ids[r, None])
         )
-        before = same & earlier & mask[None, :]
+        before = same & earlier
+        if col_mask is not None:
+            before = before & col_mask[None, :]
         parts.append(before.sum(dim=1, dtype=torch.int32))
     cnt = torch.cat(parts) if parts else ids
-    return torch.where(mask, cnt, torch.full_like(cnt, -1))
+    if col_mask is not None:
+        return torch.where(mask, cnt, torch.full_like(cnt, -1))
+    out = torch.full((K,), -1, dtype=torch.int32)
+    out[mask] = cnt
+    return out
 
 
 def fog_reductions(
@@ -247,6 +260,22 @@ def _pairwise_op(
     mask: torch.Tensor, fog_key: torch.Tensor, t_key: torch.Tensor, n_fogs: int
 ) -> torch.Tensor:
     return _pairwise_impl(mask, fog_key, t_key)
+
+
+# The fake kernels give the outputs' shapes and dtypes without running
+# anything: the carry contracts (``core/contracts.py``) trace the tick
+# under ``FakeTensorMode``.
+
+@_fused_op.register_fake
+def _fused_fake(mask, fog_key, t_key, n_fogs):
+    K, F = mask.shape[0], n_fogs
+    return (mask.new_empty((K,), dtype=torch.int32), mask.new_empty((F,), dtype=torch.int32),
+            mask.new_empty((F,), dtype=torch.float32), mask.new_empty((F,), dtype=torch.int32))
+
+
+@_pairwise_op.register_fake
+def _pairwise_fake(mask, fog_key, t_key, n_fogs):
+    return mask.new_empty(mask.shape, dtype=torch.int32)
 
 
 def fused_arrival_plan(

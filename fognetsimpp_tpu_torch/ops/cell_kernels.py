@@ -154,6 +154,12 @@ def _cell_sum_op(cell: torch.Tensor, vals: torch.Tensor, n_cells: int) -> torch.
     return _cell_sum_impl(cell, vals, n_cells)
 
 
+@_cell_sum_op.register_fake
+def _cell_sum_fake(cell, vals, n_cells):
+    """The output's shape and dtype alone (``core/contracts.py``)."""
+    return vals.new_empty((n_cells,), dtype=torch.float32)
+
+
 def cell_sum_ordered(
     cell: torch.Tensor, vals: torch.Tensor, n_cells: int
 ) -> torch.Tensor:

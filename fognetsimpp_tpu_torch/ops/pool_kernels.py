@@ -163,6 +163,22 @@ def _scan_rows_op(
     return _scan_impl(mips, valid, t, pool0, fire_t0, refund0, v2, False)
 
 
+# The fake kernels give the outputs' shapes and dtypes alone
+# (``core/contracts.py`` traces the tick under ``FakeTensorMode``).
+
+@_scan_op.register_fake
+def _scan_fake(mips, valid, t, pool0, fire_t0, refund0, v2):
+    return (valid.new_empty(mips.shape, dtype=torch.bool), mips.new_empty(()),
+            valid.new_empty((), dtype=torch.bool))
+
+
+@_scan_rows_op.register_fake
+def _scan_rows_fake(mips, valid, t, pool0, fire_t0, refund0, v2):
+    R = mips.shape[:1]
+    return (valid.new_empty(mips.shape, dtype=torch.bool), mips.new_empty(R),
+            valid.new_empty(R, dtype=torch.bool))
+
+
 def local_pool_scan(
     mips: torch.Tensor, valid: torch.Tensor, t: torch.Tensor,
     pool0: torch.Tensor, fire_t0: torch.Tensor, refund0: torch.Tensor, v2: bool,

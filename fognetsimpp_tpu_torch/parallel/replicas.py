@@ -22,7 +22,6 @@ import torch
 from ..core.engine import run_batched
 from ..dynspec import DynSpec, dyn_to_device
 from ..chaos.faults import refold_chaos_state
-from ..envelope import check_slice
 from ..net.mobility import MobilityBounds
 from ..net.topology import NetParams
 from ..random import PRNGKey, fold_in, split, uniform
@@ -75,7 +74,6 @@ def replicate_state(
     (:func:`fold_replica_chaos_keys`), its first crash gaps and RTT
     phases drawn again from it (:func:`..chaos.faults.refold_chaos_state`).
     """
-    check_slice(spec)
     R = int(n_replicas)
     keys = split(PRNGKey(seed, state.t.device), R)
     batch = broadcast_state(state, R).replace(key=keys)
@@ -114,7 +112,6 @@ def run_replicated(
     device), so each replica runs its own promoted knob values; ``spec``
     is then the grid's shared shape key.  ``None`` runs every replica on
     the spec's own values as host constants."""
-    check_slice(spec)
     if dyn_rows is not None and not isinstance(dyn_rows.learn_discount, torch.Tensor):
         dyn_rows = dyn_to_device(dyn_rows, batch.t.device)
     return run_batched(spec, batch, net, bounds, n_ticks=n_ticks, dyn_rows=dyn_rows)[0]

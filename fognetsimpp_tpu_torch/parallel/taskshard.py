@@ -78,7 +78,6 @@ from ..core.engine import (
 from ..dynspec import (
     DynSpec, apply_knobs, div_knob, dyn_of, dyn_to_device, promote_default, split_spec,
 )
-from ..envelope import check_tp_slice
 from ..f32math import const, kept_tensor
 from ..net.mobility import MobilityBounds
 from ..net.topology import LinkCache, NetParams, associate
@@ -612,7 +611,6 @@ def _tp_setup(spec, state, net, n_shards, exchange_window, pad, stamp=True):
     reason = tp_reject_reason(spec)
     if reason is not None:
         raise ValueError(f"run_tp_sharded: {reason}")
-    check_tp_slice(spec, net)
     n = int(n_shards)
     if n < 1:
         raise ValueError(f"n_shards must be >= 1, got {n}")

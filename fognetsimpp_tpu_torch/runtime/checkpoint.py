@@ -16,6 +16,9 @@ from typing import Tuple
 
 import numpy as np
 
+import torch.utils._pytree as pytree
+
+from ..core.contracts import assert_same_struct
 from ..spec import WorldSpec
 from ..state import WorldState, init_state, state_from_numpy, state_to_numpy, tree_leaves
 from .recorder import dict_to_spec, spec_to_dict
@@ -37,20 +40,24 @@ def load(path: str, device=None) -> Tuple[WorldSpec, WorldState]:
         spec_d = json.loads(bytes(z["spec_json"]).decode())
         leaves = [z[f"leaf_{i}"] for i in range(len(z.files) - 1)]
     spec = dict_to_spec(spec_d)
-    skeleton = tree_leaves(init_state(spec, device="cpu"))
-    if len(leaves) != len(skeleton):
+    skeleton = init_state(spec, device="cpu")
+    names = [name for name, _ in tree_leaves(skeleton)]
+    if len(leaves) != len(names):
         raise ValueError(
             f"checkpoint {path!r} has {len(leaves)} state leaves, spec "
-            f"expects {len(skeleton)} — saved by an incompatible "
+            f"expects {len(names)} — saved by an incompatible "
             "WorldState layout"
         )
-    # each leaf's shape and dtype against the spec's skeleton (keys are
-    # uint32 on file, int64 words in the port)
-    for (name, ref), a in zip(skeleton, leaves):
-        want = np.uint32 if name == "key" or name.endswith(".key") else ref.numpy().dtype
-        if tuple(a.shape) != tuple(ref.shape) or a.dtype != want:
-            raise ValueError(
-                f"checkpoint {path!r}: leaf {name} is {a.dtype}{list(a.shape)}, "
-                f"the spec's skeleton {np.dtype(want)}{list(ref.shape)}"
-            )
+    # each leaf's shape and dtype against the spec's skeleton (the carry
+    # contract, core/contracts.py); keys are uint32 on file, int64 words
+    # in the port
+    on_file = [
+        a.astype(np.int64) if a.dtype == np.uint32 and (n == "key" or n.endswith(".key"))
+        else a
+        for n, a in zip(names, leaves)
+    ]
+    assert_same_struct(
+        skeleton, pytree.tree_unflatten(on_file, pytree.tree_structure(skeleton)),
+        what=f"checkpoint {path!r}",
+    )
     return spec, state_from_numpy(leaves, device)

@@ -32,7 +32,6 @@ import torch
 
 from . import random as trandom
 from .device import resolve_device
-from .envelope import check_slice
 from .spec import NodeKind, Policy, WorldSpec
 from .struct import Struct, register_pytree  # noqa: F401 (re-exported)
 from .telemetry.metrics import TelemetryState, init_telemetry_state
@@ -274,7 +273,6 @@ def init_state(
     device=None,
 ) -> WorldState:
     """The t=0 world for ``spec`` (``fognetsimpp_tpu.state.init_state``)."""
-    check_slice(spec)
     dev = resolve_device(device)
     if key is None:
         key = trandom.PRNGKey(0, dev)

@@ -4,7 +4,8 @@ Both write one npz: ``leaf_<i>`` in JAX's leaf order and ``spec_json``.
 A checkpoint written by JAX and resumed by the port continues as JAX's
 own resume does, every leaf bit for bit, and the other way round; the
 port writes the same file JAX writes for the same state; a leaf whose
-shape or dtype is not the spec's is refused.
+shape or dtype is not the spec's is refused with the carry contract's
+``ContractError``, as JAX refuses it.
 """
 import jax
 import numpy as np
@@ -14,6 +15,7 @@ import torch
 from fognetsimpp_tpu.core import engine as jengine
 from fognetsimpp_tpu.runtime import checkpoint as jckpt
 from fognetsimpp_tpu.scenarios import wireless as jwireless
+from fognetsimpp_tpu_torch.core import contracts as tcontracts
 from fognetsimpp_tpu_torch.core import engine as tengine
 from fognetsimpp_tpu_torch.runtime import checkpoint as tckpt
 from fognetsimpp_tpu_torch.scenarios import wireless as twireless
@@ -92,9 +94,34 @@ def test_load_refuses_a_leaf_off_the_spec(worlds, tmp_path):
     z = dict(np.load(path))
     z["leaf_3"] = z["leaf_3"][:-1]
     np.savez(path, **z)
-    with pytest.raises(ValueError, match="leaf"):
+    with pytest.raises(tcontracts.ContractError, match="leaf"):
         tckpt.load(path, device="cpu")
     z.pop(f"leaf_{len(z) - 2}")
     np.savez(path, **z)
     with pytest.raises(ValueError, match="state leaves"):
         tckpt.load(path, device="cpu")
+
+
+def test_checkpoint_load_rejects_drifted_leaf(worlds, tmp_path):
+    """``tests/test_contracts.py``'s case on both packages: an int8 leaf
+    rewritten as int32 is refused by either loader with an
+    ``AssertionError`` (each package's ``ContractError``) naming int32;
+    the clean file still loads in both."""
+    from fognetsimpp_tpu.core import contracts as jcontracts
+
+    (jspec, jst, _, _), _ = worlds
+    path = str(tmp_path / "ck.npz")
+    jckpt.save(path, jspec, jst)
+    jckpt.load(path)
+    tckpt.load(path, device="cpu")
+    with np.load(path) as z:
+        data = {k: z[k] for k in z.files}
+    victim = next(k for k, v in data.items() if k.startswith("leaf_") and v.dtype == np.int8)
+    data[victim] = data[victim].astype(np.int32)
+    np.savez_compressed(path, **data)
+    with pytest.raises(jcontracts.ContractError, match="int32") as jerr:
+        jckpt.load(path)
+    with pytest.raises(tcontracts.ContractError, match="int32") as terr:
+        tckpt.load(path, device="cpu")
+    assert isinstance(jerr.value, AssertionError) and isinstance(terr.value, AssertionError)
+    assert "nodes.kind" in str(terr.value) and "nodes.kind" in str(jerr.value)

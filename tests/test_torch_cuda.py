@@ -1119,3 +1119,100 @@ def test_series_tick_does_not_synchronise(cuda, name):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert buf.host()["t"].shape == (4,)
+
+
+# ----------------------------------------------------------------------
+# the runtime sanitizer and the carry contracts on the card
+# ----------------------------------------------------------------------
+
+#: ``bench.py::_build_bench_world`` at dt 5 ms (``chip_smoke.bench_world``),
+#: its 20 ticks cut to 8.
+_BENCH = dict(
+    n_users=10_000, n_fogs=32, fog_mips=(1000.0, 2000.0, 3000.0, 4000.0),
+    send_interval=0.0025, horizon=0.04, dt=5e-3, max_sends_per_user=44,
+    max_sends_per_tick=2, queue_capacity=128, start_time_max=0.025,
+    derive_acks=True, arrival_window=4096,
+)
+
+
+def test_sanitized_bench_run_synchronises_once_and_equals_plain(cuda):
+    """``run_checkified(errors="div")`` on the bench world waits for the
+    card once, when it reads its flags at the end (torch's sync debug
+    mode warns once a synchronising call), and its final state equals
+    the plain card run's, every leaf."""
+    import warnings
+
+    spec, st, net, b = smoke.build(device=cuda, **_BENCH)
+    plain, _ = engine.run(spec, st, net, b)
+    spec, st, net, b = smoke.build(device=cuda, **_BENCH)
+    torch.cuda.synchronize()
+    ak.reset_launches()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            final, _ = engine.run_checkified(spec, st, net, b, errors="div")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
+    assert len(syncs) == 1
+    assert ak.LAUNCHES["fused_arrival_plan"] > 0
+    for x, y in zip(state_to_numpy(final), state_to_numpy(plain)):
+        assert x.dtype == y.dtype and x.tobytes() == y.tobytes()
+
+
+def test_planted_integer_division_by_zero_on_the_card_raises(cuda):
+    """An integer division by a zero on the card: no wait per operator,
+    the quotient computed on the repaired divisor, and ``throw`` names the
+    set and the first operator that tripped."""
+    from fognetsimpp_tpu_torch.core.sanitizer import CheckifyError, Sanitizer
+
+    a = torch.arange(1, 9, dtype=torch.int32, device=cuda)
+    d = torch.tensor([1, 2, 0, 4, 1, 2, 3, 4], dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with Sanitizer({"div"}, cuda) as s:
+            q = torch.div(a, d, rounding_mode="floor")
+            r = torch.remainder(a, d)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    with pytest.raises(CheckifyError, match="div") as e:
+        s.throw()
+    assert e.value.op == "aten::div"
+    assert q.tolist() == [1, 1, 3, 1, 5, 3, 2, 2] and r.tolist() == [0, 0, 0, 0, 0, 0, 1, 0]
+
+
+def test_planted_out_of_range_index_on_the_card_raises_and_the_card_goes_on(cuda):
+    """An access point's node index past the node table: the sanitized
+    card run raises naming ``oob`` without a device-side assert (the index
+    is repaired before the operator runs), and the card runs on."""
+    from fognetsimpp_tpu_torch.core.sanitizer import CheckifyError
+
+    spec, st, net, b = wireless.wireless5(device=cuda, numb_users=12, horizon=0.4)
+    ap = net.ap_nodes.clone()
+    ap[0] = spec.n_nodes + 3
+    with pytest.raises(CheckifyError, match="oob"):
+        engine.run_checkified(spec, st, net.replace(ap_nodes=ap), b, n_ticks=3, errors="oob")
+    final, _ = engine.run(spec, st, net, b, n_ticks=3)
+    assert int(final.tick) == 3
+
+
+def test_contracts_hold_on_card_states(cuda):
+    """The step, phase and fleet contracts on card tensors (fake copies:
+    nothing runs), and a planted promotion caught."""
+    from fognetsimpp_tpu_torch.core import contracts
+    from fognetsimpp_tpu_torch.parallel.replicas import replicate_state
+
+    spec, st, net, b = smoke.build(device=cuda, **_BENCH)
+    contracts.check_step_contract(spec, st, net, b)
+    assert contracts.check_phase_contracts(spec, st, net)
+    contracts.check_fleet_contract(spec, replicate_state(spec, st, 2, seed=0), net, b)
+    step = engine.make_step(spec)
+
+    def promoted(s, n, bb):
+        out = step(s, n, bb)
+        return out.replace(tasks=out.tasks.replace(stage=out.tasks.stage.to(torch.int32)))
+
+    with pytest.raises(contracts.ContractError, match="stage"):
+        contracts.check_step_contract(spec, st, net, b, step=promoted)
